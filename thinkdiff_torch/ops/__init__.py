@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (see thinkdiff_torch/__init__.py)."""
