@@ -45,18 +45,19 @@ def params():
     return jax.tree.map(np.array, {"vision": vp, "lm": lp})
 
 
-def _engines(params, quant):
+def _engines(params, quant, **kw):
     """(JAX engine, port engine) on the same tree: fp, or w8a8 LM with
-    fused projections (the slice's LM setting)."""
+    fused projections (the slice's LM setting); ``kw`` overrides
+    ENGINE_KW on both."""
     over = {"quant_int8": "w8a8", "fused_proj": True} if quant else {}
     tree = dict(params)
     if quant:
         tree["lm"] = jax.tree.map(np.array, jm.fuse_qwen2_params(
             jq.quantize_tree(params["lm"], min_size=0, w8a8=True)))
     jeng = je.EmbedEngine(jm.Qwen2VLConfig.tiny(**over), tree, _tokenizer(),
-                          **ENGINE_KW)
+                          **{**ENGINE_KW, **kw})
     teng = te.EmbedEngine(tm.Qwen2VLConfig.tiny(**over), tree, _tokenizer(),
-                          **ENGINE_KW)
+                          device="cpu", **{**ENGINE_KW, **kw})
     return jeng, teng
 
 
@@ -171,43 +172,226 @@ def test_sampling_distribution_matches_nucleus_law():
     assert tv < 4.0 * np.sqrt(max(len(keep), 2) / (2 * np.pi * n)), tv
 
 
-UNSUPPORTED = {
-    "max_num_seqs_64": {"max_num_seqs": 64},
-    "prefill_chunk": {"prefill_chunk": 128},
-    "preadmit_wave": {"preadmit_wave": 64},
-    "eos_lag": {"eos_lag": 2},
-    "gumbel_sampler": {"sampler": "gumbel"},
+
+
+# ---------------------------------------------------------------------------
+# Schedulers: the dense refill branch and the paged branch of generate_many
+# ---------------------------------------------------------------------------
+
+SCHED_KW = dict(max_tokens=10, min_tokens=2)
+
+
+@pytest.fixture(scope="module")
+def sched_engines(params):
+    """One (JAX, port) engine pair per LM mode, shared by the scheduler
+    cases (each case sets its knobs on both and restores them), so the JAX
+    side compiles each shape once."""
+    return {q: _engines(params, q, **SCHED_KW) for q in (False, True)}
+
+
+def _requests(n, images=False):
+    """n prompts of varied length; with ``images`` every third request
+    carries a small image (so image rows land inside prefill chunks)."""
+    from PIL import Image
+
+    prompts = [f"describe thing number {i} " + "pad " * (5 * (i % 4))
+               for i in range(n)]
+    if not images:
+        return {"prompts": prompts}
+    rs = np.random.RandomState(1)
+    imgs = [[Image.fromarray((rs.rand(16, 24, 3) * 255).astype("uint8"))]
+            if i % 3 == 0 else None for i in range(n)]
+    return {"answers": prompts, "images": imgs}
+
+
+def _stop_lengths(n, seed=0):
+    """Seeded per-request lengths for the count-only stop hook."""
+    return np.random.RandomState(seed).randint(2, SCHED_KW["max_tokens"] + 1,
+                                               size=n).tolist()
+
+
+# name -> (generate_many kwargs, engine attributes, request count, images)
+SCHED_CASES = {
+    "dense_refill": (dict(slots=2, chunk=4, paged=False), {}, 7, False),
+    "paged": (dict(slots=3, chunk=4, paged=True), {}, 9, False),
+    "paged_chunked_prefill": (dict(slots=3, chunk=4, paged=True),
+                              dict(prefill_chunk=64), 9, True),
+    "paged_preadmit_1": (dict(slots=2, chunk=4, paged=True),
+                         dict(preadmit_wave=1), 9, False),
+    "paged_preadmit_4": (dict(slots=3, chunk=4, paged=True),
+                         dict(preadmit_wave=4, prefill_chunk=64), 11, True),
+    "paged_eos_lag_1": (dict(slots=3, chunk=4, paged=True),
+                        dict(eos_lag=1), 10, False),
+    "paged_eos_lag_2": (dict(slots=3, chunk=4, paged=True),
+                        dict(eos_lag=2, preadmit_wave=4, prefill_chunk=64),
+                        10, True),
+    "paged_refill_batch": (dict(slots=4, chunk=4, paged=True,
+                                refill_batch=2), {}, 9, False),
+    "paged_lazy_tokens": (dict(slots=3, chunk=4, paged=True),
+                          dict(ignore_eos=True, lazy_tokens=True), 8, False),
+    "paged_sync_tokens": (dict(slots=3, chunk=4, paged=True),
+                          dict(ignore_eos=True, lazy_tokens=False), 8, False),
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNSUPPORTED))
-def test_unsupported_settings_raise(params, name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.EmbedEngine(tm.Qwen2VLConfig.tiny(), params, _tokenizer(),
-                       **UNSUPPORTED[name])
+def _check_same(got, want):
+    assert got.output_token_ids == want.output_token_ids
+    assert got.prompt_token_ids == want.prompt_token_ids
+    assert got.texts == want.texts
+    assert got.input_prompts == want.input_prompts
+    for i in range(len(want.output_token_ids)):
+        _bf16_close(got.hidden_states[i], want.hidden_states[i])
+        _bf16_close(got.prompt_hidden_states[i], want.prompt_hidden_states[i])
 
 
-@pytest.mark.parametrize("kw", [{"paged": True}, {"slots": 64},
-                                {"slots": 2}], ids=["paged", "64_slots",
-                                                    "dense_refill"])
-def test_generate_many_outside_the_slice_raises(params, kw):
-    _, teng = _engines(params, False)
-    teng.max_tokens = 64  # > chunk, so a refill scheduler would be needed
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.generate_many({"prompts": ["a", "b", "c"]}, **kw)
+def _run_both(jeng, teng, samples, attrs, lengths, **kw):
+    saved = [{k: getattr(e, k, None) for k in (*attrs, "stop_len_fn")}
+             for e in (jeng, teng)]
+    try:
+        for e in (jeng, teng):
+            for k, v in attrs.items():
+                setattr(e, k, v)
+            e.stop_len_fn = lambda req, m: m >= lengths[req]
+        want = jeng.generate_many(samples, seed=3, **kw)
+        got = teng.generate_many(samples, seed=3, **kw)
+    finally:
+        for e, old in zip((jeng, teng), saved):
+            for k, v in old.items():
+                setattr(e, k, v)
+    return got, want
 
 
-def test_shipped_config_needs_the_slice_overrides(params):
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "w8a8"])
+@pytest.mark.parametrize("case", sorted(SCHED_CASES))
+def test_scheduler_matches_jax(sched_engines, case, quant):
+    """Greedy token streams, texts and prompts identical to the JAX engine's
+    generate_many, hidden states within _bf16_close, for each scheduler and
+    serving knob; seeded stop lengths make requests finish early so slots
+    refill (and, with eos_lag, finish while chunks are in flight)."""
+    kw, attrs, n, images = SCHED_CASES[case]
+    jeng, teng = sched_engines[quant]
+    attrs = dict(attrs)
+    if kw.get("paged"):
+        attrs["kv_page_size"] = 8
+    got, want = _run_both(jeng, teng, _requests(n, images), attrs,
+                          _stop_lengths(n), **kw)
+    _check_same(got, want)
+    assert set(teng.last_phase_stats) == set(jeng.last_phase_stats)
+    assert teng.last_phase_stats["chunks"] == jeng.last_phase_stats["chunks"]
+    assert any(len(t) < SCHED_KW["max_tokens"] for t in got.output_token_ids)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "w8a8"])
+def test_preprepared_matches_jax(sched_engines, quant):
+    """Streaming admission: prepare_requests, then generate_many(...,
+    preprepared=...), on both engines."""
+    jeng, teng = sched_engines[quant]
+    samples = _requests(7, images=True)
+    lengths = _stop_lengths(7, seed=1)
+    for e in (jeng, teng):
+        e.kv_page_size = 8
+        e.stop_len_fn = lambda req, m: m >= lengths[req]
+    try:
+        want = jeng.generate_many(samples, seed=5, slots=3, chunk=4,
+                                  paged=True,
+                                  preprepared=jeng.prepare_requests(samples))
+        got = teng.generate_many(samples, seed=5, slots=3, chunk=4,
+                                 paged=True,
+                                 preprepared=teng.prepare_requests(samples))
+    finally:
+        for e in (jeng, teng):
+            e.stop_len_fn = None
+    _check_same(got, want)
+    assert teng.last_phase_stats["prepare_total"] < 0.05
+
+
+def test_preprepared_must_match_the_samples(sched_engines):
+    _, teng = sched_engines[False]
+    prep = teng.prepare_requests(_requests(3))
+    with pytest.raises(ValueError, match="preprepared"):
+        teng.generate_many(_requests(4), slots=2, chunk=4, paged=True,
+                           preprepared=prep)
+
+
+def test_gumbel_sampler_at_temperature_0_matches_jax(params, monkeypatch):
+    """sampler 'gumbel' at temperature 0 (the fused kernel's noise-free
+    argmax) through the paged scheduler with chunked prefill, so both the
+    first token and the decode steps go through the fused sampler; the JAX
+    side runs its Pallas kernel in interpret mode."""
+    from thinkdiff_tpu.ops import fused_sample as jfs
+
+    monkeypatch.setattr(jfs, "available", lambda: True)
+    monkeypatch.setattr(jfs, "INTERPRET", True)
+    jeng, teng = _engines(params, True, sampler="gumbel", prefill_chunk=64,
+                          **SCHED_KW)
+    assert teng._fused_sampler_pack() is not None
+    lengths = _stop_lengths(6, seed=2)
+    got, want = _run_both(jeng, teng, _requests(6), {"kv_page_size": 8},
+                          lengths, slots=3, chunk=4, paged=True)
+    _check_same(got, want)
+
+
+def test_gumbel_sampler_needs_a_w8a8_lm(params):
+    _, teng = _engines(params, False, sampler="gumbel")
+    assert teng._fused_sampler_pack() is None
+
+
+def test_fused_pack_follows_the_eos_set(params):
+    """The pack bakes the EOS columns in; it is rebuilt when eos_ids or
+    ignore_eos change (the JAX engine keeps the first one)."""
+    _, teng = _engines(params, True, sampler="gumbel")
+    first = teng._fused_sampler_pack()
+    assert teng._fused_sampler_pack() is first
+    assert float(first["eos_bias"][242]) < -1e29
+    teng.ignore_eos = True
+    assert float(teng._fused_sampler_pack()["eos_bias"].min()) == 0.0
+
+
+def _shipped_model_cfg():
     with open(Path(__file__).resolve().parents[1] / "configs"
               / "qwen2_vl_embed_ccsbu.yaml") as f:
-        model_cfg = yaml.safe_load(f)["model"]
-    with pytest.raises(NotImplementedError):
-        te.EmbedEngine(tm.Qwen2VLConfig.tiny(), params, _tokenizer(),
-                       **te.engine_kwargs(model_cfg))
-    model_cfg["vllm_config"].update(
-        max_num_seqs=8, enable_chunked_prefill=False, prefill_chunk=0,
-        preadmit_wave=0, eos_lag=0)
-    kw = te.engine_kwargs(model_cfg)
+        return yaml.safe_load(f)["model"]
+
+
+def test_shipped_config_builds_as_written(params):
+    """configs/qwen2_vl_embed_ccsbu.yaml's serving settings, unmodified,
+    build the port's engine."""
+    kw = te.engine_kwargs(_shipped_model_cfg())
+    assert (kw["max_num_seqs"], kw["prefill_chunk"], kw["preadmit_wave"],
+            kw["eos_lag"], kw["kv_page_size"]) == (256, 128, 64, 2, 64)
     assert (kw["temperature"], kw["top_p"], kw["max_tokens"]) == (0.6, 0.9, 256)
-    eng = te.EmbedEngine(tm.Qwen2VLConfig.tiny(), params, _tokenizer(), **kw)
-    assert eng.max_num_seqs == 8 and eng.top_k_prefilter == 64
+    eng = te.EmbedEngine(tm.Qwen2VLConfig.tiny(), params, _tokenizer(),
+                         device="cpu", **kw)
+    assert eng.max_num_seqs == 256 and eng.prefill_chunk == 128
+    assert eng.sampler == "exact" and eng.top_k_prefilter == 64
+
+
+def test_forward_with_the_shipped_vllm_config_matches_jax(params):
+    """MllamaVllmGenerateModel.forward with the shipped vllm_config as
+    written except max_num_seqs 4 and prefill_chunk 64, greedy: eight
+    requests over four slots go through generate_many's dense refill
+    branch (slots <= 32; max_tokens 40 > the 32-step chunk) with chunked
+    prefill on both engines."""
+    cfg = _shipped_model_cfg()
+    cfg["vllm_config"].update(max_num_seqs=4, prefill_chunk=64)
+    kw = te.engine_kwargs(cfg)
+    kw.update(temperature=0.0, max_tokens=40, min_pixels=8 * 8,
+              max_pixels=64 * 64, eos_ids=[242, 241])
+    kw.pop("prompt_format")
+    jeng = je.EmbedEngine(jm.Qwen2VLConfig.tiny(), params, _tokenizer(), **kw)
+    teng = te.EmbedEngine(tm.Qwen2VLConfig.tiny(), params, _tokenizer(),
+                          device="cpu", **kw)
+    lengths = _stop_lengths(8, seed=3)
+    for e in (jeng, teng):
+        e.stop_len_fn = lambda req, m: m >= lengths[req]
+    batch = _requests(8, images=True)
+    batch = {"answers": batch["answers"], "images": batch["images"]}
+    want = je.MllamaVllmGenerateModel(cfg, engine=jeng).forward(batch)
+    got = te.MllamaVllmGenerateModel(cfg, engine=teng).forward(batch)
+    for key in ("generated_texts", "input_prompts", "prompt_token_ids",
+                "output_token_ids", "embedding_layer_name"):
+        assert got[key] == want[key], key
+    for a, b in zip(got["hidden_states"], want["hidden_states"]):
+        _bf16_close(a, b)
+    for a, b in zip(got["prompt_hidden_states"], want["prompt_hidden_states"]):
+        _bf16_close(a, b)

@@ -1,0 +1,195 @@
+"""Port parity: thinkdiff_torch.ops.fused_sample against the JAX package's
+fused lm_head + sampler (its Pallas kernel in interpret mode, noise off),
+the Gumbel transform, and the port's counter-based noise."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from thinkdiff_torch.ops import fused_sample as tfs
+from thinkdiff_tpu.ops import fused_sample as jfs
+
+
+def _quantize(w):
+    amax = np.abs(w).max(axis=0)
+    scale = np.where(amax == 0, 1.0, amax / 127.0).astype(np.float32)
+    q = np.clip(np.round(w / scale[None]), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def _both(x, q, scale, blocked, **pack_kw):
+    """Ids from the JAX kernel (interpret, noise off) and from the port."""
+    jpack = jfs.pack_lm_head(q, scale, **pack_kw)
+    want = np.asarray(jfs.fused_lm_sample(
+        jnp.asarray(x), jpack, jnp.asarray(blocked), jnp.zeros(2, jnp.int32),
+        temperature=0.0, noise=False, interpret=True))
+    tpack = tfs.pack_lm_head(torch.from_numpy(q), torch.from_numpy(scale),
+                             **pack_kw)
+    got = tfs.fused_lm_sample(
+        torch.from_numpy(x), tpack, torch.from_numpy(blocked),
+        torch.zeros(2, dtype=torch.int32), temperature=0.0, noise=False)
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("input_scale", [False, True])
+def test_pack_lm_head_identical(input_scale):
+    rs = np.random.RandomState(0)
+    d, v = 64, 300
+    q, scale = _quantize(rs.randn(d, v).astype(np.float32))
+    iscale = (rs.rand(d).astype(np.float32) + 0.5) if input_scale else None
+    want = jfs.pack_lm_head(q, scale, input_scale=iscale, eos_ids=[5, 299, 400])
+    got = tfs.pack_lm_head(torch.from_numpy(q), torch.from_numpy(scale),
+                           input_scale=iscale, eos_ids=[5, 299, 400])
+    for key in ("q", "scale", "inv_input", "pad_bias", "eos_bias"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
+                                      err_msg=key)
+    assert (got["block_n"], got["vocab"]) == (want["block_n"], want["vocab"])
+    # the JAX-layout q is a view of the kernel's (Vp, D) storage
+    assert got["qt"].shape == (512, d) and got["qt"].is_contiguous()
+    assert got["q"].data_ptr() == got["qt"].data_ptr()
+
+
+def test_greedy_with_eos_blocking_and_padding_matches_jax():
+    rs = np.random.RandomState(0)
+    b, d, v = 16, 128, 300
+    q, scale = _quantize(rs.randn(d, v).astype(np.float32) * 0.05)
+    x = rs.randn(b, d).astype(np.float32)
+    blocked = np.zeros(b, np.float32)
+    blocked[:5] = 1.0
+    got, want = _both(x, q, scale, blocked, eos_ids=[5, 7])
+    np.testing.assert_array_equal(got, want)
+    assert not np.isin(got[:5], [5, 7]).any()
+
+
+def test_first_occurrence_tie_break_matches_jax():
+    """Duplicate maxima in three vocab blocks resolve to the lowest column."""
+    b, d, v = 8, 128, 384
+    rs = np.random.RandomState(1)
+    w = rs.randn(d, v).astype(np.float32) * 0.01
+    for c in (7, 130, 260):
+        w[:, c] = w[:, 7] + (10.0 if c == 7 else 0.0)
+    w[:, 130] = w[:, 7]
+    w[:, 260] = w[:, 7]
+    q, scale = _quantize(w)
+    for c in (130, 260):
+        q[:, c], scale[c] = q[:, 7], scale[7]
+    x = np.abs(rs.randn(b, d)).astype(np.float32)
+    got, want = _both(x, q, scale, np.zeros(b, np.float32), block_n=128)
+    np.testing.assert_array_equal(got, want)
+    assert (got == 7).all()
+
+
+def test_tiny_vocab_block_shrink_matches_jax():
+    rs = np.random.RandomState(2)
+    b, d, v = 8, 64, 100
+    q, scale = _quantize(rs.randn(d, v).astype(np.float32))
+    tpack = tfs.pack_lm_head(torch.from_numpy(q), torch.from_numpy(scale))
+    assert tpack["block_n"] == 128 and tpack["q"].shape == (1, d, 128)
+    got, want = _both(rs.randn(b, d).astype(np.float32), q, scale,
+                      np.zeros(b, np.float32))
+    np.testing.assert_array_equal(got, want)
+    assert (got < v).all()
+
+
+def _uniform_jax(bits):
+    top24 = np.asarray(bits >> np.uint32(8)).astype(np.int32)
+    return (jnp.asarray(top24).astype(jnp.float32) + 0.5) * (2.0 ** -24)
+
+
+def test_bits_to_gumbel_matches_jax():
+    """The uniform u = (top 24 bits + 0.5) * 2^-24 is bit-identical to the
+    JAX transform's; the two f32 logs after it are each within an ulp of
+    XLA's own (XLA's CPU log is not correctly rounded, so the last bit can
+    differ), which bounds |g_port - g_jax| by 4e-7 + 2 ulp(g)."""
+    rs = np.random.RandomState(3)
+    bits = np.concatenate([
+        rs.randint(0, 2 ** 32, size=200_000, dtype=np.uint64).astype(np.uint32),
+        np.array([0, 1, 255, 256, 2 ** 31, 2 ** 32 - 257], np.uint32)])
+    bits = bits[(bits >> 8) != 2 ** 24 - 1]  # the repaired pattern, below
+    tbits = torch.from_numpy(bits.astype(np.int64))
+    u_port = ((tbits >> 8).float() + 0.5) * (2.0 ** -24)
+    np.testing.assert_array_equal(u_port.numpy(), np.asarray(_uniform_jax(bits)))
+    want = np.asarray(jfs._bits_to_gumbel(jnp.asarray(bits)))
+    got = tfs.bits_to_gumbel(tbits).numpy()
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    ulp = np.spacing(np.abs(want).astype(np.float32))
+    assert (np.abs(got - want) <= 4e-7 + 2 * ulp).all()
+    assert np.mean(got == want) > 0.5
+
+
+def test_bits_to_gumbel_top_pattern_is_finite():
+    """Top bits 2^24 - 1: JAX's f32 sum rounds to 2^24, u to 1 and g to
+    +inf (a column that wins any argmax, padding and blocked EOS included;
+    about 0.9% of 153,600-column rows hold one). The port clamps u below 1:
+    a large finite draw, above every other pattern's."""
+    top = np.array([0xFFFFFFFF, 0xFFFFFF00], np.uint32)
+    assert np.isinf(np.asarray(jfs._bits_to_gumbel(jnp.asarray(top)))).all()
+    got = tfs.bits_to_gumbel(torch.from_numpy(top.astype(np.int64)))
+    below = tfs.bits_to_gumbel(torch.tensor([0xFFFFFEFF]))
+    assert torch.isfinite(got).all() and (got > below).all()
+
+
+def test_gumbel_noise_is_keyed_on_seed_row_and_column():
+    """Counter-based draws: a (row, col) draw does not depend on the shape
+    asked for, and another seed gives other draws; the law is Gumbel(0,1)."""
+    seed = torch.tensor([12345, -7], dtype=torch.int32)
+    g = tfs.gumbel_noise(seed, 64, 3000)
+    np.testing.assert_array_equal(tfs.gumbel_noise(seed, 8, 1000).numpy(),
+                                  g[:8, :1000].numpy())
+    other = tfs.gumbel_noise(torch.tensor([12346, -7], dtype=torch.int32), 8, 100)
+    assert (other != g[:8, :100]).float().mean() > 0.99
+    flat = g.numpy().ravel()
+    assert abs(flat.mean() - 0.57722) < 0.02
+    assert abs(flat.var() - np.pi ** 2 / 6) < 0.05
+
+
+def test_noise_sampling_follows_the_temperature_softmax():
+    """noise=True on one fixed row drawn 40,000 times (one seed each):
+    the total-variation distance between the draws and softmax(logits / T)
+    stays inside the sampling-noise envelope 4 * sqrt(V / (2 pi N))."""
+    rs = np.random.RandomState(4)
+    d, v, temp, n = 64, 16, 0.6, 40_000
+    q, scale = _quantize(rs.randn(d, v).astype(np.float32) * 0.3)
+    pack = tfs.pack_lm_head(torch.from_numpy(q), torch.from_numpy(scale))
+    x = torch.from_numpy(rs.randn(1, d).astype(np.float32)).repeat(n, 1)
+    # one row per draw: the key's row index makes every draw independent
+    ids = tfs.fused_lm_sample(x, pack, torch.zeros(n),
+                              torch.tensor([99, 1], dtype=torch.int32),
+                              temperature=temp, noise=True).numpy()
+    xq, sx = tfs._quantize_input(x[:1], pack)
+    logits = (xq.double() @ torch.from_numpy(q).double()).float() * sx[:, None] \
+        * torch.from_numpy(scale)[None]
+    p = torch.softmax(logits[0] / temp, dim=-1).numpy()
+    emp = np.bincount(ids, minlength=v)[:v] / n
+    tv = 0.5 * np.abs(emp - p).sum()
+    assert tv < 4.0 * np.sqrt(v / (2 * np.pi * n)), tv
+
+
+def test_reference_adds_the_given_noise():
+    rs = np.random.RandomState(5)
+    d, v, b = 32, 128, 4
+    q, scale = _quantize(rs.randn(d, v).astype(np.float32))
+    pack = tfs.pack_lm_head(torch.from_numpy(q), torch.from_numpy(scale))
+    x = torch.from_numpy(rs.randn(b, d).astype(np.float32))
+    noise = torch.full((b, v), -1e9)
+    noise[torch.arange(b), torch.tensor([3, 50, 77, 127])] = 1e9
+    got = tfs.fused_lm_sample_reference(x, pack, torch.zeros(b),
+                                        temperature=0.7, noise=noise)
+    assert got.tolist() == [3, 50, 77, 127]
+
+
+def test_tied_embedding_pack_matches_jax():
+    """2B-style tied embeddings: the (V, D) table quantized per token into
+    the pack, as the JAX engine's _fused_sampler_pack does it."""
+    rs = np.random.RandomState(6)
+    emb = (rs.randn(300, 64) * 0.05).astype(np.float32)
+    amax = np.abs(emb).max(axis=1)
+    scale = np.where(amax == 0, 1.0, amax / 127.0).astype(np.float32)
+    q = np.clip(np.round(emb / scale[:, None]), -127, 127).astype(np.int8)
+    want = jfs.pack_lm_head(q.T, scale, eos_ids=[7])
+    got = tfs.pack_tied_embedding(torch.from_numpy(emb), [7])
+    for key in ("q", "scale", "inv_input", "pad_bias", "eos_bias"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
+                                      err_msg=key)

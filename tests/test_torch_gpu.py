@@ -121,3 +121,89 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype):
     tol = _bf16_ulp(ref) if dtype == torch.bfloat16 else 1e-5 * (
         1 + ref.float().abs())
     assert (err <= tol).all(), float(err.max())
+
+
+def _paged_inputs(cuda, slots, h, hkv, page, lengths, seed=0):
+    """bf16 pools with each slot's pages drawn from a shuffled free list,
+    page 0 (trash) and every position past a slot's length filled with
+    garbage that must not leak into the output."""
+    rs = np.random.RandomState(seed)
+    d = 128
+    mp = max(-(-int(n) // page) for n in lengths)
+    npages = [-(-int(n) // page) for n in lengths]
+    ids = rs.permutation(np.arange(1, 1 + sum(npages) + 3))
+    table = np.zeros((slots, mp), np.int32)
+    o = 0
+    for s, n in enumerate(npages):
+        table[s, :n] = ids[o:o + n]
+        o += n
+    pool = len(ids) + 1
+    k = _randn((pool, hkv, page, d), seed + 1, cuda)
+    v = _randn((pool, hkv, page, d), seed + 2, cuda)
+    k[0], v[0] = 3e3, -3e3
+    for s, n in enumerate(lengths):
+        off = int(n) % page
+        if off:
+            last = int(table[s, npages[s] - 1])
+            k[last, :, off:], v[last, :, off:] = 1e3, -1e3
+    q = _randn((slots, h, d), seed + 3, cuda)
+    return (q, k, v, torch.from_numpy(table).to(cuda),
+            torch.tensor(lengths, dtype=torch.int32, device=cuda))
+
+
+# paged decode: bf16 pools, f32 softmax in both; tolerance 4e-3 + 1e-2*|ref|
+# covers the bf16 rounding of both outputs (up to one ulp apart, 2^-8 at
+# |ref| < 1) and another summation order
+@pytest.mark.parametrize("slots,h,hkv,page,lengths", [
+    (6, 12, 2, 64, [1, 64, 65, 130, 600, 7]),
+    (4, 8, 2, 16, [1, 16, 17, 100]),
+    (3, 4, 4, 64, [200, 3, 129]),
+])
+def test_paged_attention_kernel_matches_plain(cuda, slots, h, hkv, page,
+                                              lengths):
+    from thinkdiff_torch.ops.paged_attention import (
+        paged_attention, paged_attention_reference)
+
+    q, k, v, table, lens = _paged_inputs(cuda, slots, h, hkv, page, lengths)
+    before = kernels.launch_counts()["paged_attention"]
+    out = paged_attention(q, k, v, table, lens)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_attention"] == before + 1
+    ref = paged_attention_reference(q, k, v, table, lens)
+    err = (out.float() - ref.float()).abs()
+    assert torch.isfinite(out.float()).all()
+    assert (err <= 4e-3 + 1e-2 * ref.float().abs()).all(), float(err.max())
+
+
+def _sample_case(cuda, b, d, v, seed=0):
+    from thinkdiff_torch.ops.fused_sample import pack_lm_head
+
+    w = _randn((d, v), seed, cuda, torch.float32) * 0.05
+    qw = quantize_weight(w)
+    pack = pack_lm_head(qw["q"], qw["scale"], eos_ids=[3, v - 1])
+    x = _randn((b, d), seed + 1, cuda, torch.float32)
+    blocked = (torch.arange(b, device=cuda) % 3 == 0).float()
+    return x, pack, blocked
+
+
+@pytest.mark.parametrize("b,d,v", [(5, 64, 300), (64, 1536, 20000),
+                                   (130, 1536, 5000), (256, 1536, 20000)])
+@pytest.mark.parametrize("noise", [False, True])
+def test_fused_sample_kernel_matches_plain(cuda, b, d, v, noise):
+    """Ids identical to the plain version on the same inputs: exact int32
+    sums, the same f32 operations in the same order, and with noise the
+    same keyed Gumbel draws (gumbel_noise)."""
+    from thinkdiff_torch.ops.fused_sample import (
+        fused_lm_sample, fused_lm_sample_reference, gumbel_noise)
+
+    x, pack, blocked = _sample_case(cuda, b, d, v)
+    seed = torch.tensor([1234, 99], dtype=torch.int32, device=cuda)
+    got = fused_lm_sample(x, pack, blocked, seed, temperature=0.6,
+                          noise=noise)
+    torch.cuda.synchronize()
+    g = gumbel_noise(seed, b, pack["qt"].shape[0]) if noise else None
+    want = fused_lm_sample_reference(x, pack, blocked, temperature=0.6,
+                                     noise=g)
+    assert torch.equal(got, want)
+    assert (got < v).all()
+    assert not ((blocked > 0) & ((got == 3) | (got == v - 1))).any()

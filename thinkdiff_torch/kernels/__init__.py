@@ -14,7 +14,8 @@ from typing import Dict, Optional
 
 # kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0, "s8_matmul": 0,
-                            "rmsnorm": 0}
+                            "rmsnorm": 0, "paged_attention": 0,
+                            "fused_lm_sample": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _build_info: Dict[str, object] = {}
@@ -22,10 +23,15 @@ _build_info: Dict[str, object] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "thinkdiff_s8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "thinkdiff_flash_fwd": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "thinkdiff_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _F, _P],
+    "thinkdiff_fused_sample": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _F, _I, _P],
 }
 
 

@@ -7,8 +7,9 @@ tree key for key. The decoder exposes the final-RMSNorm hidden states (the
 ``model.norm`` tap the embedding engine returns) for prefill and decode.
 
 Attention: the vision tower and the one-shot prefill run the flash kernel
-(ops/flash_attention); decode steps attend over the dense KV cache
-(ops/decode_attention), which they update in place.
+(ops/flash_attention); decode steps and prefill chunks attend over a dense
+KV cache (ops/decode_attention), and paged decode steps over the page pool
+(ops/paged_attention kernel); both caches are updated in place.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from thinkdiff_torch.models.qdense import QDense, concat_dense_params
 from thinkdiff_torch.ops.decode_attention import decode_attention, update_kv_cache
 from thinkdiff_torch.ops.flash_attention import flash_attention
 from thinkdiff_torch.ops.norms import layernorm, rmsnorm
+from thinkdiff_torch.ops.paged_attention import paged_attention, paged_update_kv
 from thinkdiff_torch.ops.rope import apply_rope, mrope_cos_sin
 
 NEG_INF = -1e30
@@ -321,15 +323,19 @@ class Qwen2Attention(nn.Module):
         self.o_proj = qd(self.q_sz, D, False)
 
     def forward(self, x, cos, sin, mask=None, cache: Optional[Cache] = None,
-                cache_len=None):
+                cache_len=None, attn_window: Optional[int] = None,
+                page_table=None):
         """x: (B, T, D); cos/sin: (B, T, hd/2) M-RoPE tables.
 
         No cache: causal self attention, with ``mask`` (B, T) as a key
         padding bias. Cache (k, v) of shape (B, Hkv, S, hd) and no
         ``cache_len``: one-shot prefill into the empty cache — the same
         causal flash attention, then the T entries are written at positions
-        0..T-1. Cache and ``cache_len`` (B,): decode — the T new entries
-        are written at cache_len (in place) and attend the valid prefix.
+        0..T-1. Cache and ``cache_len`` (B,): decode or a prefill chunk —
+        the T new entries are written at cache_len (in place) and attend
+        the valid prefix; ``attn_window`` bounds the cache positions read.
+        With ``page_table`` (B, MP) the cache is the (k_pool, v_pool) page
+        pool (P, Hkv, PAGE, hd) and T must be 1 (paged decode).
         Returns (out, cache)."""
         cfg = self.cfg
         b, t, _ = x.shape
@@ -344,7 +350,13 @@ class Qwen2Attention(nn.Module):
         v = v.reshape(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
         q, k = apply_rope(q, k, cos[:, None], sin[:, None])
 
-        if cache is None or cache_len is None:
+        if page_table is not None:
+            if t != 1:
+                raise ValueError("paged decode is single-token")
+            paged_update_kv(cache[0], cache[1], k, v, page_table, cache_len)
+            out = paged_attention(q[:, :, 0], cache[0], cache[1], page_table,
+                                  cache_len + 1)[:, :, None]
+        elif cache is None or cache_len is None:
             bias = None
             if mask is not None:
                 bias = (1.0 - mask.float())[:, None, None, :] * NEG_INF
@@ -355,6 +367,9 @@ class Qwen2Attention(nn.Module):
         else:
             k_cache, v_cache, _ = update_kv_cache(cache[0], cache[1], k, v,
                                                   cache_len)
+            if attn_window is not None and attn_window < k_cache.shape[2]:
+                k_cache = k_cache[:, :, :attn_window]
+                v_cache = v_cache[:, :, :attn_window]
             out = decode_attention(q, k_cache, v_cache, cache_len + t)
         out = out.transpose(1, 2).reshape(b, t, cfg.num_heads * hd)
         return self.o_proj(out), cache
@@ -376,9 +391,10 @@ class Qwen2Block(nn.Module):
             self.up_proj = qd(D, I)
         self.down_proj = qd(I, D)
 
-    def forward(self, x, cos, sin, mask=None, cache=None, cache_len=None):
+    def forward(self, x, cos, sin, mask=None, cache=None, cache_len=None,
+                attn_window=None, page_table=None):
         h, cache = self.self_attn(self.input_norm(x), cos, sin, mask, cache,
-                                  cache_len)
+                                  cache_len, attn_window, page_table)
         x = x + h
         y = self.post_attn_norm(x)
         if self.cfg.fused_proj:
@@ -401,16 +417,19 @@ class Qwen2Decoder(nn.Module):
                             device)
 
     def forward(self, input_embeds, position_ids, mask=None, caches=None,
-                cache_len=None):
+                cache_len=None, attn_window=None, page_table=None):
         """input_embeds (B, T, D); position_ids (3, B, T). Returns
-        (norm_hidden, caches): the 'model.norm' tap the engine exports."""
+        (norm_hidden, caches): the 'model.norm' tap the engine exports.
+        ``caches`` holds one (k, v) per layer: dense caches, or the layer's
+        page pools when ``page_table`` is given."""
         cfg = self.cfg
         cos, sin = mrope_cos_sin(position_ids, cfg.head_dim,
                                  list(cfg.mrope_section), cfg.rope_theta)
         x = input_embeds.to(cfg.dtype)
         for i, layer in enumerate(self.layers):
             x, _ = layer(x, cos, sin, mask,
-                         caches[i] if caches is not None else None, cache_len)
+                         caches[i] if caches is not None else None, cache_len,
+                         attn_window, page_table)
         return self.norm(x), caches
 
 
@@ -449,7 +468,8 @@ class Qwen2VLModel(nn.Module):
 
     def forward(self, input_ids=None, input_embeds=None, position_ids=None,
                 mask=None, caches=None, cache_len=None, image_embeds=None,
-                image_mask=None, compute_logits=True):
+                image_mask=None, compute_logits=True, attn_window=None,
+                page_table=None):
         """image_embeds (B, T, D) replace the embeddings where image_mask
         (B, T) is 1. Returns (logits or None, hidden, caches)."""
         if input_embeds is None:
@@ -459,7 +479,8 @@ class Qwen2VLModel(nn.Module):
                 image_mask[..., None] > 0,
                 image_embeds.to(input_embeds.dtype), input_embeds)
         hidden, caches = self.decoder(input_embeds, position_ids, mask,
-                                      caches, cache_len)
+                                      caches, cache_len, attn_window,
+                                      page_table)
         logits = self.logits(hidden) if compute_logits else None
         return logits, hidden, caches
 

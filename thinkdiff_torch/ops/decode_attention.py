@@ -1,7 +1,8 @@
 """KV-cache attention for autoregressive decode (counterpart of
 thinkdiff_tpu/ops/decode_attention.py): the dense static-cache formulation
-with length masking, in plain PyTorch on every device. The paged kernel
-that serves many slots comes with the paged scheduler.
+with length masking, in plain PyTorch on every device. It serves the
+dense decode paths and the chunks of chunked prefill, and is the gather
+oracle of the paged kernel (ops/paged_attention).
 """
 
 from __future__ import annotations
@@ -40,12 +41,15 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, cache_len):
     """Write the Tq new entries of each sequence at positions
     cache_len[b] .. cache_len[b] + Tq - 1, IN PLACE (the JAX version returns
     updated copies; here the caches are overwritten to save their memory).
+    A start past S - Tq is clamped to S - Tq, as JAX's dynamic_update_slice
+    does: a slot decoding on after its request ended writes there.
 
     k_new, v_new: (B, Hkv, Tq, D). Returns (k_cache, v_cache, cache_len + Tq).
     """
     b, tq = k_new.shape[0], k_new.shape[2]
     rows = torch.arange(b, device=k_cache.device)[:, None]
-    cols = cache_len.to(k_cache.device)[:, None] + torch.arange(
+    start = torch.clamp(cache_len.to(k_cache.device), max=k_cache.shape[2] - tq)
+    cols = start[:, None] + torch.arange(
         tq, device=k_cache.device)[None, :]
     # advanced indices on dims 0 and 2 put (B, Tq) first: (B, Tq, Hkv, D)
     k_cache[rows, :, cols] = k_new.transpose(1, 2).to(k_cache.dtype)

@@ -1,0 +1,206 @@
+"""Fused lm_head + token sampling for decode (counterpart of
+thinkdiff_tpu/ops/fused_sample.py).
+
+The sampler never materializes the (B, V) logits: the int8 lm_head streams
+column tile by column tile, each tile's logits are biased (and perturbed)
+in registers, and a running first-occurrence argmax leaves only (B,) token
+ids. Two modes:
+
+  noise=False  exact argmax of ``logits * inv_temp + biases``: greedy, the
+               same ids as an argmax over the w8a8 logits.
+  noise=True   Gumbel-max: argmax(logits / T + G), exact temperature-softmax
+               sampling over the full vocabulary (no nucleus truncation).
+
+Biases, applied before the noise (the masking order of ``sample_logits``):
+``pad_bias`` -1e30 on the columns that pad the vocabulary to a whole number
+of blocks; ``eos_bias`` -1e30 on EOS columns, scaled per row by ``blocked``
+(1.0 while a row's EOS is still forbidden by min_tokens).
+
+The noise is a counter-based hash of (seed, row, vocabulary column), so a
+draw depends on neither the kernel's tiling nor the padding, and
+``gumbel_noise`` reproduces the kernel's draws exactly. The TPU kernel drew
+from the chip's own generator; the two give different streams of the same
+law. On a CUDA tensor ``fused_lm_sample`` launches the hand-written kernel
+of ``csrc/fused_sample.cu``; on a CPU tensor it runs
+``fused_lm_sample_reference`` on the same noise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from thinkdiff_torch import kernels
+from thinkdiff_torch.ops.quant import _absmax_quant_rows
+
+_NEG = -1e30
+_M32 = 0xFFFFFFFF
+_U_MAX = 1.0 - 2.0 ** -24  # the largest f32 below 1
+_KERNEL_TILE = 128  # vocabulary columns per block of the CUDA kernel
+
+
+def bits_to_gumbel(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 random bits (any integer tensor holding values < 2^32) ->
+    Gumbel(0, 1) f32: u = (top 24 bits + 0.5) * 2^-24, g = -log(-log(u)),
+    the JAX package's transform, with one repair: for top bits 2^24 - 1 the
+    f32 sum rounds to 2^24, u to 1.0 and g to +inf, a column that would win
+    every argmax (padding and blocked EOS columns included); u is clamped
+    to the largest f32 below 1 instead."""
+    top24 = (bits.long() & _M32) >> 8
+    u = torch.clamp((top24.float() + 0.5) * (2.0 ** -24), max=_U_MAX)
+    return -torch.log(-torch.log(u))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32), without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32, the kernel's hash (a bijection of 32-bit words)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(seed2: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """The kernel's Gumbel draws as a (rows, cols) f32 tensor on seed2's
+    device: bits = mix32(mix32(((row << 20) | col) ^ seed[0]) ^ seed[1])."""
+    dev = seed2.device
+    s = seed2.long() & _M32
+    key = ((torch.arange(rows, device=dev)[:, None] << 20)
+           | torch.arange(cols, device=dev)[None, :])
+    return bits_to_gumbel(_mix32(_mix32(key ^ s[0]) ^ s[1]))
+
+
+def pack_lm_head(kernel_q, kernel_scale, input_scale=None,
+                 eos_ids: Sequence[int] = (), block_n: int = 2048
+                 ) -> Dict[str, Any]:
+    """Pad the (D, V) int8 lm_head to a block_n-multiple vocabulary Vp and
+    build the bias vectors, once per engine. Returns the JAX package's pack
+    {q (Vp/bn, D, bn), scale, inv_input, pad_bias, eos_bias, block_n,
+    vocab} plus ``qt``, the (Vp, D) K-contiguous storage the CUDA kernel
+    reads; ``q`` is a view of it in the JAX layout, not a second copy."""
+    w = kernel_q if isinstance(kernel_q, torch.Tensor) else torch.from_numpy(
+        np.asarray(kernel_q))
+    device = w.device
+    d, v = w.shape
+    bn = int(block_n)
+    while bn > 128 and bn > v:  # tiny test vocabularies: the 128 floor
+        bn //= 2
+    vp = -(-v // bn) * bn
+    qt = torch.zeros((vp, d), dtype=torch.int8, device=device)
+    qt[:v] = w.t().to(device=device, dtype=torch.int8)
+    scale = torch.ones(vp, dtype=torch.float32, device=device)
+    scale[:v] = torch.as_tensor(kernel_scale, dtype=torch.float32,
+                                device=device)
+    pad_bias = torch.zeros(vp, dtype=torch.float32, device=device)
+    pad_bias[v:] = _NEG
+    eos_bias = torch.zeros(vp, dtype=torch.float32, device=device)
+    for e in eos_ids:
+        if 0 <= int(e) < v:
+            eos_bias[int(e)] = _NEG
+    inv_input = (1.0 / torch.as_tensor(input_scale, dtype=torch.float32,
+                                       device=device)
+                 if input_scale is not None
+                 else torch.ones(d, dtype=torch.float32, device=device))
+    return {"q": qt.view(vp // bn, bn, d).permute(0, 2, 1), "qt": qt,
+            "scale": scale, "inv_input": inv_input, "pad_bias": pad_bias,
+            "eos_bias": eos_bias, "block_n": bn, "vocab": v}
+
+
+def pack_tied_embedding(embedding: torch.Tensor,
+                        eos_ids: Sequence[int] = ()) -> Dict[str, Any]:
+    """The pack of a tied-embedding lm_head (2B): the (V, D) table quantized
+    per token (absmax / 127, round half to even, clip +-127), which is the
+    kernel's (Vp, D) layout already. Greedy fused and exact (the bf16
+    attend() product) are then no longer bit-identical."""
+    w = embedding.float()
+    amax = w.abs().amax(dim=1)
+    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    q = torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8)
+    del w
+    return pack_lm_head(q.t(), scale, eos_ids=eos_ids)
+
+
+def _quantize_input(x: torch.Tensor, pack):
+    xs = x.float() * pack["inv_input"][None]
+    return _absmax_quant_rows(xs)
+
+
+def fused_lm_sample_reference(x, pack, blocked, *, temperature: float,
+                              noise: Optional[torch.Tensor] = None):
+    """The plain version: the exact int32 logits (float64 sums), the same
+    f32 arithmetic in the same order as the kernel, then argmax (first
+    occurrence). ``noise`` (B, Vp) f32, e.g. ``gumbel_noise(seed2, B, Vp)``,
+    is added when given; inv_temp is 1/T then (else 1)."""
+    xq, sx = _quantize_input(x, pack)
+    qt = pack["qt"]
+    acc = (xq.double() @ qt.double().t()).float()             # exact sums
+    inv_temp = 1.0 / temperature if (noise is not None
+                                     and temperature > 0) else 1.0
+    logits = acc * sx[:, None] * pack["scale"][None]
+    per = (logits * inv_temp + pack["pad_bias"][None]
+           + blocked.float()[:, None] * pack["eos_bias"][None])
+    if noise is not None:
+        per = per + noise
+    return torch.argmax(per, dim=-1)
+
+
+def _fused_lm_sample_cuda(x, pack, blocked, seed2, temperature, noise):
+    qt = pack["qt"]
+    vp, d = qt.shape
+    b = x.shape[0]
+    if x.shape != (b, d) or blocked.shape != (b,):
+        raise ValueError(f"fused_lm_sample: bad shapes x {tuple(x.shape)} "
+                         f"blocked {tuple(blocked.shape)} pack ({vp}, {d})")
+    if qt.dtype != torch.int8 or not qt.is_contiguous():
+        raise TypeError("fused_lm_sample kernel takes the pack's contiguous "
+                        "int8 (Vp, D) storage")
+    if d % 16 or vp % _KERNEL_TILE or vp > (1 << 20) or b >= 4096:
+        raise ValueError(f"fused_lm_sample kernel: D={d} must be a multiple "
+                         f"of 16, Vp={vp} of {_KERNEL_TILE} and <= 2^20, "
+                         f"B={b} < 4096")
+    xq, sx = _quantize_input(x, pack)
+    xq = xq.contiguous()
+    seed = seed2.to(device=x.device, dtype=torch.int32).contiguous()
+    blk = blocked.to(device=x.device, dtype=torch.float32).contiguous()
+    n_tiles = vp // _KERNEL_TILE
+    part_val = torch.empty((b, n_tiles), dtype=torch.float32, device=x.device)
+    part_col = torch.empty((b, n_tiles), dtype=torch.int32, device=x.device)
+    ids = torch.empty((b,), dtype=torch.int32, device=x.device)
+    inv_temp = 1.0 / temperature if (noise and temperature > 0) else 1.0
+    rc = kernels.library().thinkdiff_fused_sample(
+        kernels.ptr(xq), kernels.ptr(sx), kernels.ptr(qt),
+        kernels.ptr(pack["scale"]), kernels.ptr(pack["pad_bias"]),
+        kernels.ptr(pack["eos_bias"]), kernels.ptr(blk), kernels.ptr(seed),
+        kernels.ptr(part_val), kernels.ptr(part_col), kernels.ptr(ids), b, d,
+        vp, float(inv_temp), int(bool(noise)), kernels.stream_of(x))
+    kernels.check_launch(rc, "fused_lm_sample")
+    kernels.count_launch("fused_lm_sample")
+    return ids.long()
+
+
+def fused_lm_sample(x, pack, blocked, seed2, *, temperature: float,
+                    noise: bool) -> torch.Tensor:
+    """x (B, D) float hidden states; pack from ``pack_lm_head``; blocked (B,)
+    f32 (1.0 = EOS masked for the row); seed2 (2,) int32 on x's device
+    (read only when noise). Returns (B,) int64 token ids.
+
+    The QDense w8a8 lm_head semantics: x / input_scale in f32 -> per-row
+    absmax int8 -> s8 x s8 product -> float(acc) * sx * kernel_scale."""
+    if x.is_cuda:
+        return _fused_lm_sample_cuda(x, pack, blocked, seed2, temperature,
+                                     noise)
+    if x.device.type == "cpu":
+        g = (gumbel_noise(seed2, x.shape[0], pack["qt"].shape[0])
+             if noise else None)
+        return fused_lm_sample_reference(x, pack, blocked,
+                                         temperature=temperature, noise=g)
+    raise NotImplementedError(f"fused_lm_sample: no kernel for {x.device}")
