@@ -9,32 +9,51 @@ non-zero:
   2. build    — compiles the CUDA kernels from csrc/ (one nvcc per source,
                 all started together) into build/;
   3. kernels  — each hand-written kernel against its plain PyTorch version
-                at the serving shapes, bf16, tolerance printed, with the
-                median of 20 timed runs after 3 warm-ups for the kernel, the
-                plain version and, where one PyTorch call computes the same
-                function, that call (library_ms; the port never calls it);
-                the least time the card could take (bound_ms) comes from the
-                bytes and operations of the inputs;
-  4. dense slice — configs/qwen2_vl_embed_ccsbu.yaml with the static-batch
+                at the serving and the training shapes, bf16, tolerance
+                printed, with the median of 20 timed runs after 3 warm-ups
+                for the kernel, the plain version and, where one PyTorch
+                call computes the same function, that call (library_ms; the
+                port never calls it); the least time the card could take
+                (bound_ms) comes from the bytes and operations of the
+                inputs. The flash backward (dq, dk/dv) is checked on T5's
+                self- and cross-attention of a packed batch (pad query rows
+                that see no key, poisoned) and a GQA D=128 case, with the
+                forward's lse; the s8 input gradient on every projection;
+  4. train-w8a8 — the LVLM aligner's training step, the main path of this
+                slice: configs/train_thinkdiff_lvlm_ccsbu.yaml's model and
+                run sections with bench.py's overrides (w8a8 frozen
+                flan-t5-xxl decoder at full width and depth, fused
+                projections, CE chunk 128, Qwen2-VL-7B width 3584) on
+                bench.py's packed batches (4 rows x 256/256, seed 0): 16
+                batches, one warm pass, two timed passes; losses and
+                gradient norms finite, projector updated, every kernel's
+                launches equal to the count derived from the config; a
+                2-layer copy's loss and projector gradients against the same
+                step on the CPU's plain versions; 10 steps on one batch at
+                lr 1e-3 must lower the loss; one step under torch.profiler;
+  5. train-yaml — the shipped YAML as written (bf16 frozen T5, unfused,
+                CE chunk 32) on 4 padded batches of 32 (bench.py's buckets);
+  6. dense slice — configs/qwen2_vl_embed_ccsbu.yaml with the static-batch
                 overrides (8 slots, no chunked prefill, no prefill-ahead, no
                 pipelined EOS): 8 requests through MllamaVllmGenerateModel
                 .forward, the one path whose prefill runs the flash kernel;
-  5. paged slice — the same YAML as written (256 slots, prefill_chunk 128,
+  7. paged slice — the same YAML as written (256 slots, prefill_chunk 128,
                 preadmit_wave 64, eos_lag 2, exact nucleus sampler) on 512
                 requests of one 448x448 image, each stopped at a seeded
                 length from N(80, 40) clipped to [8, 256];
-  6. gumbel slice — the YAML with sampler gumbel and 64 slots, 128
+  8. gumbel slice — the YAML with sampler gumbel and 64 slots, 128
                 requests: the fused sampler serves first tokens and decode;
-  7. profile  — one paged decode step at 256 slots under torch.profiler:
+  9. profile  — one paged decode step at 256 slots under torch.profiler:
                 device-busy share and the top kernels.
-Every slice runs Qwen2-VL-2B at full width and depth on seeded random
+Every serving slice runs Qwen2-VL-2B at full width and depth on seeded random
 weights (w8a8 LM with fused projections, weight-only int8 vision) and the
 stand-in tokenizer, on the engine's default device. Each checks output
 shapes, finiteness, vocabulary range and stop lengths, that the kernels of
 its path launched (counts set to 0 just before, read just after), and a
 teacher-forced forward over one request that reproduces its served hidden
-states. The last two lines are a JSON object with per-kernel results and
-{"ok": true, "device": {...}}.
+states. The last two lines are a JSON object with per-kernel results
+(launches of #1-#3 and #5-#7 from the train-w8a8 timed passes, #4 from the
+paged slice, #8 from the gumbel slice) and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -51,6 +70,24 @@ import numpy as np
 import torch
 
 CONFIG = Path(__file__).resolve().parent / "configs" / "qwen2_vl_embed_ccsbu.yaml"
+TRAIN_CONFIG = (Path(__file__).resolve().parent / "configs"
+                / "train_thinkdiff_lvlm_ccsbu.yaml")
+# bench.py's operating point (bench.py:155-192)
+BENCH_OVERRIDES = {"load_pretrained": False, "quantize_frozen": "int8_dyn",
+                   "chunked_ce": 128, "vlm_hidden_size": 3584,
+                   "t5_config": {"fused_proj": True, "dropout_rate": 0.0}}
+BENCH_ROWS, BENCH_CAP, BENCH_BATCHES = 4, 256, 16
+# gradient check of the 2-layer copy against the CPU's plain versions: the
+# loss agreed to 3.7e-7 and the projector gradients to a cosine of 0.99654
+# at worst (NVIDIA H100 80GB HBM3, 700 W): each side quantizes its own bf16
+# activations and gradients to int8 per row, so an element one rounding
+# apart moves one quantum, which bounds the agreement
+GRAD_LOSS_TOL, GRAD_COS_MIN = 2e-6, 0.995
+# cosine does not see a gradient's scale: each leaf's gradient norm, card
+# over CPU, must also lie in this band. Measured 0.99947-1.00154 over the
+# five leaves (same card); a band of about three times that spread still
+# catches any scale fault in the wiring above half a percent
+GRAD_NORM_RATIO = (0.995, 1.005)
 # the dense static-batch serving slice of the precompute configuration
 DENSE_OVERRIDES = {"max_num_seqs": 8, "enable_chunked_prefill": False,
                    "prefill_chunk": 0, "preadmit_wave": 0, "eos_lag": 0}
@@ -60,6 +97,14 @@ SEED = 0
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+# flash backward tolerance, a fraction of each gradient's largest magnitude:
+# the kernels round P and dS to bf16 for their products and the gradients
+# to bf16; measured at most 0.0075 (dk/dv of the cross-attention; NVIDIA
+# H100 80GB HBM3, 700 W), so twice that
+BWD_TOL = 1.5e-2
+# the forward's lse against the plain logsumexp: measured 7.6e-6 (a few
+# f32 ulps at |lse| ~ 30-60, the sums of exp taken in another order)
+LSE_TOL = 3e-5
 TPU_KERNELS = {
     "flash_attention_fwd": ("cuda", "thinkdiff_torch/csrc/flash_fwd.cu",
                             "thinkdiff_tpu/ops/flash_attention.py:64"),
@@ -71,7 +116,16 @@ TPU_KERNELS = {
                         "thinkdiff_tpu/ops/paged_attention.py:77"),
     "fused_lm_sample": ("cuda", "thinkdiff_torch/csrc/fused_sample.cu",
                         "thinkdiff_tpu/ops/fused_sample.py:75"),
+    "flash_attention_dq": ("cuda", "thinkdiff_torch/csrc/flash_bwd.cu",
+                           "thinkdiff_tpu/ops/flash_attention.py:359"),
+    "flash_attention_dkv": ("cuda", "thinkdiff_torch/csrc/flash_bwd.cu",
+                            "thinkdiff_tpu/ops/flash_attention.py:438"),
+    "s8_matmul_bwd": ("cuda", "thinkdiff_torch/csrc/s8_gemm_bwd.cu",
+                      "thinkdiff_tpu/ops/int8_matmul.py:371"),
 }
+# the kernels whose launches come from the training step
+TRAIN_KERNELS = ("flash_attention_fwd", "s8_matmul", "rmsnorm",
+                 "flash_attention_dq", "flash_attention_dkv", "s8_matmul_bwd")
 
 
 def say(phase: str, msg: str) -> None:
@@ -162,22 +216,26 @@ def check(name, shape, run, plain, ok, tol_text, work, library=None,
     """Kernel vs plain on the same inputs, then the three timings; ``work``
     is (bytes, operations, operand type) of the function. Returns the
     shape's record."""
-    out = run()
+    outs, refs = run(), plain()
     torch.cuda.synchronize()
-    ref = plain()
-    torch.cuda.synchronize()
-    if not torch.isfinite(out.float()).all():
-        raise AssertionError(f"{name} {shape}: non-finite output")
-    err = (out.float() - ref.float()).abs()
-    max_err = float(err.max())
-    if not bool(ok(err, ref.float()).all()):
-        raise AssertionError(f"{name} {shape}: max |err| {max_err} outside "
-                             f"{tol_text}")
+    if not isinstance(outs, tuple):
+        outs, refs = (outs,), (refs,)
+    max_err = max_rel = 0.0
+    for out, ref in zip(outs, refs):
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"{name} {shape}: non-finite output")
+        err = (out.float() - ref.float()).abs()
+        max_err = max(max_err, float(err.max()))
+        max_rel = max(max_rel, float(err.max() / ref.float().abs().max()
+                                     .clamp_min(1e-30)))
+        if not bool(ok(err, ref.float()).all()):
+            raise AssertionError(f"{name} {shape}: max |err| "
+                                 f"{float(err.max())} outside {tol_text}")
     ms, plain_ms = time_ms(run), time_ms(plain)
     lib_ms = time_ms(library) if library is not None else None
     b_ms, b_by = bound_ms(*work)
-    say("kernels", f"{name} {shape}: max|err| {max_err:.3g} within "
-        f"{tol_text}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+    say("kernels", f"{name} {shape}: max|err| {max_err:.3g} ({max_rel:.3g} "
+        f"of max|ref|) within {tol_text}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
         + f", bound {b_ms:.4f} ms ({b_by}: {work[0] / 1e6:.1f} MB, "
         f"{work[1] / 1e9:.2f} G {work[2]} ops)")
@@ -202,8 +260,7 @@ def kernels_flash(results):
         lambda: mha_reference(q, k, v, None, None, False, 80 ** -0.5),
         ok, tol, (nbytes(q, k, v, q), 4 * q.numel() * 1024, "bf16"),
         library=lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       scale=80 ** -0.5),
-        main=True))
+                                                       scale=80 ** -0.5)))
     # LM one-shot prefill (dense slice): causal + key-padding bias, GQA 12:2
     q = randn((8, 12, 512, 128), 4)
     k, v = randn((8, 2, 512, 128), 5), randn((8, 2, 512, 128), 6)
@@ -251,8 +308,7 @@ def kernels_s8(results):
                     xq, sx, wq, s),
                 lambda e, ref: e <= bf16_ulp(ref), "1 bf16 ulp",
                 (nbytes(xq, sx, wq, scale, y), 2 * r * kk * n, "int8"),
-                library=library if r >= 32 else None,
-                main=(r, proj) == (256, "gate_up")))
+                library=library if r >= 32 else None))
 
 
 def kernels_rmsnorm(results):
@@ -268,8 +324,7 @@ def kernels_rmsnorm(results):
             lambda x=x, s=scale: rmsnorm_reference(x, s, 1e-6),
             lambda e, ref: e <= bf16_ulp(ref), "1 bf16 ulp",
             (nbytes(x, scale, x), 4 * x.numel(), "bf16"),
-            library=lambda x=x, s=scale: F.rms_norm(x, (1536,), s, 1e-6),
-            main=r == 256))
+            library=lambda x=x, s=scale: F.rms_norm(x, (1536,), s, 1e-6)))
 
 
 def kernels_paged(results):
@@ -350,15 +405,464 @@ def kernels_fused_sample(results):
                 work, main=b == 64 and use_noise))
 
 
+
+# ---------------------------------------------------------------------------
+# Kernels at the training shapes (bench.py's packed batch: B4, T 256/256)
+# ---------------------------------------------------------------------------
+
+def packed_segments():
+    """dec/enc segment ids (4, 256) of bench.py's first packed batch."""
+    from thinkdiff_torch.data.synthetic import build_batches_packed
+
+    (b,), _ = build_batches_packed(np.random.RandomState(SEED), 1, BENCH_ROWS,
+                                   BENCH_CAP, BENCH_CAP, 8, 32128)
+    return (torch.from_numpy(b["dec_segments"]).cuda(),
+            torch.from_numpy(b["enc_segments"]).cuda())
+
+
+def attention_cases():
+    """(label, q, k, v, dO, kwargs) of the training step's attentions at
+    bench.py's point (64 heads of 64, sm_scale 1) and one GQA D=128 case."""
+    dec, enc = packed_segments()
+    b, t = dec.shape
+    q, k, v, do = (randn((b, 64, t, 64), s) for s in (30, 31, 32, 33))
+    bias = randn((1, 64, t, t), 34, torch.float32) * 0.5  # relative bias
+    yield ("self B4 H64 T256 D64 causal+rel bias+packed segments", q, k, v,
+           do, dict(bias=bias, kv_mask=None, causal=True, sm_scale=1.0,
+                    q_segment_ids=dec, kv_segment_ids=dec))
+    yield ("cross B4 H64 256x256 D64 kv_mask+packed segments (pad rows see "
+           "no key)", q, k, v, do,
+           dict(bias=None, kv_mask=(enc > 0).int(), causal=False,
+                sm_scale=1.0, q_segment_ids=dec, kv_segment_ids=enc))
+    q, do = randn((b, 16, t, 128), 35), randn((b, 16, t, 128), 36)
+    k, v = randn((b, 4, t, 128), 37), randn((b, 4, t, 128), 38)
+    yield ("GQA B4 Hq16 Hkv4 T256 D128 causal", q, k, v, do,
+           dict(bias=None, kv_mask=None, causal=True, sm_scale=128 ** -0.5,
+                q_segment_ids=None, kv_segment_ids=None))
+
+
+def kernels_attention_train(results):
+    import torch.nn.functional as F
+
+    from thinkdiff_torch.ops import flash_attention as fa
+
+    names = ("bias", "kv_mask", "causal", "sm_scale", "q_segment_ids",
+             "kv_segment_ids")
+    # flash forward: as the serving rows; backward: the kernels round P and
+    # dS to bf16 for their products and dq/dk/dv to bf16 (2^-8 relative
+    # each) where the plain version keeps f32
+    fwd_tol = "2e-2 + 2e-2*|ref| (P rounded to bf16; bf16 output)"
+    bwd_tol = f"{BWD_TOL:g} * max|ref| per tensor (P, dS rounded to bf16)"
+    bwd_ok = lambda e, r: e <= BWD_TOL * r.abs().max()
+    for i, (label, q, k, v, do, kw) in enumerate(attention_cases()):
+        args = [kw[n] for n in names]
+        ok = fa._allowed(q, k, kw["kv_mask"], kw["causal"],
+                         kw["q_segment_ids"], kw["kv_segment_ids"])
+        full = (q.shape[0], 1, q.shape[2], k.shape[2])
+        ok = torch.ones(full, dtype=torch.bool, device="cuda") if ok is None \
+            else ok.expand(full)
+        pairs = int(ok.sum()) * q.shape[1]
+        dead = ~ok.any(-1)                                   # (B, 1, Tq)
+        d = q.shape[-1]
+        side = nbytes(*[x for x in (kw["bias"], kw["kv_mask"],
+                                    kw["q_segment_ids"], kw["kv_segment_ids"])
+                        if x is not None])
+        lse_bytes = q.shape[0] * q.shape[1] * q.shape[2] * 4
+        mask = torch.where(ok, 0.0, -1e30)
+        if kw["bias"] is not None:
+            mask = mask + kw["bias"]
+        mask = mask.to(torch.bfloat16)
+        gqa = q.shape[1] != k.shape[1]
+
+        out, lse = fa._forward_cuda(q, k, v, *args, with_lse=True)
+        lse_ref = fa.logsumexp_reference(q, k, *args)
+        lse_err = float((lse - lse_ref).abs().max())
+        if not lse_err <= LSE_TOL:
+            raise AssertionError(f"flash forward lse {label}: max |err| "
+                                 f"{lse_err} > {LSE_TOL:g}")
+        say("kernels", f"flash_attention_fwd lse {label}: max|err| "
+            f"{lse_err:.3g} within {LSE_TOL:g} of the plain logsumexp")
+        results["flash_attention_fwd"].append(check(
+            "flash_attention_fwd", "train " + label,
+            lambda: fa._forward_cuda(q, k, v, *args, with_lse=True)[0],
+            lambda: fa.mha_reference(q, k, v, *args),
+            lambda e, r: e <= 2e-2 + 2e-2 * r.abs(), fwd_tol,
+            (nbytes(q, k, v, q) + side + lse_bytes, 4 * pairs * d, "bf16"),
+            library=lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=kw["sm_scale"],
+                enable_gqa=gqa),
+            main=i == 0))
+
+        # the SDPA backward (dq, dk and dv in one call) as the yardstick
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                              scale=kw["sm_scale"],
+                                              enable_gqa=gqa)
+        library = lambda: torch.autograd.grad(sdpa, (qg, kg, vg), do,
+                                              retain_graph=True)
+        bargs = (q, k, v, *args, lse, do)
+        _, delta = fa.flash_dq_cuda(*bargs)
+        results["flash_attention_dq"].append(check(
+            "flash_attention_dq", label,
+            lambda: fa.flash_dq_cuda(*bargs)[0],
+            lambda: fa.flash_dq_reference(*bargs)[0], bwd_ok, bwd_tol,
+            (nbytes(q, k, v, do, q) + side + 2 * lse_bytes, 6 * pairs * d,
+             "bf16"), library=library, main=i == 0))
+        results["flash_attention_dkv"].append(check(
+            "flash_attention_dkv", label,
+            lambda: fa.flash_dkv_cuda(*bargs, delta),
+            lambda: fa.flash_dkv_reference(*bargs, delta), bwd_ok, bwd_tol,
+            (nbytes(q, k, v, do, k, v) + side + 2 * lse_bytes,
+             8 * pairs * d, "bf16"), library=library, main=i == 0))
+        if dead.any():
+            # pad query rows: finite, dq 0, and dk/dv bit-identical whether
+            # their dO is poisoned or zero
+            poisoned = torch.where(dead[..., None], torch.full_like(do, 1e4),
+                                   do)
+            zeroed = do * (~dead)[..., None].to(do.dtype)
+            a = fa.flash_attention_backward(q, k, v, *args, lse, poisoned)
+            z = fa.flash_attention_backward(q, k, v, *args, lse, zeroed)
+            torch.cuda.synchronize()
+            if not (all(torch.isfinite(x.float()).all() for x in a)
+                    and float((a[0].float() * dead[..., None]).abs().max()) == 0
+                    and torch.equal(a[1], z[1]) and torch.equal(a[2], z[2])):
+                raise AssertionError(f"flash backward {label}: pad rows leak")
+            say("kernels", f"flash backward {label}: {int(dead.sum())} pad "
+                "query rows per head with dO poisoned (1e4): gradients "
+                "finite, dq 0 there, dk/dv bit-identical to zeroed dO")
+
+
+TRAIN_PROJECTIONS = ((1024, 4096, 12288, "qkv"),
+                     (1024, 4096, 4096, "o, q"),
+                     (1024, 4096, 8192, "kv_fused"),
+                     (1024, 4096, 20480, "wi_fused"),
+                     (1024, 10240, 4096, "wo"),
+                     (512, 4096, 32128, "lm_head chunk"))
+
+
+def kernels_s8_train(results):
+    from thinkdiff_torch.ops.int8_matmul import (
+        s8_matmul, s8_matmul_bwd, s8_matmul_bwd_reference,
+        s8_matmul_reference)
+    from thinkdiff_torch.ops.quant import _absmax_quant_rows, quantize_weight
+
+    # every w8a8 projection of the xxl decoder at the packed batch's 1024
+    # rows, the lm_head at a CE chunk's 512 rows: forward (#2) and input
+    # gradient (#7), each identical to its float64 plain version
+    for r, kk, n, proj in TRAIN_PROJECTIONS:
+        qw = quantize_weight(randn((kk, n), 40, torch.float32) * 0.02)
+        w_kn = qw["q"]                              # (K, N) row-major
+        w_view = w_kn.t().contiguous().t()          # QDense's forward layout
+        w_nk = w_kn.t().contiguous()
+        scale = qw["scale"]
+        xq, sx = _absmax_quant_rows(randn((r, kk), 41, torch.float32))
+        gq, sg = _absmax_quant_rows(randn((r, n), 42, torch.float32))
+        y = torch.empty((r, n), dtype=torch.bfloat16, device="cuda")
+        dx = torch.empty((r, kk), dtype=torch.bfloat16, device="cuda")
+        main = proj == "wi_fused"
+        results["s8_matmul"].append(check(
+            "s8_matmul", f"train {proj} R{r} K{kk} N{n}",
+            lambda: s8_matmul(xq, sx, w_view, scale),
+            lambda: s8_matmul_reference(xq, sx, w_view, scale),
+            lambda e, ref: e <= bf16_ulp(ref), "1 bf16 ulp",
+            (nbytes(xq, sx, w_kn, scale, y), 2 * r * kk * n, "int8"),
+            library=lambda: (torch._int_mm(xq, w_kn).float() * sx[:, None]
+                             * scale[None]).to(torch.bfloat16), main=main))
+        results["s8_matmul_bwd"].append(check(
+            "s8_matmul_bwd", f"{proj} R{r} K{kk} N{n}",
+            lambda: s8_matmul_bwd(gq, sg, w_kn),
+            lambda: s8_matmul_bwd_reference(gq, sg, w_kn),
+            lambda e, ref: e == 0, "identical",
+            (nbytes(gq, sg, w_kn, dx), 2 * r * kk * n, "int8"),
+            library=lambda: (torch._int_mm(gq, w_nk).float()
+                             * sg[:, None]).to(torch.bfloat16), main=main))
+        del w_kn, w_view, w_nk, qw
+
+
+def kernels_rmsnorm_train(results):
+    import torch.nn.functional as F
+
+    from thinkdiff_torch.ops.norms import rmsnorm, rmsnorm_reference
+
+    x, scale = randn((1024, 4096), 43) * 3.0, randn((4096,), 44)
+    results["rmsnorm"].append(check(
+        "rmsnorm", "train R1024 D4096",
+        lambda: rmsnorm(x, scale, 1e-6),
+        lambda: rmsnorm_reference(x, scale, 1e-6),
+        lambda e, ref: e <= bf16_ulp(ref), "1 bf16 ulp",
+        (nbytes(x, scale, x), 4 * x.numel(), "bf16"),
+        library=lambda: F.rms_norm(x, (4096,), scale, 1e-6), main=True))
+
+
 def phase_kernels():
     results = {name: [] for name in TPU_KERNELS}
     kernels_flash(results["flash_attention_fwd"])
+    kernels_attention_train(results)
     kernels_s8(results["s8_matmul"])
+    kernels_s8_train(results)
     kernels_rmsnorm(results["rmsnorm"])
+    kernels_rmsnorm_train(results)
     kernels_paged(results["paged_attention"])
     kernels_fused_sample(results["fused_lm_sample"])
     torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------------------
+# Training slices
+# ---------------------------------------------------------------------------
+
+def train_config(overrides):
+    """The training YAML's model and run sections, with ``overrides`` on
+    the model section (t5_config merged)."""
+    import copy
+
+    import yaml
+
+    doc = yaml.safe_load(TRAIN_CONFIG.read_text())
+    model = copy.deepcopy(doc["model"])
+    for key, val in overrides.items():
+        if key == "t5_config":
+            model["t5_config"] = {**model.get("t5_config", {}), **val}
+        else:
+            model[key] = val
+    return model, dict(doc["run"])
+
+
+def check_finite(phase, metrics):
+    losses = torch.stack([m["loss"] for m in metrics]).float().cpu()
+    norms = torch.stack([m["grad_norm"] for m in metrics]).float().cpu()
+    if not (torch.isfinite(losses).all() and torch.isfinite(norms).all()):
+        raise AssertionError(f"{phase}: non-finite loss or gradient norm: "
+                             f"{losses.tolist()} {norms.tolist()}")
+    return losses, norms
+
+
+def expect_launches(phase, launches, per_step, steps, kinds):
+    want = {k: steps * per_step[k] for k in kinds}
+    got = {k: launches[k] for k in kinds}
+    if got != want:
+        raise AssertionError(f"{phase}: launches {got} != derived {want}")
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+def gradient_check(model_cfg, batch):
+    """A 2-layer copy of the w8a8 model at full width: loss and projector
+    gradients of one packed row on the card (the kernels) against the same
+    step through the plain versions on the CPU."""
+    from thinkdiff_torch.core.optim import tree_leaves, tree_map
+    from thinkdiff_torch.models.aligner_lvlm import MllamaT5EmbedDecoder
+    from thinkdiff_torch.models.bridge import load_params, tree_of
+    from thinkdiff_torch.models.t5 import T5ForConditionalGeneration
+
+    cfg = dict(model_cfg)
+    cfg["t5_config"] = {**cfg["t5_config"], "num_decoder_layers": 2}
+    model = MllamaT5EmbedDecoder(cfg, seed=SEED + 5)
+    row = {k: v[:1] for k, v in batch.items()}
+    cpu_t5 = T5ForConditionalGeneration(model.t5_cfg, device="cpu")
+    load_params(cpu_t5, tree_of(model.frozen["t5"], lambda _, t: t))
+    out = {}
+    for dev, frozen in ((model.device, model.frozen),
+                        (torch.device("cpu"), {"t5": cpu_t5})):
+        params = tree_map(lambda t: t.detach().to(dev, torch.float32,
+                                                  copy=True).requires_grad_(),
+                          model.trainable_params())
+        t0 = time.perf_counter()
+        loss = model.loss_fn(params, frozen,
+                             {k: torch.from_numpy(v).to(dev)
+                              for k, v in row.items()})
+        leaves = tree_leaves(params)
+        grads = torch.autograd.grad(loss, [p for _, p in leaves])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[dev.type] = (float(loss.detach()), {n: g.float().cpu() for (n, _), g in
+                                  zip(leaves, grads)},
+                    time.perf_counter() - t0)
+    (lk, gk, tk), (lp, gp, tp) = out[model.device.type], out["cpu"]
+    del model, cpu_t5
+    rel = abs(lk - lp) / abs(lp)
+    cos = {n: cosine(gk[n], gp[n]) for n in gk}
+    ratio = {n: float(gk[n].double().norm() / gp[n].double().norm())
+             for n in gk}
+    lo, hi = GRAD_NORM_RATIO
+    say("train-w8a8", f"gradient check, 2 decoder layers at full width, one "
+        f"packed row ({int((row['labels'] >= 0).sum())} label tokens): loss "
+        f"card {lk:.6f} vs CPU plain {lp:.6f} (rel {rel:.2e}, limit "
+        f"{GRAD_LOSS_TOL:g}); projector gradient cosine "
+        + ", ".join(f"{n} {c:.5f}" for n, c in cos.items())
+        + f" (limit {GRAD_COS_MIN}); norm ratio card/CPU "
+        + ", ".join(f"{n} {r:.5f}" for n, r in ratio.items())
+        + f" (band {lo}-{hi}); CPU step {tp:.1f} s")
+    if (rel > GRAD_LOSS_TOL or min(cos.values()) < GRAD_COS_MIN
+            or not all(lo <= r <= hi for r in ratio.values())):
+        raise AssertionError("train-w8a8: gradient check failed")
+    return rel, min(cos.values())
+
+
+def phase_profile_train(trainer, state, batch):
+    """One w8a8 training step under torch.profiler: device-busy share and
+    the kernels that take the time."""
+    from torch.autograd import DeviceType
+
+    trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3
+    say("profile", f"w8a8 training step (packed 4 x 256): {wall_ms:.1f} ms "
+        "unprofiled; device kernel time "
+        + (f"{busy_ms:.1f} ms, busy {busy_ms / wall_ms:.0%}" if by_name
+           else "not measured (no device events in the trace)"))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say("profile", f"  {us / 1e3:.3f} ms/step  {name[:100]}")
+
+
+def phase_train_w8a8():
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.core.optim import tree_leaves
+    from thinkdiff_torch.data.synthetic import build_batches_packed
+    from thinkdiff_torch.engines.trainer import Trainer
+    from thinkdiff_torch.models.aligner_lvlm import (
+        MllamaT5EmbedDecoder, step_launches)
+
+    model_cfg, run_cfg = train_config(BENCH_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = MllamaT5EmbedDecoder(model_cfg, seed=SEED)
+    trainer = Trainer(model, run_cfg)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    cfg = model.t5_cfg
+    say("train-w8a8", f"flan-t5-xxl decoder {cfg.num_decoder_layers} layers, "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.num_heads} heads, vocab "
+        f"{cfg.vocab_size}, w8a8 fused, projector {model.vlm_hidden} -> "
+        f"{cfg.d_model} ({model.cfg['mm_projector_type']}); model + trainer "
+        f"on {trainer.device} in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    host = build_batches_packed(np.random.RandomState(SEED), BENCH_BATCHES,
+                                BENCH_ROWS, BENCH_CAP, BENCH_CAP,
+                                model.vlm_hidden, cfg.vocab_size)
+    host, n_samples = host
+    batches = [trainer.prepare_batch(b) for b in host]
+    tokens = sum(int((b["labels"] >= 0).sum()) for b in host)
+    before = {n: p.clone() for n, p in tree_leaves(state["params"])}
+    warm = [trainer.train_step(state, b)[1] for b in batches]
+    check_finite("train-w8a8 warm pass", warm)
+    passes = 2
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step_ms, metrics = [], []
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        for b in batches:
+            ts = time.perf_counter()
+            state, m = trainer.train_step(state, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            metrics.append(m)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    losses, norms = check_finite("train-w8a8", metrics)
+    moved = {n: float((p - before[n]).abs().max())
+             for n, p in tree_leaves(state["params"])}
+    if min(moved.values()) == 0:
+        raise AssertionError(f"train-w8a8: projector not updated: {moved}")
+    per_step = step_launches(cfg, BENCH_CAP, int(model.cfg["chunked_ce"]))
+    expect_launches("train-w8a8", launches, per_step, passes * len(batches),
+                    TRAIN_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rates = {"step_ms": statistics.median(step_ms),
+             "samples_per_s": passes * n_samples / wall,
+             "tokens_per_s": passes * tokens / wall, "peak_gib": peak}
+    say("train-w8a8", f"{BENCH_BATCHES} packed batches ({BENCH_ROWS} x "
+        f"{BENCH_CAP}/{BENCH_CAP}, {n_samples} samples, {tokens} label tokens "
+        f"a pass), 1 warm + {passes} timed passes: step {rates['step_ms']:.1f} "
+        f"ms median ({min(step_ms):.1f}-{max(step_ms):.1f}), "
+        f"{rates['samples_per_s']:.2f} samples/s per GPU, "
+        f"{rates['tokens_per_s']:.0f} label tokens/s; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, grad norm {norms.min():.4g}-{norms.max():.4g}; "
+        f"lr {metrics[-1]['lr']:.3g}; peak {peak:.2f} GiB")
+    say("train-w8a8", f"launches over {passes * len(batches)} steps {dict((k, launches[k]) for k in TRAIN_KERNELS)}"
+        f" = steps x derived per step {per_step} (block 0's self-attention "
+        "and cross-attention query projection carry no gradient: 2n-1 "
+        "backward attentions, 7n-3 s8 input gradients + one per CE chunk; "
+        "every CE chunk's lm_head runs twice, forward and recompute)")
+    rates["grad_rel"], rates["grad_cos"] = gradient_check(model_cfg, host[0])
+
+    # overfit: 10 steps on one batch at a constant lr of 1e-3
+    fit = Trainer(model, {"init_lr": 1e-3, "min_lr": 1e-3, "warmup_steps": 0,
+                          "weight_decay": 0.05})
+    fstate = fit.init_state()
+    fl = [fit.train_step(fstate, batches[0])[1] for _ in range(10)]
+    fl, _ = check_finite("overfit", fl)
+    if not fl[-1] < fl[0]:
+        raise AssertionError(f"overfit: loss did not fall: {fl.tolist()}")
+    say("train-w8a8", "overfit, one batch, lr 1e-3, 10 steps: loss "
+        + " ".join(f"{x:.4f}" for x in fl.tolist()))
+    phase_profile_train(trainer, state, batches[0])
+    return launches, rates
+
+
+def phase_train_yaml():
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.data.synthetic import build_batches
+    from thinkdiff_torch.engines.trainer import Trainer
+    from thinkdiff_torch.models.aligner_lvlm import (
+        MllamaT5EmbedDecoder, step_launches)
+
+    model_cfg, run_cfg = train_config({})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = MllamaT5EmbedDecoder(model_cfg, seed=SEED)
+    trainer = Trainer(model, run_cfg)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    cfg = model.t5_cfg
+    bs = 32
+    host = build_batches(np.random.RandomState(SEED), 4, bs, model.vlm_hidden,
+                         cfg.vocab_size)
+    batches = [trainer.prepare_batch(b) for b in host]
+    say("train-yaml", f"YAML as written: dtype {model.dtype}, quantization "
+        f"{cfg.quant_int8 or 'none'}, fused {cfg.fused_proj}, chunked_ce "
+        f"{model.cfg.get('chunked_ce', 32)}; built in "
+        f"{time.perf_counter() - t0:.1f} s; 4 padded batches of {bs}, shapes "
+        + ", ".join(f"S{b['embeds'].shape[1]}/T{b['labels'].shape[1]}"
+                    for b in host))
+    trainer.train_step(state, batches[0])  # first call: Triton builds
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [trainer.train_step(state, b)[1] for b in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    losses, _ = check_finite("train-yaml", metrics)
+    expect_launches("train-yaml", launches, step_launches(cfg, 0, 32),
+                    len(batches), ("flash_attention_fwd", "rmsnorm",
+                                   "flash_attention_dq",
+                                   "flash_attention_dkv"))
+    if launches["s8_matmul"] or launches["s8_matmul_bwd"]:
+        raise AssertionError("train-yaml: a bf16 model launched s8 kernels")
+    say("train-yaml", f"4 steps in {wall:.2f} s ({wall / 4 * 1e3:.0f} ms a "
+        f"step, {4 * bs / wall:.1f} samples/s); losses "
+        + " ".join(f"{x:.4f}" for x in losses.tolist())
+        + f"; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"launches {launches}")
 
 
 # ---------------------------------------------------------------------------
@@ -683,19 +1187,24 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     results = phase_kernels()
+    launches, train = phase_train_w8a8()
+    torch.cuda.empty_cache()
+    phase_train_yaml()
+    torch.cuda.empty_cache()
     base_cfg, cfg, params = load_weights()
     phase_dense_slice(base_cfg, cfg, params)
-    launches, paged_engine, rates = phase_paged_slice(base_cfg, cfg, params)
+    served, paged_engine, rates = phase_paged_slice(base_cfg, cfg, params)
+    launches["paged_attention"] = served["paged_attention"]
     phase_profile(paged_engine)
     del paged_engine
     torch.cuda.empty_cache()
-    # each kernel's launches on its main path: the paged slice (the shipped
-    # configuration) for kernels #1-#4, the gumbel slice for the sampler
     launches["fused_lm_sample"] = phase_gumbel_slice(
         base_cfg, cfg, params)["fused_lm_sample"]
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; "
-        f"paged slice {rates['imgs_per_s']:.2f} imgs/s, "
-        f"{rates['tokens_per_s']:.1f} generated tokens/s")
+        f"train-w8a8 {train['step_ms']:.1f} ms a step, "
+        f"{train['samples_per_s']:.2f} samples/s per GPU, peak "
+        f"{train['peak_gib']:.2f} GiB; paged slice {rates['imgs_per_s']:.2f} "
+        f"imgs/s, {rates['tokens_per_s']:.1f} generated tokens/s")
     report = []
     for kname, (route, source, replaces) in TPU_KERNELS.items():
         rows = results[kname]

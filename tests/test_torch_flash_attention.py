@@ -1,11 +1,12 @@
-"""Port parity: thinkdiff_torch.ops.flash_attention (its plain CPU path)
-against the JAX Pallas forward kernel (interpret mode) and the JAX
-reference, on the same seeded inputs. The CUDA kernel itself is held
-against the same plain path in tests/test_torch_gpu.py."""
+"""Port parity: thinkdiff_torch.ops.flash_attention (its plain CPU paths,
+forward and backward) against the JAX Pallas kernels (interpret mode) and
+the JAX reference, on the same seeded inputs. The CUDA kernels themselves
+are held against the same plain paths in tests/test_torch_gpu.py."""
 
 import importlib
 from unittest import mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,3 +104,184 @@ def test_default_sm_scale_is_head_dim_rsqrt():
     b = tf.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                            torch.from_numpy(v), sm_scale=80 ** -0.5)
     assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# backward: the port's plain FA2 backward (what a CPU tensor runs, and what
+# the dq / dk-dv kernels are held against on the card) vs the Pallas dq and
+# dkv kernels in interpret mode and vs jax.vjp through mha_reference.
+
+BWD_CASES = {
+    # T5 self-attention: causal, the (1, H, T, T) relative bias, sm_scale 1
+    "causal_rel_bias": dict(b=2, hq=4, hkv=4, tq=40, tk=40, d=64, causal=True,
+                            rel_bias=True, sm_scale=1.0),
+    # cross-attention: kv_mask and packed segments with an all-pad query row
+    "cross_kv_mask_segments": dict(b=2, hq=2, hkv=2, tq=24, tk=40, d=64,
+                                   kv_mask=True, segments=True, sm_scale=1.0),
+    # packed self-attention: causal + segments + bias, ragged tails
+    "packed_self": dict(b=2, hq=2, hkv=2, tq=37, tk=37, d=64, causal=True,
+                        rel_bias=True, segments=True, sm_scale=1.0),
+    "gqa_d128": dict(b=1, hq=4, hkv=2, tq=24, tk=33, d=128, kv_mask=True),
+}
+
+
+def _bwd_case(name):
+    c = dict(BWD_CASES[name])
+    b, hq, hkv, tq, tk, d = (c.pop(k) for k in
+                             ("b", "hq", "hkv", "tq", "tk", "d"))
+    rs = np.random.RandomState(7)
+    q = rs.randn(b, hq, tq, d).astype(np.float32)
+    k = rs.randn(b, hkv, tk, d).astype(np.float32)
+    v = rs.randn(b, hkv, tk, d).astype(np.float32)
+    do = rs.randn(b, hq, tq, d).astype(np.float32)
+    kw = {"causal": c.get("causal", False),
+          "sm_scale": c.get("sm_scale", d ** -0.5), "bias": None,
+          "kv_mask": None, "q_segment_ids": None, "kv_segment_ids": None}
+    if c.get("rel_bias"):
+        kw["bias"] = (rs.randn(1, hq, tq, tk) * 0.5).astype(np.float32)
+    if c.get("kv_mask"):
+        kw["kv_mask"] = (np.arange(tk)[None]
+                         < np.asarray([tk - 5, 17])[:b, None]).astype(np.int32)
+    if c.get("segments"):
+        qs = np.repeat((np.arange(tq) // 9 + 1)[None], b, 0).astype(np.int32)
+        ks = np.repeat((np.arange(tk) // 13 + 1)[None], b, 0).astype(np.int32)
+        qs[1, -4:] = 0                 # pad query rows: no key of segment 0
+        ks[:, -3:] = 0
+        if kw["kv_mask"] is not None:  # pad keys are masked as well
+            kw["kv_mask"] = (kw["kv_mask"] * (ks > 0)).astype(np.int32)
+        if tq == tk:
+            ks = qs.copy()
+        kw["q_segment_ids"], kw["kv_segment_ids"] = qs, ks
+    return q, k, v, do, kw
+
+
+def _dead_rows(q, k, kw):
+    """(B, Tq) rows whose keys are all masked."""
+    s = tf._allowed(torch.from_numpy(q), torch.from_numpy(k),
+                    *[None if kw[n] is None else torch.from_numpy(kw[n])
+                      for n in ("kv_mask",)], kw["causal"],
+                    *[None if kw[n] is None else torch.from_numpy(kw[n])
+                      for n in ("q_segment_ids", "kv_segment_ids")])
+    if s is None:
+        return np.zeros(q.shape[:1] + q.shape[2:3], bool)
+    s = s.expand(q.shape[0], 1, q.shape[2], k.shape[2])
+    return ~s.any(-1)[:, 0].numpy()
+
+
+def _port_grads(q, k, v, do, kw):
+    tq_, tk_, tv_ = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    t = {n: (None if x is None else torch.from_numpy(x)) if isinstance(
+        x, (np.ndarray, type(None))) else x for n, x in kw.items()}
+    out = tf.flash_attention(tq_, tk_, tv_, **t)
+    out.backward(torch.from_numpy(do))
+    return [x.grad.numpy() for x in (tq_, tk_, tv_)]
+
+
+def _jax_pallas_grads(q, k, v, do, kw):
+    real = jf.pl.pallas_call
+
+    def call(*args, **kwargs):
+        kwargs["interpret"] = True
+        kwargs.pop("compiler_params", None)
+        return real(*args, **kwargs)
+
+    j = {n: (jnp.asarray(x) if isinstance(x, np.ndarray) else x)
+         for n, x in kw.items()}
+
+    def f(q, k, v):
+        return jf.flash_attention(q, k, v, j["bias"], j["kv_mask"],
+                                  j["causal"], j["sm_scale"], 16, 16,
+                                  j["q_segment_ids"], j["kv_segment_ids"])
+
+    with mock.patch.object(jf.pl, "pallas_call", call), mock.patch.multiple(
+            jf, _use_pallas=lambda q, k: True,
+            _use_pallas_bwd=lambda ql, kl: True):
+        _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_backward_matches_jax_kernels_and_vjp(name):
+    """f32 throughout. Tolerance atol 2e-4, rtol 1e-3 (the Pallas package's
+    own backward test): the Pallas kernels sum blockwise in another order
+    and take p from an exp2-domain lse converted to natural log."""
+    q, k, v, do, kw = _bwd_case(name)
+    dead = _dead_rows(q, k, kw)
+    got = _port_grads(q, k, v, do, kw)
+    want = _jax_pallas_grads(q, k, v, do, kw)
+    for g, w, n in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g, w, atol=2e-4, rtol=1e-3, err_msg=f"d{n}")
+    # jax.vjp of mha_reference gives an all-masked row a uniform softmax and
+    # so a gradient into v; the kernels give it P = 0. Same when dO is 0 on
+    # those rows, as it is for the pad rows of a packed batch.
+    do_live = do * (~dead)[:, None, :, None]
+    j = {n: (jnp.asarray(x) if isinstance(x, np.ndarray) else x)
+         for n, x in kw.items()}
+    _, vjp = jax.vjp(lambda q, k, v: jf.mha_reference(q, k, v, **j),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(do_live))]
+    got = _port_grads(q, k, v, do_live, kw)
+    for g, w, n in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g, w, atol=2e-4, rtol=1e-3, err_msg=f"d{n}")
+
+
+def test_all_masked_rows_add_nothing_and_stay_finite():
+    """A pad query row of a packed cross-attention sees no key. Its lse is
+    finite, its dq is 0, and whatever its dO (here huge), dk and dv are
+    exactly those of the same batch with that row's dO set to 0."""
+    q, k, v, do, kw = _bwd_case("cross_kv_mask_segments")
+    dead = _dead_rows(q, k, kw)
+    assert dead.any() and not dead.all()
+    lse = tf.logsumexp_reference(
+        torch.from_numpy(q), torch.from_numpy(k), None,
+        torch.from_numpy(kw["kv_mask"]), False, 1.0,
+        torch.from_numpy(kw["q_segment_ids"]),
+        torch.from_numpy(kw["kv_segment_ids"]))
+    assert torch.isfinite(lse).all()
+    poisoned = do.copy()
+    poisoned[np.broadcast_to(dead[:, None, :, None], do.shape)] = 1e30
+    a = _port_grads(q, k, v, poisoned, kw)
+    b = _port_grads(q, k, v, do * (~dead)[:, None, :, None], kw)
+    assert all(np.isfinite(x).all() for x in a)
+    np.testing.assert_array_equal(a[0][np.broadcast_to(
+        dead[:, None, :, None], q.shape)], 0.0)
+    np.testing.assert_array_equal(a[1], b[1])
+    np.testing.assert_array_equal(a[2], b[2])
+
+
+def test_logsumexp_is_natural_log_and_matches_jax_kernel():
+    """The lse the forward saves is the natural-log logsumexp of the masked
+    scores: the Pallas kernel's output (converted from its exp2 domain)."""
+    q, k, v, _, kw = _bwd_case("packed_self")
+    t = {n: (None if x is None else torch.from_numpy(x)) if isinstance(
+        x, (np.ndarray, type(None))) else x for n, x in kw.items()}
+    got = tf.logsumexp_reference(torch.from_numpy(q), torch.from_numpy(k),
+                                 t["bias"], t["kv_mask"], t["causal"],
+                                 t["sm_scale"], t["q_segment_ids"],
+                                 t["kv_segment_ids"]).numpy()
+    real = jf.pl.pallas_call
+
+    def call(*args, **kwargs):
+        kwargs["interpret"] = True
+        kwargs.pop("compiler_params", None)
+        return real(*args, **kwargs)
+
+    j = {n: (jnp.asarray(x) if isinstance(x, np.ndarray) else x)
+         for n, x in kw.items()}
+    with mock.patch.object(jf.pl, "pallas_call", call):
+        _, lse = jf._flash_attention_forward(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), j["bias"],
+            j["kv_mask"], j["q_segment_ids"], j["kv_segment_ids"],
+            causal=True, sm_scale=1.0, block_q=16, block_k=16,
+            return_lse=True)
+    want = np.asarray(lse).reshape(q.shape[0], q.shape[1], -1)[..., :q.shape[2]]
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_bias_gradient_is_refused():
+    q, k, v, _, kw = _bwd_case("causal_rel_bias")
+    bias = torch.tensor(kw["bias"], requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        tf.flash_attention(torch.tensor(q, requires_grad=True),
+                           torch.from_numpy(k), torch.from_numpy(v), bias,
+                           causal=True, sm_scale=1.0)

@@ -207,3 +207,179 @@ def test_fused_sample_kernel_matches_plain(cuda, b, d, v, noise):
     assert torch.equal(got, want)
     assert (got < v).all()
     assert not ((blocked > 0) & ((got == 3) | (got == v - 1))).any()
+
+
+# flash backward (dq kernel with delta, dk/dv kernel) vs the plain FA2
+# backward on the same bf16 inputs and the kernel forward's lse. The kernels
+# round P and dS to bf16 for their products and dq/dk/dv to bf16 at the end
+# (2^-8 relative each); the plain version keeps f32. Tolerance: 1.5e-2 of
+# the tensor's largest magnitude, twice the largest error chip_smoke.py
+# measured at the training shapes (0.0075).
+BWD_CASES = {
+    "t5_self": dict(b=2, hq=4, hkv=4, tq=256, tk=256, d=64, causal=True,
+                    rel_bias=True, segments=True),
+    "t5_cross": dict(b=2, hq=4, hkv=4, tq=200, tk=256, d=64, kv_mask=True,
+                     segments=True),
+    "ragged_causal": dict(b=1, hq=2, hkv=2, tq=77, tk=77, d=64, causal=True),
+    "gqa_d128": dict(b=2, hq=8, hkv=2, tq=130, tk=90, d=128, kv_mask=True),
+}
+
+
+def _bwd_inputs(cuda, c):
+    b, hq, hkv, tq, tk, d = (c[k] for k in ("b", "hq", "hkv", "tq", "tk", "d"))
+    q = _randn((b, hq, tq, d), 20, cuda)
+    k = _randn((b, hkv, tk, d), 21, cuda)
+    v = _randn((b, hkv, tk, d), 22, cuda)
+    do = _randn((b, hq, tq, d), 23, cuda)
+    kw = dict(bias=None, kv_mask=None, causal=c.get("causal", False),
+              sm_scale=1.0 if d == 64 else d ** -0.5, q_segment_ids=None,
+              kv_segment_ids=None)
+    if c.get("rel_bias"):
+        kw["bias"] = _randn((1, hq, tq, tk), 24, cuda, torch.float32) * 0.5
+    if c.get("kv_mask"):
+        kw["kv_mask"] = (torch.arange(tk, device=cuda)[None]
+                         < torch.tensor([[tk], [tk - 31]], device=cuda)[:b]).int()
+    if c.get("segments"):
+        qs = (torch.arange(tq, device=cuda)[None] // 50 + 1).repeat(b, 1)
+        ks = (torch.arange(tk, device=cuda)[None] // 60 + 1).repeat(b, 1)
+        qs[1, -20:] = 0            # pad query rows
+        ks[:, -16:] = 0
+        if tq == tk:
+            ks = qs.clone()
+        else:                      # pad keys masked: pad rows see no key
+            kw["kv_mask"] = (ks > 0).int()
+        kw["q_segment_ids"], kw["kv_segment_ids"] = qs.int(), ks.int()
+    return q, k, v, do, kw
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_backward_kernels_match_plain(cuda, case):
+    from thinkdiff_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+        logsumexp_reference)
+
+    q, k, v, do, kw = _bwd_inputs(cuda, BWD_CASES[case])
+    args = [kw[n] for n in ("bias", "kv_mask", "causal", "sm_scale",
+                            "q_segment_ids", "kv_segment_ids")]
+    qr = q.detach().requires_grad_(True)
+    out = flash_attention(qr, k, v, **kw)  # the forward kernel, with lse
+    lse = logsumexp_reference(q, k, *args)
+    before = kernels.launch_counts()
+    got = flash_attention_backward(q, k, v, *args, lse, do)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["flash_attention_dq"] == before["flash_attention_dq"] + 1
+    assert after["flash_attention_dkv"] == before["flash_attention_dkv"] + 1
+    want = flash_attention_backward_reference(q, k, v, *args, lse, do)
+    for g, w, n in zip(got, want, "qkv"):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.isfinite(g.float()).all(), n
+        err = (g.float() - w.float()).abs().max()
+        assert err <= 1.5e-2 * w.float().abs().max(), (n, float(err))
+    # through autograd: the same kernels from the saved forward lse
+    out.backward(do)
+    assert (qr.grad.float() - want[0].float()).abs().max() <= (
+        1.5e-2 * want[0].float().abs().max())
+
+
+def test_flash_backward_pad_rows_add_exactly_nothing(cuda):
+    """Pad query rows of a packed cross-attention see no key: with their dO
+    poisoned (1e4), dq is 0 there and dk, dv are bit-identical to the run
+    with that dO zeroed."""
+    from thinkdiff_torch.ops.flash_attention import (
+        _allowed, _forward_cuda, flash_attention_backward,
+        logsumexp_reference)
+
+    q, k, v, do, kw = _bwd_inputs(cuda, BWD_CASES["t5_cross"])
+    args = [kw[n] for n in ("bias", "kv_mask", "causal", "sm_scale",
+                            "q_segment_ids", "kv_segment_ids")]
+    ok = _allowed(q, k, kw["kv_mask"], False, kw["q_segment_ids"],
+                  kw["kv_segment_ids"])
+    dead = ~ok.any(-1)            # (B, 1, Tq)
+    assert dead.any()
+    lse = logsumexp_reference(q, k, *args)
+    _, lse_k = _forward_cuda(q, k, v, *args, with_lse=True)
+    assert torch.isfinite(lse_k).all()
+    live = dead.logical_not()[..., None].to(do.dtype)
+    poisoned = torch.where(dead[..., None], torch.full_like(do, 1e4), do)
+    a = flash_attention_backward(q, k, v, *args, lse_k, poisoned)
+    b = flash_attention_backward(q, k, v, *args, lse_k, do * live)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x.float()).all() for x in a)
+    assert (a[0].float() * dead[..., None]).abs().max() == 0
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    # the kernel's lse is the plain logsumexp on every row with a key
+    # (a few f32 ulps: 7.6e-6 measured at the training shapes)
+    err = (lse_k - lse).abs()[dead.logical_not().expand_as(lse)]
+    assert err.max() <= 3e-5, float(err.max())
+
+
+@pytest.mark.parametrize("r,k,n", [(1, 64, 16), (333, 4096, 4096),
+                                   (130, 4096, 16 * 617), (512, 4096, 32128)])
+def test_s8_matmul_bwd_kernel_identical(cuda, r, k, n):
+    """Exact int32 sums and the same f32 epilogue, rounded to bf16 once:
+    identical to the float64 plain version (odd R; N = 9872 and 32128 are
+    not multiples of 128)."""
+    from thinkdiff_torch.ops.int8_matmul import (
+        s8_matmul_bwd, s8_matmul_bwd_reference)
+
+    g = _randn((r, n), 25, cuda, torch.float32)
+    gq, sg = _absmax_quant_rows(g)
+    w = quantize_weight(_randn((k, n), 26, cuda, torch.float32))["q"]
+    before = kernels.launch_counts()["s8_matmul_bwd"]
+    out = s8_matmul_bwd(gq, sg, w)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["s8_matmul_bwd"] == before + 1
+    assert torch.equal(out, s8_matmul_bwd_reference(gq, sg, w))
+
+
+def test_autograd_step_through_w8a8_and_rmsnorm(cuda):
+    """x -> rmsnorm (Triton forward, plain backward) -> w8a8 QDense (s8
+    forward, s8 input-gradient backward from the (K, N) copy): the kernels
+    launch, and x's gradient agrees with the same step through the plain
+    versions on the CPU (bf16 activations, int8 requantization of each
+    side's own dy: 2e-2 of the largest element)."""
+    from thinkdiff_torch.models.qdense import QDense
+    from thinkdiff_torch.models.bridge import load_params
+
+    qw = quantize_weight(_randn((256, 384), 27, cuda, torch.float32) * 0.05)
+    params = {"kernel_q": qw["q"].cpu(), "kernel_scale": qw["scale"].cpu(),
+              "input_scale": torch.ones(256)}
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        layer = load_params(QDense(256, 384, torch.bfloat16, "w8a8",
+                                   device=dev, train_layout=True), params)
+        x = _randn((3, 40, 256), 28, dev).requires_grad_(True)
+        scale = _randn((256,), 29, dev).requires_grad_(True)
+        kernels.reset_launch_counts()
+        y = layer(rmsnorm(x, scale))
+        (y.float() ** 2).mean().backward()
+        counts = kernels.launch_counts()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert counts["rmsnorm"] == 1 and counts["s8_matmul"] == 1
+            assert counts["s8_matmul_bwd"] == 1
+        grads.append((x.grad.float().cpu(), scale.grad.float().cpu()))
+    for g, w in zip(*grads):
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max() <= 2e-2 * w.abs().max()
+
+
+def test_w8a8_backward_without_the_kn_copy_raises(cuda):
+    """A serving QDense keeps no (K, N) row-major copy: its backward on the
+    card raises rather than copying the int8 weight on every call."""
+    from thinkdiff_torch.models.qdense import QDense
+    from thinkdiff_torch.models.bridge import load_params
+
+    qw = quantize_weight(_randn((256, 384), 30, cuda, torch.float32))
+    layer = load_params(QDense(256, 384, torch.bfloat16, "w8a8", device=cuda),
+                        {"kernel_q": qw["q"].cpu(),
+                         "kernel_scale": qw["scale"].cpu(),
+                         "input_scale": torch.ones(256)})
+    assert layer.kernel_q_kn is None
+    x = _randn((4, 256), 31, cuda).requires_grad_(True)
+    y = layer(x)
+    before = kernels.launch_counts()["s8_matmul_bwd"]
+    with pytest.raises(ValueError, match="row-major"):
+        y.float().sum().backward()
+    assert kernels.launch_counts()["s8_matmul_bwd"] == before

@@ -152,3 +152,79 @@ def test_quantize_tree_layout_and_min_size():
     for key in ("kernel_q", "kernel_scale", "input_scale"):
         np.testing.assert_array_equal(np.asarray(got["a"][key]),
                                       np.asarray(want["a"][key]))
+
+
+@pytest.mark.parametrize("r,k,n", [(40, 256, 128), (33, 128, 384)])
+def test_s8_matmul_bwd_identical_to_pallas(r, k, n):
+    """The input-gradient GEMM's plain version (float64 product, exact int32
+    sums) equals the Pallas _s8_bwd_kernel in interpret mode bit for bit,
+    with unit and with random row scales, f32 and bf16 out."""
+    from thinkdiff_torch.ops.int8_matmul import (
+        s8_matmul_bwd, s8_matmul_bwd_reference)
+
+    rs = np.random.RandomState(12)
+    gq = rs.randint(-127, 128, (r, n)).astype(np.int8)
+    wq = rs.randint(-127, 128, (k, n)).astype(np.int8)
+    for sg in (np.ones(r, np.float32), rs.rand(r).astype(np.float32) * 1e-3):
+        for jdt, tdt in ((jnp.float32, torch.float32),
+                         (jnp.bfloat16, torch.bfloat16)):
+            with _interpret():
+                want = np.asarray(jim._s8_matmul_fused_bwd(
+                    jnp.asarray(gq), jnp.asarray(sg), jnp.asarray(wq),
+                    jdt)).astype(np.float32)
+            got = s8_matmul_bwd(torch.from_numpy(gq), torch.from_numpy(sg),
+                                torch.from_numpy(wq), tdt).float().numpy()
+            np.testing.assert_array_equal(got, want)
+    exact = gq.astype(np.int64) @ wq.astype(np.int64).T
+    ones = s8_matmul_bwd_reference(torch.from_numpy(gq), torch.ones(r),
+                                   torch.from_numpy(wq), torch.float32)
+    np.testing.assert_array_equal(ones.numpy(), exact.astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_dynamic_matmul_dx_matches_jax(dtype):
+    """The w8a8 backward (scale-folded dy, per-row requantization, s8 dx)
+    against JAX's _w8a8_bwd through jax.vjp: the same int8 operands from
+    the same f32 arithmetic, so equal up to one rounding of the output.
+    The weight and scale get no gradient."""
+    rs = np.random.RandomState(13)
+    x = rs.randn(3, 5, 64).astype(np.float32)
+    dy = rs.randn(3, 5, 48).astype(np.float32)
+    qw = jq.quantize_weight(_weight(14))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda a: jq.int8_dynamic_matmul(
+        a, jnp.asarray(qw["q"]), jnp.asarray(qw["scale"])), jnp.asarray(x, jdt))
+    want = np.asarray(vjp(jnp.asarray(dy, jdt))[0], np.float32)
+    tx = torch.tensor(x, dtype=tdt, requires_grad=True)
+    tqw, ts = torch.from_numpy(qw["q"]), torch.from_numpy(qw["scale"])
+    y = tq.int8_dynamic_matmul(tx, tqw, ts, w_kn=tqw.contiguous())
+    y.backward(torch.tensor(dy, dtype=tdt))
+    got = tx.grad.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        _, e = np.frexp(np.maximum(np.abs(want), 2.0 ** -126))
+        assert (np.abs(got - want) <= np.ldexp(1.0, e - 8)).all()
+    assert not tqw.requires_grad and not ts.requires_grad
+
+
+def test_training_qdense_keeps_the_kn_copy():
+    """A w8a8 QDense built to train keeps its kernel twice: the (N, K)
+    storage the forward GEMM reads (kernel_q is its transpose view) and the
+    (K, N) row-major copy the input-gradient GEMM reads; serving layers
+    keep only the first."""
+    qw = jq.quantize_weight(_weight(15))
+    params = {"kernel_q": qw["q"], "kernel_scale": qw["scale"],
+              "input_scale": np.ones(64, np.float32)}
+    train = load_params(TQDense(64, 48, torch.float32, "w8a8",
+                                train_layout=True), params)
+    serve = load_params(TQDense(64, 48, torch.float32, "w8a8"), params)
+    assert serve.kernel_q_kn is None
+    assert train.kernel_q.t().is_contiguous()
+    assert train.kernel_q_kn.is_contiguous()
+    assert torch.equal(train.kernel_q_kn, torch.from_numpy(qw["q"]))
+    x = torch.randn(4, 64, requires_grad=True)
+    train(x).sum().backward()
+    ref = x.detach().clone().requires_grad_(True)
+    serve(ref).sum().backward()
+    assert torch.equal(x.grad, ref.grad)

@@ -89,3 +89,43 @@ def test_layernorm_matches(with_affine):
 
 def test_t5_layernorm_is_rmsnorm():
     assert tn.t5_layernorm is tn.rmsnorm
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_gradients_match_jax(dtype):
+    """dx and dscale of the port's autograd rmsnorm (the plain gradient of
+    rmsnorm_reference) against jax.grad through JAX's custom VJP. f32:
+    summation order only (1e-5); bf16 inputs: both sides round x, scale and
+    the cotangent alike, the gradients to one bf16 ulp (4e-3 relative)."""
+    import jax
+
+    x, scale = _inputs((6, 48), 8)
+    g = np.random.RandomState(9).randn(6, 48).astype(np.float32)
+    if dtype == "bfloat16":
+        x, scale, g = (a.astype(ml_dtypes.bfloat16).astype(np.float32)
+                       for a in (x, scale, g))
+    tdt = getattr(torch, dtype)
+    tx = torch.tensor(x, dtype=tdt, requires_grad=True)
+    ts = torch.tensor(scale, dtype=tdt, requires_grad=True)
+    tn.rmsnorm(tx, ts, 1e-6).backward(torch.tensor(g, dtype=tdt))
+    jdt = getattr(jnp, dtype)
+    _, vjp = jax.vjp(lambda a, b: jn.rmsnorm(a, b, 1e-6),
+                     jnp.asarray(x, jdt), jnp.asarray(scale, jdt))
+    jdx, jds = vjp(jnp.asarray(g, jdt))
+    tol = 1e-5 if dtype == "float32" else 4e-3
+    for got, want in ((tx.grad, jdx), (ts.grad, jds)):
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                   atol=tol * np.abs(want).max())
+
+
+def test_rmsnorm_gradient_only_where_asked():
+    """A frozen scale gets no gradient (T5's norms); x alone is
+    differentiated, and the CPU path launches no kernel."""
+    kernels.reset_launch_counts()
+    x, scale = _inputs((3, 16), 10)
+    tx = torch.tensor(x, requires_grad=True)
+    ts = torch.tensor(scale)
+    tn.rmsnorm(tx, ts).sum().backward()
+    assert tx.grad is not None and ts.grad is None
+    assert kernels.launch_counts()["rmsnorm"] == 0

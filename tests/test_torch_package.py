@@ -41,7 +41,10 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert "thinkdiff_torch.engines.embed_engine" in _submodules()
+    for name in ("engines.embed_engine", "engines.trainer", "models.t5",
+                 "models.aligner_lvlm", "models.projector", "ops.chunked_ce",
+                 "core.optim", "data.packing", "data.synthetic"):
+        assert f"thinkdiff_torch.{name}" in _submodules()
 
 
 def test_cpu_tensors_take_the_plain_paths():
@@ -73,9 +76,26 @@ def test_cpu_tensors_take_the_plain_paths():
                             noise=noise),
             fused_lm_sample_reference(hidden, pack, blocked, temperature=0.6,
                                       noise=g))
+    # the backward wrappers too
+    from thinkdiff_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+        logsumexp_reference)
+    from thinkdiff_torch.ops.int8_matmul import (
+        s8_matmul_bwd, s8_matmul_bwd_reference)
+
+    lse = logsumexp_reference(q, k, causal=True)
+    args = (q, k, v, None, None, True, 0.25, None, None, lse, q)
+    for a, b in zip(flash_attention_backward(*args),
+                    flash_attention_backward_reference(*args)):
+        assert torch.equal(a, b)
+    gq = torch.from_numpy(rs.randint(-127, 128, (4, 16)).astype(np.int8))
+    assert torch.equal(s8_matmul_bwd(gq, sx, wq), s8_matmul_bwd_reference(gq, sx, wq))
+    xg = x.clone().requires_grad_(True)
+    rmsnorm(xg, scale).sum().backward()
     assert kernels.launch_counts() == {
         "flash_attention_fwd": 0, "s8_matmul": 0, "rmsnorm": 0,
-        "paged_attention": 0, "fused_lm_sample": 0}
+        "paged_attention": 0, "fused_lm_sample": 0, "flash_attention_dq": 0,
+        "flash_attention_dkv": 0, "s8_matmul_bwd": 0}
 
 
 def test_own_registry_beside_the_jax_one():
@@ -92,13 +112,17 @@ def test_own_registry_beside_the_jax_one():
 
 def test_kernel_build_inputs():
     names = [p.name for p in _build.sources()]
-    assert names == ["flash_fwd.cu", "fused_sample.cu", "paged_decode.cu",
-                     "s8_gemm.cu"]
-    # the int8 tile is one header shared by the GEMM and the fused sampler,
-    # and an edit to it names a new library
-    assert [p.name for p in _build.headers()] == ["s8_tile.cuh"]
-    for name in ("fused_sample.cu", "s8_gemm.cu"):
+    assert names == ["flash_bwd.cu", "flash_fwd.cu", "fused_sample.cu",
+                     "paged_decode.cu", "s8_gemm.cu", "s8_gemm_bwd.cu"]
+    # the int8 tile is one header shared by the GEMMs and the fused sampler,
+    # the bf16 mma step one shared by the flash kernels; an edit to either
+    # names a new library
+    assert [p.name for p in _build.headers()] == ["bf16_mma.cuh",
+                                                  "s8_tile.cuh"]
+    for name in ("fused_sample.cu", "s8_gemm.cu", "s8_gemm_bwd.cu"):
         assert '#include "s8_tile.cuh"' in (_build.CSRC / name).read_text()
+    for name in ("flash_fwd.cu", "flash_bwd.cu"):
+        assert '#include "bf16_mma.cuh"' in (_build.CSRC / name).read_text()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     path = _build.library_path()
     assert path.parent == REPO / "build" and path.suffix == ".so"
@@ -106,16 +130,25 @@ def test_kernel_build_inputs():
 
 
 def test_default_device_is_the_card(monkeypatch):
-    """EmbedEngine, EmbedEngine.from_config and MllamaVllmGenerateModel
-    default to CUDA; without a card they raise and never build on the CPU."""
+    """EmbedEngine, EmbedEngine.from_config, MllamaVllmGenerateModel, the
+    aligner MllamaT5EmbedDecoder and the Trainer default to CUDA; without a
+    card they raise and never build on the CPU."""
     from thinkdiff_torch.engines import embed_engine as te
+    from thinkdiff_torch.engines.trainer import Trainer
+    from thinkdiff_torch.models.aligner_lvlm import MllamaT5EmbedDecoder
     from thinkdiff_torch.models.qwen2_vl import Qwen2VLConfig
 
+    tiny = {"vlm_hidden_size": 8, "t5_config": dict(
+        vocab_size=64, d_model=16, d_kv=4, d_ff=32, num_decoder_layers=1,
+        num_heads=4)}
+    cpu_model = MllamaT5EmbedDecoder(tiny, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for build in (
             lambda: te.EmbedEngine(Qwen2VLConfig.tiny(), {}),
             lambda: te.EmbedEngine.from_config({}),
-            lambda: te.MllamaVllmGenerateModel({"vllm_config": {}})):
+            lambda: te.MllamaVllmGenerateModel({"vllm_config": {}}),
+            lambda: MllamaT5EmbedDecoder(tiny),
+            lambda: Trainer(cpu_model, {})):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             build()
     assert te.resolve_device("cpu") == torch.device("cpu")
@@ -138,4 +171,6 @@ def test_kernel_library_builds_and_loads():
         pytest.skip("needs a CUDA card and nvcc")
     lib = kernels.library()
     assert (lib.thinkdiff_s8_gemm and lib.thinkdiff_flash_fwd
-            and lib.thinkdiff_paged_decode and lib.thinkdiff_fused_sample)
+            and lib.thinkdiff_paged_decode and lib.thinkdiff_fused_sample
+            and lib.thinkdiff_s8_gemm_bwd and lib.thinkdiff_flash_bwd_dq
+            and lib.thinkdiff_flash_bwd_dkv)

@@ -36,3 +36,17 @@ class Registry:
 
 
 registry = Registry()
+
+
+def resolve_device(device):
+    """The device an entry point runs on. A CUDA device needs a card:
+    without one this raises instead of running on the CPU."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is available: the port runs on the GPU by default; "
+            "pass device='cpu' to run the plain PyTorch versions of its "
+            "kernels on the CPU")
+    return dev

@@ -19,11 +19,17 @@
 // segment ids are (B, T) vectors, causal comes from indices, and causal
 // blocks skip key tiles above the diagonal. Masked scores are -1e30 as in
 // the JAX reference; rows that saw no key at all (l == 0) write 0. The kv
-// head is h / (Hq / Hkv). Later work: cp.async/TMA pipelining, wgmma.
+// head is h / (Hq / Hkv). For the backward (flash_bwd.cu) the kernel can
+// also write each row's natural-log logsumexp m + log(l) in f32: the
+// softmax already runs in the natural domain (exp2 of x*log2e), so no
+// conversion is needed (the Pallas kernel converts from its exp2 domain).
+// Later work: cp.async/TMA pipelining, wgmma.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -33,32 +39,12 @@ constexpr int THREADS = 128;
 constexpr float NEG_BIG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 struct Params {
   const __nv_bfloat16* q;  // (B, Hq, Tq, D)
   const __nv_bfloat16* k;  // (B, Hkv, Tk, D)
   const __nv_bfloat16* v;  // (B, Hkv, Tk, D)
   __nv_bfloat16* o;        // (B, Hq, Tq, D)
+  float* lse;              // (B, Hq, Tq) natural-log logsumexp, or null
   const float* bias;       // indexed b*sb0 + h*sb1 + i*sb2 + j*sb3, or null
   long long sb0, sb1, sb2, sb3;
   const int* kv_mask;      // (B, Tk) or null
@@ -228,6 +214,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = l[i] == 0.f ? 1.f : l[i];
   }
+  if (p.lse && t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (rows[i] < p.Tq)
+        p.lse[(size_t)bh * p.Tq + rows[i]] =
+            m[i] == -INFINITY ? NEG_BIG : m[i] + logf(l[i]);
+  }
   __nv_bfloat16* oh = p.o + (size_t)bh * p.Tq * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -252,10 +245,11 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 
 // q/k/v/o contiguous bf16 in the (B, H, T, D) layout; bias f32 read at
 // b*sb0 + h*sb1 + i*sb2 + j*sb3 (stride 0 on broadcast dims) or null;
-// kv_mask/q_seg/kv_seg int32 (B, T) or null. D in {64, 80, 128}.
-// Launches on `stream`; returns cudaGetLastError().
+// kv_mask/q_seg/kv_seg int32 (B, T) or null; lse f32 (B, Hq, Tq) or null.
+// D in {64, 80, 128}. Launches on `stream`; returns cudaGetLastError().
 extern "C" int thinkdiff_flash_fwd(
-    const void* q, const void* k, const void* v, void* o, const void* bias,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* bias,
     long long sb0, long long sb1, long long sb2, long long sb3,
     const void* kv_mask, const void* q_seg, const void* kv_seg,
     int B, int Hq, int Hkv, int Tq, int Tk, int D, float sm_scale, int causal,
@@ -268,6 +262,7 @@ extern "C" int thinkdiff_flash_fwd(
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.bias = static_cast<const float*>(bias);
   p.sb0 = sb0; p.sb1 = sb1; p.sb2 = sb2; p.sb3 = sb3;
   p.kv_mask = static_cast<const int*>(kv_mask);

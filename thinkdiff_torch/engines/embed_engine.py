@@ -31,7 +31,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from thinkdiff_torch import registry
+from thinkdiff_torch import registry, resolve_device
 from thinkdiff_torch.models.bridge import load_params
 from thinkdiff_torch.models.qwen2_vl import (
     Qwen2VLConfig, Qwen2VLModel, Qwen2VisionTower, get_mrope_position_ids,
@@ -45,18 +45,6 @@ CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 DEFAULT_SYSTEM = "You are a helpful assistant."
-
-
-def resolve_device(device) -> torch.device:
-    """The engine's device. A CUDA device needs a card: without one this
-    raises instead of building on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA card is available: the engine serves on the GPU by "
-            "default; pass device='cpu' to run the plain PyTorch versions "
-            "of its kernels on the CPU")
-    return dev
 
 
 # ---------------------------------------------------------------------------

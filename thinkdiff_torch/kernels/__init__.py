@@ -15,7 +15,8 @@ from typing import Dict, Optional
 # kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0, "s8_matmul": 0,
                             "rmsnorm": 0, "paged_attention": 0,
-                            "fused_lm_sample": 0}
+                            "fused_lm_sample": 0, "flash_attention_dq": 0,
+                            "flash_attention_dkv": 0, "s8_matmul_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _build_info: Dict[str, object] = {}
@@ -26,8 +27,15 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "thinkdiff_s8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "thinkdiff_flash_fwd": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "thinkdiff_s8_gemm_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "thinkdiff_flash_fwd": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P,
+                            _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "thinkdiff_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
+                               _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                               _I, _P],
+    "thinkdiff_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,
+                                _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _F, _I, _P],
     "thinkdiff_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _F, _P],
     "thinkdiff_fused_sample": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -1,0 +1,224 @@
+"""ThinkDiff-LVLM aligner: a trainable MLP projector on precomputed
+Qwen2-VL hidden states conditions the frozen, encoder-less flan-t5 decoder,
+trained to reconstruct the VLM's generated text (counterpart of
+``MllamaT5EmbedDecoder`` in thinkdiff_tpu/models/aligner_lvlm.py).
+
+The model is built on its device (``device="cuda"`` by default; it raises
+without a card, and the CPU runs the kernels' plain versions only when
+asked with ``device="cpu"``). The frozen tower is ``frozen["t5"]``, a
+``T5ForConditionalGeneration`` module holding the JAX-layout weights; the
+trainable projector is the tree ``trainable["projector"]`` of f32 tensors.
+``loss_fn(trainable, frozen, batch, rng)`` is the JAX function's
+counterpart: the batch holds tensors on the model's device.
+
+Checkpoint conversion from HF (``convert_t5``) is not ported yet: with
+``load_pretrained`` set and a local flan-t5 checkpoint present the model
+refuses to build; without one it draws seeded random weights, as the JAX
+model does when no checkpoint is on disk.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from thinkdiff_torch import registry, resolve_device
+from thinkdiff_torch.core.optim import tree_map
+from thinkdiff_torch.models.bridge import (
+    local_hf_state_dict, to_numpy, to_tensor)
+from thinkdiff_torch.models.projector import build_vision_projector
+from thinkdiff_torch.models.qdense import QDense
+from thinkdiff_torch.models.t5 import (
+    T5Config, T5ForConditionalGeneration, ce_stats, cross_entropy_loss,
+    shift_right)
+from thinkdiff_torch.ops.chunked_ce import (
+    chunked_head_ce_stats, chunked_head_cross_entropy)
+from thinkdiff_torch.ops.quant import quantize_weight
+
+# Qwen2-VL text hidden sizes
+_VLM_HIDDEN = {
+    "Qwen/Qwen2-VL-2B-Instruct": 1536,
+    "Qwen/Qwen2-VL-7B-Instruct": 3584,
+}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+INIT_STD = 0.05
+
+
+@torch.no_grad()
+def init_frozen_t5_(t5: T5ForConditionalGeneration,
+                    generator: torch.Generator) -> None:
+    """Seeded random weights on the module's device, as the JAX package's
+    ``quantize_leaves_on_device``: every float leaf N(0, 0.05); an int8
+    QDense draws its (K, N) kernel N(0, 0.05) in f32 and keeps only the
+    per-column quantization, one layer at a time, so the full-precision
+    tower never exists whole."""
+    for module in t5.modules():
+        if isinstance(module, QDense) and module.quant:
+            w = torch.randn((module.in_dim, module.features),
+                            generator=generator, device=generator.device)
+            qw = quantize_weight(w * INIT_STD)
+            module.kernel_q.copy_(qw["q"])
+            module.kernel_scale.copy_(qw["scale"])
+            module.sync_train_layout()
+            continue
+        for p in module.parameters(recurse=False):
+            p.copy_(torch.randn(p.shape, generator=generator,
+                                device=generator.device) * INIT_STD)
+
+
+@registry.register_model("mllama-vllm-t5-embed-decoder-2")
+class MllamaT5EmbedDecoder:
+    DEFAULT_CONFIG = {
+        "mm_projector_type": "mlp2x_gelu_t5_norm",
+        "dtype": "bfloat16",
+        "max_txt_len": 128,
+        "mllama_output_embeddings_drop_rate": None,
+        "layer_norm_reinit_weight_with_language_encoder": False,
+    }
+
+    def __init__(self, cfg: Optional[Dict[str, Any]] = None, seed: int = 0,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg = {**self.DEFAULT_CONFIG, **(cfg or {})}
+        self.dtype = _DTYPES[cfg.get("dtype", "bfloat16")]
+        qmode = cfg.get("quantize_frozen", None)
+        if qmode not in (None, "int8", "int8_dyn"):
+            raise ValueError(f"Unsupported quantize_frozen '{qmode}'")
+        self.quantize_frozen = qmode is not None
+        self.t5_cfg = T5Config(**{
+            **dict(dtype=self.dtype, dropout_rate=0.0,
+                   quant_int8={"int8": True, "int8_dyn": "w8a8"}.get(
+                       qmode, False)),
+            **dict(cfg.get("t5_config", {}))})
+        self.vlm_hidden = int(
+            cfg.get("vlm_hidden_size")
+            or _VLM_HIDDEN.get(
+                cfg.get("mllama_pretrained_model_name_or_path", ""), 1536))
+        self.projector = build_vision_projector(
+            cfg.get("mm_projector_type", "mlp2x_gelu_t5_norm"),
+            self.t5_cfg.d_model, dtype=self.dtype)
+        self.drop_rate = cfg.get("mllama_output_embeddings_drop_rate", None)
+        self.forward_type = cfg.get("forward_type", None)
+        if self.forward_type not in (None, "forward_inner"):
+            raise ValueError(
+                f"Unsupported forward_type '{self.forward_type}' "
+                "(the reference implements only 'forward_inner')")
+        self._build_params(seed)
+
+    def _build_params(self, seed: int) -> None:
+        path = self.cfg.get("text_pretrained_model_name_or_path",
+                            "google/flan-t5-xxl")
+        if (self.cfg.get("load_pretrained", True)
+                and local_hf_state_dict(path) is not None):
+            raise NotImplementedError(
+                f"a T5 checkpoint is on disk at {path}, but HF conversion is "
+                "not ported yet")
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        t5 = T5ForConditionalGeneration(self.t5_cfg, device=self.device)
+        init_frozen_t5_(t5, gen)
+        self.frozen = {"t5": t5}
+        # with random weights there is no encoder final norm to copy into
+        # t5_norm (layer_norm_reinit_weight_with_language_encoder): it
+        # keeps its init of ones
+        self.trainable = {"projector": self.projector.init_params(
+            self.vlm_hidden, gen, self.device)}
+
+    def trainable_params(self) -> Dict[str, Any]:
+        return self.trainable
+
+    def load_trainable(self, params: Dict[str, Any]) -> None:
+        """A JAX-layout trainable tree (numpy or torch leaves)."""
+        self.trainable = tree_map(lambda x: to_tensor(x).to(self.device),
+                                  params)
+
+    def export_trainable(self) -> Dict[str, Any]:
+        """Inverse of ``load_trainable``: the trainable tree as numpy. The
+        frozen tower's is ``bridge.params_of(frozen["t5"])``."""
+        return tree_map(to_numpy, self.trainable)
+
+    # -- compute ------------------------------------------------------------
+    def project(self, trainable, embeds: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """VLM hidden states (B, S, Dv) -> T5-space tokens (B, S, d_model),
+        with the optional input dropout drawn from ``generator``."""
+        x = embeds.to(self.dtype)
+        if self.drop_rate and generator is not None:
+            rate = float(self.drop_rate)
+            keep = torch.rand(x.shape, generator=generator,
+                              device=x.device) < 1.0 - rate
+            x = torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+        return self.projector(trainable["projector"], x)
+
+    def _decode(self, trainable, frozen, batch, generator):
+        proj = self.project(trainable, batch["embeds"], generator)
+        labels = batch["labels"]
+        # packed rows carry explicit decoder inputs: a global shift_right
+        # would leak segment i's last token into segment i+1's start
+        dec_ids = batch.get("decoder_input_ids")
+        if dec_ids is None:
+            dec_ids = shift_right(labels)
+        t5 = frozen["t5"]
+        hidden = t5.decode_hidden(
+            dec_ids, proj, cross_mask=batch.get("embed_mask"),
+            decoder_segments=batch.get("dec_segments"),
+            encoder_segments=batch.get("enc_segments"))
+        return t5, hidden, labels
+
+    def loss_fn(self, trainable, frozen, batch, rng=None) -> torch.Tensor:
+        """batch: embeds (B, S, Dv), embed_mask (B, S), labels (B, T) with
+        -100 padding, and for packed rows decoder_input_ids, dec_segments,
+        enc_segments. ``rng``: a torch.Generator for the input dropout.
+        The lm_head and CE run over token chunks (``chunked_ce``, default
+        32; 0 computes the full logits)."""
+        t5, hidden, labels = self._decode(trainable, frozen, batch, rng)
+        chunk = int(self.cfg.get("chunked_ce", 32) or 0)
+        if chunk and not self.t5_cfg.tie_word_embeddings:
+            return chunked_head_cross_entropy(hidden, labels, t5.lm_head,
+                                              dtype=self.dtype, chunk=chunk)
+        return cross_entropy_loss(t5.logits(hidden), labels)
+
+    @torch.no_grad()
+    def eval_metrics_fn(self, trainable, frozen, batch):
+        """(loss, n_correct, n_tokens), correctness being teacher-forced
+        next-token accuracy."""
+        t5, hidden, labels = self._decode(trainable, frozen, batch, None)
+        if not self.t5_cfg.tie_word_embeddings:
+            return chunked_head_ce_stats(
+                hidden, labels, t5.lm_head, dtype=self.dtype,
+                chunk=int(self.cfg.get("chunked_ce", 32) or 32))
+        return ce_stats(t5.logits(hidden), labels)
+
+
+def step_launches(t5_cfg: T5Config, dec_len: int, chunk: int) -> Dict[str, int]:
+    """Kernel launches of one training step of the aligner (forward and
+    backward; projector, decoder, chunked lm_head + CE) for a w8a8 fused or
+    bf16 decoder, from its configuration: decoder rows of ``dec_len``
+    tokens, CE chunks of ``chunk`` tokens.
+
+    Only the projector is trained, so the gradient reaches the decoder
+    through the cross-attention keys and values: block 0's self-attention
+    (its norm, projections and attention) and the query projection of its
+    cross-attention see no gradient and launch no backward kernel, while
+    every later block's whole input does. Each cross-attention's backward
+    runs the dq kernel as well, since it computes the delta that the dk/dv
+    kernel reads. Every lm_head chunk runs its forward twice (the
+    checkpointed chunk is recomputed in the backward)."""
+    n = t5_cfg.num_decoder_layers
+    chunks = math.ceil(dec_len / chunk) if chunk else 1
+    out = {"flash_attention_fwd": 2 * n,
+           "flash_attention_dq": 2 * n - 1,
+           "flash_attention_dkv": 2 * n - 1,
+           # 3 norms a block, the final norm, the projector's t5_norm
+           "rmsnorm": 3 * n + 2}
+    if t5_cfg.quant_int8 == "w8a8":
+        if not t5_cfg.fused_proj:
+            raise ValueError("step_launches counts the fused w8a8 layout")
+        # qkv, o | q, kv_fused, o | wi_fused, wo
+        head = (2 if chunk else 1) * chunks
+        out["s8_matmul"] = 7 * n + head
+        # block 0: kv_fused, cross o, wi_fused, wo; later blocks all 7
+        out["s8_matmul_bwd"] = 4 + 7 * (n - 1) + chunks
+    return out

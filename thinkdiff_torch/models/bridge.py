@@ -69,7 +69,7 @@ def load_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     one of the module's parameters or buffers with the same shape, and every
     one of those must be given. The copy keeps the module's dtype, device
     and memory layout (QDense's int8 kernels stay in the transposed storage
-    the s8 kernel reads)."""
+    the s8 kernel reads); a training QDense then remakes its (K, N) copy."""
     targets = _targets(module)
     flat = {k.replace("/", "."): v for k, v in flatten(tree).items()}
     missing = sorted(set(targets) - set(flat))
@@ -85,6 +85,9 @@ def load_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
                                  f"{tuple(src.shape)}, module wants "
                                  f"{tuple(dst.shape)}")
             dst.copy_(src)
+    for m in module.modules():
+        if hasattr(m, "sync_train_layout"):
+            m.sync_train_layout()
     return module
 
 

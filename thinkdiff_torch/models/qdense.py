@@ -11,7 +11,15 @@
                    fly; the product runs in the s8 GEMM kernel
                    (ops/int8_matmul). x is first divided by ``input_scale``
                    (SmoothQuant's channel equalizer; ones until calibrated)
-                   in the layer's dtype.
+                   in the layer's dtype. The backward gives dx only (the
+                   weights are frozen), through the s8 input-gradient GEMM.
+
+The weights are frozen in every mode. A w8a8 layer built with
+``train_layout=True`` (a model that trains through it) also keeps its int8
+kernel as a (K, N) row-major copy, ``kernel_q_kn``: the layout the input-
+gradient GEMM reads. It is made from ``kernel_q`` by ``sync_train_layout``
+(``bridge.load_params`` calls it after every load) and is not a parameter
+of the JAX tree; the serving path never pays for it.
 
 Parameter names and layouts are the JAX ones, so the weight bridge
 (models/bridge.py) maps a JAX tree onto a module key for key.
@@ -36,11 +44,14 @@ def _int8_kernel_storage(in_dim: int, features: int, device) -> torch.Tensor:
 
 class QDense(nn.Module):
     def __init__(self, in_dim: int, features: int, dtype=torch.float32,
-                 quant: Any = False, use_bias: bool = False, device=None):
+                 quant: Any = False, use_bias: bool = False, device=None,
+                 train_layout: bool = False):
         super().__init__()
         self.in_dim, self.features = in_dim, features
         self.dtype = dtype
         self.quant = quant
+        self.train_layout = train_layout and quant == "w8a8"
+        self.kernel_q_kn = None
         if quant:
             self.register_buffer(
                 "kernel_q", _int8_kernel_storage(in_dim, features, device))
@@ -59,11 +70,18 @@ class QDense(nn.Module):
         else:
             self.bias = None
 
+    def sync_train_layout(self) -> None:
+        """(Re)make the (K, N) row-major copy of ``kernel_q`` of a training
+        layer."""
+        if self.train_layout:
+            self.kernel_q_kn = self.kernel_q.contiguous()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         if self.quant == "w8a8":
             xs = x * (1.0 / self.input_scale.to(self.dtype))
-            y = int8_dynamic_matmul(xs, self.kernel_q, self.kernel_scale)
+            y = int8_dynamic_matmul(xs, self.kernel_q, self.kernel_scale,
+                                    self.kernel_q_kn)
         elif self.quant:
             y = torch.matmul(x, self.kernel_q.to(self.dtype))
             y = y * self.kernel_scale.to(self.dtype)

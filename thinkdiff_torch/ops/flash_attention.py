@@ -1,15 +1,28 @@
-"""Flash attention forward (counterpart of thinkdiff_tpu/ops/flash_attention.py).
+"""Flash attention, forward and backward (counterpart of
+thinkdiff_tpu/ops/flash_attention.py).
 
-On a CUDA tensor ``flash_attention`` launches the hand-written kernel of
-``csrc/flash_fwd.cu``; on a CPU tensor it runs ``mha_reference``, the plain
-PyTorch attention it is held against. Forward only: the backward kernels
-come with the training slice.
+On CUDA tensors ``flash_attention`` launches the hand-written kernels:
+the forward of ``csrc/flash_fwd.cu`` and, when a gradient is needed, the
+FlashAttention-2 backward of ``csrc/flash_bwd.cu`` (a dq kernel that also
+computes delta, then a dk/dv kernel), inside a ``torch.autograd.Function``.
+On CPU tensors it runs the plain versions they are held against:
+``mha_reference`` for the forward and ``flash_attention_backward_reference``
+for the backward.
 
 Shapes: q (B, Hq, Tq, D); k, v (B, Hkv, Tk, D); Hq % Hkv == 0.
-bias: additive, broadcastable to (B, Hq, Tq, Tk) — the kernel reads it
-through strides, so a (B, 1, 1, Tk) padding bias is never expanded.
-kv_mask: (B, Tk) int, 1 = valid key. q/kv_segment_ids: (B, Tq)/(B, Tk)
-int; position i attends j only when their ids are equal.
+bias: additive, broadcastable to (B, Hq, Tq, Tk) — the kernels read it
+through strides, so a (B, 1, 1, Tk) padding bias or T5's (1, H, T, T)
+relative bias is never expanded. It gets no gradient: the bias is frozen on
+every training path (T5's relative-position table), and a bias that
+requires grad raises. kv_mask: (B, Tk) int, 1 = valid key.
+q/kv_segment_ids: (B, Tq)/(B, Tk) int; position i attends j only when their
+ids are equal.
+
+The backward recomputes P = exp(S - lse) from the forward's natural-log
+logsumexp (B, Hq, Tq) f32 and takes delta = rowsum(P * dP), as the Pallas
+kernels do, so the attention output is not kept for the backward. A masked
+pair has P = 0: a query row whose keys are all masked (the pad rows of a
+packed cross-attention) gets dq = 0 and adds exactly 0 to dk and dv.
 """
 
 from __future__ import annotations
@@ -22,35 +35,122 @@ from thinkdiff_torch import kernels
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 80, 128)
+BACKWARD_HEAD_DIMS = (64, 128)
+
+
+def _allowed(q, k, kv_mask, causal, q_segment_ids, kv_segment_ids):
+    """Boolean (B|1, 1, Tq|1, Tk) mask of the pairs that may attend, or None."""
+    ok = None
+
+    def both(a, b):
+        return b if a is None else a & b
+
+    if kv_mask is not None:
+        ok = both(ok, kv_mask[:, None, None, :] > 0)
+    if q_segment_ids is not None:
+        ok = both(ok, q_segment_ids[:, None, :, None]
+                  == kv_segment_ids[:, None, None, :])
+    if causal:
+        row = torch.arange(q.shape[-2], device=q.device)[:, None]
+        col = torch.arange(k.shape[-2], device=q.device)[None, :]
+        ok = both(ok, row >= col)
+    return ok
+
+
+def _repeat_kv(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    rep = num_heads // x.shape[1]
+    return x if rep == 1 else x.repeat_interleave(rep, dim=1)
+
+
+def _scores(q, k, bias, ok, sm_scale):
+    """f32 scores with masked pairs at NEG_INF."""
+    k = _repeat_kv(k, q.shape[1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if bias is not None:
+        s = s + bias.float()
+    if ok is not None:
+        s = torch.where(ok, s, NEG_INF)
+    return s
 
 
 def mha_reference(q, k, v, bias=None, kv_mask=None, causal: bool = False,
                   sm_scale: Optional[float] = None, q_segment_ids=None,
                   kv_segment_ids=None) -> torch.Tensor:
     """Naive attention in f32: the numerics reference and the CPU path."""
-    q_len, head_dim = q.shape[-2], q.shape[-1]
-    kv_len = k.shape[-2]
     if sm_scale is None:
-        sm_scale = head_dim ** -0.5
-    num_heads, num_kv_heads = q.shape[1], k.shape[1]
-    if num_kv_heads != num_heads:
-        rep = num_heads // num_kv_heads
-        k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
-    if bias is not None:
-        s = s + bias.float()
-    if kv_mask is not None:
-        s = torch.where(kv_mask[:, None, None, :] > 0, s, NEG_INF)
-    if q_segment_ids is not None:
-        same = q_segment_ids[:, None, :, None] == kv_segment_ids[:, None, None, :]
-        s = torch.where(same, s, NEG_INF)
-    if causal:
-        row = torch.arange(q_len, device=q.device)[:, None]
-        col = torch.arange(kv_len, device=q.device)[None, :]
-        s = torch.where(row >= col, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+        sm_scale = q.shape[-1] ** -0.5
+    ok = _allowed(q, k, kv_mask, causal, q_segment_ids, kv_segment_ids)
+    p = torch.softmax(_scores(q, k, bias, ok, sm_scale), dim=-1)
+    v = _repeat_kv(v, q.shape[1])
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def logsumexp_reference(q, k, bias=None, kv_mask=None, causal: bool = False,
+                        sm_scale: Optional[float] = None, q_segment_ids=None,
+                        kv_segment_ids=None) -> torch.Tensor:
+    """(B, Hq, Tq) f32 natural-log logsumexp of the masked scores: what the
+    forward kernel saves for the backward."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    ok = _allowed(q, k, kv_mask, causal, q_segment_ids, kv_segment_ids)
+    return torch.logsumexp(_scores(q, k, bias, ok, sm_scale), dim=-1)
+
+
+def _probs(q, k, bias, kv_mask, causal, sm_scale, q_segment_ids,
+           kv_segment_ids, lse):
+    """P = exp(S - lse), 0 where masked (f32, (B, Hq, Tq, Tk))."""
+    ok = _allowed(q, k, kv_mask, causal, q_segment_ids, kv_segment_ids)
+    p = torch.exp(_scores(q, k, bias, ok, sm_scale) - lse.float()[..., None])
+    return p if ok is None else torch.where(ok, p, 0.0)
+
+
+def flash_dq_reference(q, k, v, bias, kv_mask, causal, sm_scale,
+                       q_segment_ids, kv_segment_ids, lse, do):
+    """The dq kernel's function as plain PyTorch: (dq, delta) with
+    dP = dO V^T, delta = rowsum(P * dP), dq = scale (P * (dP - delta)) K."""
+    p = _probs(q, k, bias, kv_mask, causal, sm_scale, q_segment_ids,
+               kv_segment_ids, lse)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(),
+                      _repeat_kv(v, q.shape[1]).float())
+    delta = (p * dp).sum(-1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds,
+                      _repeat_kv(k, q.shape[1]).float()) * sm_scale
+    return dq.to(q.dtype), delta
+
+
+def flash_dkv_reference(q, k, v, bias, kv_mask, causal, sm_scale,
+                        q_segment_ids, kv_segment_ids, lse, do, delta):
+    """The dk/dv kernel's function as plain PyTorch, from the dq kernel's
+    delta: dk = scale dS^T Q, dv = P^T dO, summed over a GQA group."""
+    p = _probs(q, k, bias, kv_mask, causal, sm_scale, q_segment_ids,
+               kv_segment_ids, lse)
+    hq, hkv = q.shape[1], k.shape[1]
+    dof = do.float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, _repeat_kv(v, hq).float())
+    ds = p * (dp - delta.float()[..., None])
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * sm_scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    if hkv != hq:
+        b, _, tk, d = k.shape
+        dk = dk.reshape(b, hkv, hq // hkv, tk, d).sum(2)
+        dv = dv.reshape(b, hkv, hq // hkv, tk, d).sum(2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_reference(q, k, v, bias, kv_mask, causal,
+                                       sm_scale, q_segment_ids,
+                                       kv_segment_ids, lse, do):
+    """The backward as plain PyTorch: (dq, dk, dv) from the inputs, the
+    saved lse and the output gradient, with the FA2 formulas the kernels
+    use: P = exp(S - lse) (0 where masked), dP = dO V^T, delta =
+    rowsum(P * dP), dS = P * (dP - delta), dq = scale dS K, dk = scale
+    dS^T Q, dv = P^T dO, dk and dv summed over a GQA group. f32 inside,
+    outputs in the input dtypes."""
+    args = (q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
+            kv_segment_ids, lse, do)
+    dq, delta = flash_dq_reference(*args)
+    return (dq, *flash_dkv_reference(*args, delta))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -68,8 +168,10 @@ def _int_rows(x: Optional[torch.Tensor], b: int, t: int, name: str):
     return x.to(torch.int32).contiguous()
 
 
-def _flash_attention_cuda(q, k, v, bias, kv_mask, causal, sm_scale,
-                          q_segment_ids, kv_segment_ids) -> torch.Tensor:
+def _kernel_operands(q, k, v, bias, kv_mask, q_segment_ids, kv_segment_ids,
+                     head_dims):
+    """Checked, aligned operands of the CUDA kernels: (q, k, v, bias,
+    bias strides, kv_mask, q_seg, kv_seg)."""
     b, hq, tq, d = q.shape
     bk, hkv, tk, dk = k.shape
     if (bk, dk) != (b, d) or v.shape != k.shape or hq % hkv:
@@ -77,40 +179,176 @@ def _flash_attention_cuda(q, k, v, bias, kv_mask, causal, sm_scale,
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError("flash_attention kernel takes bf16 q, k, v")
-    if d not in KERNEL_HEAD_DIMS:
+    if d not in head_dims:
         raise ValueError(f"flash_attention kernel: head dim {d} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+                         f"{head_dims}")
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("flash_attention: segment ids come in pairs")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     strides = (0, 0, 0, 0)
     if bias is not None:
         bias = bias.float().expand(b, hq, tq, tk)
         strides = bias.stride()
-    kv_mask = _int_rows(kv_mask, b, tk, "kv_mask")
-    q_seg = _int_rows(q_segment_ids, b, tq, "q_segment_ids")
-    kv_seg = _int_rows(kv_segment_ids, b, tk, "kv_segment_ids")
+    return (_aligned(q), _aligned(k), _aligned(v), bias, strides,
+            _int_rows(kv_mask, b, tk, "kv_mask"),
+            _int_rows(q_segment_ids, b, tq, "q_segment_ids"),
+            _int_rows(kv_segment_ids, b, tk, "kv_segment_ids"))
+
+
+def _forward_cuda(q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
+                  kv_segment_ids, with_lse: bool):
+    q, k, v, bias, strides, kv_mask, q_seg, kv_seg = _kernel_operands(
+        q, k, v, bias, kv_mask, q_segment_ids, kv_segment_ids,
+        KERNEL_HEAD_DIMS)
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     rc = kernels.library().thinkdiff_flash_fwd(
         kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out),
-        kernels.ptr(bias), *strides, kernels.ptr(kv_mask), kernels.ptr(q_seg),
-        kernels.ptr(kv_seg), b, hq, hkv, tq, tk, d, float(sm_scale),
-        int(bool(causal)), kernels.stream_of(q))
+        kernels.ptr(lse), kernels.ptr(bias), *strides, kernels.ptr(kv_mask),
+        kernels.ptr(q_seg), kernels.ptr(kv_seg), b, hq, hkv, tq, tk, d,
+        float(sm_scale), int(bool(causal)), kernels.stream_of(q))
     kernels.check_launch(rc, "flash_attention_fwd")
     kernels.count_launch("flash_attention_fwd")
-    return out
+    return out, lse
+
+
+def _backward_operands(q, k, v, bias, kv_mask, q_segment_ids,
+                       kv_segment_ids, lse, do):
+    """Checked, aligned operands of both backward kernels: (ops, dO, lse),
+    ops as ``_kernel_operands`` gives them."""
+    ops = _kernel_operands(q, k, v, bias, kv_mask, q_segment_ids,
+                           kv_segment_ids, BACKWARD_HEAD_DIMS)
+    q = ops[0]
+    if do.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(f"flash_attention backward: dO {tuple(do.shape)}, "
+                         f"lse {tuple(lse.shape)} for q {tuple(q.shape)}")
+    return ops, _aligned(do.to(torch.bfloat16)), lse.float().contiguous()
+
+
+def _common(ops, causal, sm_scale):
+    q, k, _, bias, strides, kv_mask, q_seg, kv_seg = ops
+    b, hq, tq, d = q.shape
+    return (kernels.ptr(bias), *strides, kernels.ptr(kv_mask),
+            kernels.ptr(q_seg), kernels.ptr(kv_seg), b, hq, k.shape[1], tq,
+            k.shape[2], d, float(sm_scale), int(bool(causal)),
+            kernels.stream_of(q))
+
+
+def _launch_dq(ops, do, lse, causal, sm_scale):
+    q, k, v = ops[:3]
+    delta = torch.empty_like(lse)
+    dq = torch.empty_like(q)
+    rc = kernels.library().thinkdiff_flash_bwd_dq(
+        kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(do),
+        kernels.ptr(lse), kernels.ptr(delta), kernels.ptr(dq),
+        *_common(ops, causal, sm_scale))
+    kernels.check_launch(rc, "flash_attention_dq")
+    kernels.count_launch("flash_attention_dq")
+    return dq, delta
+
+
+def _launch_dkv(ops, do, lse, delta, causal, sm_scale):
+    q, k, v = ops[:3]
+    b, hq, _, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    dk = torch.empty((b, hq, tk, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    rc = kernels.library().thinkdiff_flash_bwd_dkv(
+        kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(do),
+        kernels.ptr(lse), kernels.ptr(delta.float().contiguous()),
+        kernels.ptr(dk), kernels.ptr(dv), *_common(ops, causal, sm_scale))
+    kernels.check_launch(rc, "flash_attention_dkv")
+    kernels.count_launch("flash_attention_dkv")
+    if hkv != hq:
+        dk = dk.float().reshape(b, hkv, hq // hkv, tk, d).sum(2).to(k.dtype)
+        dv = dv.float().reshape(b, hkv, hq // hkv, tk, d).sum(2).to(v.dtype)
+    return dk, dv
+
+
+def flash_dq_cuda(q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
+                  kv_segment_ids, lse, do):
+    """The dq kernel (#5) alone: (dq, delta)."""
+    ops, do, lse = _backward_operands(q, k, v, bias, kv_mask, q_segment_ids,
+                                      kv_segment_ids, lse, do)
+    return _launch_dq(ops, do, lse, causal, sm_scale)
+
+
+def flash_dkv_cuda(q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
+                   kv_segment_ids, lse, do, delta):
+    """The dk/dv kernel (#6) alone, from the dq kernel's delta: (dk, dv), a
+    GQA group's per-query-head outputs summed in f32."""
+    ops, do, lse = _backward_operands(q, k, v, bias, kv_mask, q_segment_ids,
+                                      kv_segment_ids, lse, do)
+    return _launch_dkv(ops, do, lse, delta, causal, sm_scale)
+
+
+def flash_attention_backward(q, k, v, bias, kv_mask, causal, sm_scale,
+                             q_segment_ids, kv_segment_ids, lse, do):
+    """(dq, dk, dv) of ``flash_attention``: the dq kernel, then the dk/dv
+    kernel, on CUDA tensors (D in BACKWARD_HEAD_DIMS); the plain version on
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
+            kv_segment_ids, lse, do)
+    if not q.is_cuda:
+        raise NotImplementedError(f"flash_attention: no kernel for {q.device}")
+    # one checked, contiguous set of operands (autograd saves the
+    # head-transposed views) serves both kernels
+    ops, do, lse = _backward_operands(q, k, v, bias, kv_mask, q_segment_ids,
+                                      kv_segment_ids, lse, do)
+    dq, delta = _launch_dq(ops, do, lse, causal, sm_scale)
+    return (dq, *_launch_dkv(ops, do, lse, delta, causal, sm_scale))
+
+
+def _forward(q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
+             kv_segment_ids, with_lse: bool):
+    if q.is_cuda:
+        return _forward_cuda(q, k, v, bias, kv_mask, causal, sm_scale,
+                             q_segment_ids, kv_segment_ids, with_lse)
+    if q.device.type == "cpu":
+        args = (bias, kv_mask, causal, sm_scale, q_segment_ids,
+                kv_segment_ids)
+        out = mha_reference(q, k, v, *args)
+        return out, (logsumexp_reference(q, k, *args) if with_lse else None)
+    raise NotImplementedError(f"flash_attention: no kernel for {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
+                kv_segment_ids):
+        out, lse = _forward(q, k, v, bias, kv_mask, causal, sm_scale,
+                            q_segment_ids, kv_segment_ids, with_lse=True)
+        ctx.save_for_backward(q, k, v, bias, kv_mask, q_segment_ids,
+                              kv_segment_ids, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, kv_mask, q_seg, kv_seg, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, bias, kv_mask, ctx.causal, ctx.sm_scale, q_seg, kv_seg,
+            lse, do)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, bias=None, kv_mask=None, causal: bool = False,
                     sm_scale: Optional[float] = None, q_segment_ids=None,
                     kv_segment_ids=None) -> torch.Tensor:
-    """softmax(q k^T * sm_scale + bias, masked) v, forward only."""
+    """softmax(q k^T * sm_scale + bias, masked) v, differentiable in q, k, v."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if q.is_cuda:
-        return _flash_attention_cuda(q, k, v, bias, kv_mask, causal,
-                                     sm_scale, q_segment_ids, kv_segment_ids)
-    if q.device.type == "cpu":
-        return mha_reference(q, k, v, bias, kv_mask, causal, sm_scale,
-                             q_segment_ids, kv_segment_ids)
-    raise NotImplementedError(f"flash_attention: no kernel for {q.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        if bias is not None and bias.requires_grad:
+            raise NotImplementedError(
+                "flash_attention: no gradient for the bias (it is frozen on "
+                "every training path)")
+        return _FlashAttention.apply(q, k, v, bias, kv_mask, causal, sm_scale,
+                                     q_segment_ids, kv_segment_ids)
+    return _forward(q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
+                    kv_segment_ids, with_lse=False)[0]

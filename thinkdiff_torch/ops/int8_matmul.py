@@ -1,12 +1,15 @@
-"""The w8a8 s8 x s8 GEMM with its dequantization epilogue (counterpart of
-``_s8_matmul_fused`` in thinkdiff_tpu/ops/int8_matmul.py).
+"""The w8a8 s8 x s8 GEMMs with their dequantization epilogues (counterparts
+of ``_s8_matmul_fused`` and ``_s8_matmul_fused_bwd`` in
+thinkdiff_tpu/ops/int8_matmul.py).
 
-y = out_dtype(f32(sum_k xq[r, k] * w_q[k, n]) * sx[r] * scale[n])
+forward:        y = out_dtype(f32(sum_k xq[r, k] * w_q[k, n]) * sx[r] * scale[n])
+input gradient: dx = out_dtype(f32(sum_n gq[r, n] * w_q[k, n]) * sg[r])
 
-On a CUDA tensor ``s8_matmul`` launches the hand-written kernel of
-``csrc/s8_gemm.cu``; on a CPU tensor it runs ``s8_matmul_reference``. The
-reference accumulates in float64, which holds every int32 sum exactly
-(K=8960 x 127^2 exceeds f32's 2^24), so it is exact on the card too.
+On a CUDA tensor ``s8_matmul`` / ``s8_matmul_bwd`` launch the hand-written
+kernels of ``csrc/s8_gemm.cu`` / ``csrc/s8_gemm_bwd.cu``; on a CPU tensor
+they run ``s8_matmul_reference`` / ``s8_matmul_bwd_reference``. The
+references accumulate in float64, which holds every int32 sum exactly
+(K=10240 x 127^2 exceeds f32's 2^24), so the kernels equal them on the card.
 """
 
 from __future__ import annotations
@@ -20,6 +23,11 @@ def s8_matmul_reference(xq, sx, w_q, scale, out_dtype=torch.bfloat16):
     acc = xq.double() @ w_q.double()  # exact integer sums
     return (acc.float() * sx.float()[:, None]
             * scale.float()[None, :]).to(out_dtype)
+
+
+def s8_matmul_bwd_reference(gq, sg, w_q, out_dtype=torch.bfloat16):
+    acc = gq.double() @ w_q.double().t()  # exact integer sums
+    return (acc.float() * sg.float()[:, None]).to(out_dtype)
 
 
 def _transposed_storage(w_q: torch.Tensor) -> torch.Tensor:
@@ -67,3 +75,46 @@ def s8_matmul(xq, sx, w_q, scale, out_dtype=torch.bfloat16):
     if xq.device.type == "cpu":
         return s8_matmul_reference(xq, sx, w_q, scale, out_dtype)
     raise NotImplementedError(f"s8_matmul: no kernel for {xq.device}")
+
+
+def _s8_matmul_bwd_cuda(gq, sg, w_q, out_dtype):
+    r, n = gq.shape
+    k, n2 = w_q.shape
+    if n2 != n or sg.shape != (r,):
+        raise ValueError(f"s8_matmul_bwd: bad shapes gq {tuple(gq.shape)} sg "
+                         f"{tuple(sg.shape)} w_q {tuple(w_q.shape)}")
+    if gq.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError("s8_matmul_bwd kernel takes int8 gq and w_q")
+    if out_dtype != torch.bfloat16:
+        raise TypeError("s8_matmul_bwd kernel writes bf16")
+    if n % 16 or k % 2:
+        raise ValueError(f"s8_matmul_bwd kernel: N={n} must be a multiple of "
+                         f"16 and K={k} even")
+    if not w_q.is_contiguous():
+        # copying the whole weight on every backward would hide a missing
+        # training layout: the caller keeps the copy, made once at load
+        raise ValueError("s8_matmul_bwd kernel reads w_q as a (K, N) row-major "
+                         "tensor (QDense(train_layout=True) keeps one)")
+    gq, w = gq.contiguous(), w_q
+    sg = sg.float().contiguous()
+    for name, t in (("gq", gq), ("w_q", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"s8_matmul_bwd kernel: {name} is not 16-byte "
+                             "aligned")
+    dx = torch.empty((r, k), dtype=torch.bfloat16, device=gq.device)
+    rc = kernels.library().thinkdiff_s8_gemm_bwd(
+        kernels.ptr(gq), kernels.ptr(sg), kernels.ptr(w), kernels.ptr(dx),
+        r, k, n, kernels.stream_of(gq))
+    kernels.check_launch(rc, "s8_matmul_bwd")
+    kernels.count_launch("s8_matmul_bwd")
+    return dx
+
+
+def s8_matmul_bwd(gq, sg, w_q, out_dtype=torch.bfloat16):
+    """gq (R, N) int8, sg (R,) f32, w_q (K, N) int8 -> dx (R, K). The
+    kernel takes w_q row-major only; the plain version any layout."""
+    if gq.is_cuda:
+        return _s8_matmul_bwd_cuda(gq, sg, w_q, out_dtype)
+    if gq.device.type == "cpu":
+        return s8_matmul_bwd_reference(gq, sg, w_q, out_dtype)
+    raise NotImplementedError(f"s8_matmul_bwd: no kernel for {gq.device}")

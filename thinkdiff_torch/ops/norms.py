@@ -1,7 +1,10 @@
 """Normalization ops (counterpart of thinkdiff_tpu/ops/norms.py).
 
 ``rmsnorm`` runs a Triton kernel on a CUDA tensor and its plain PyTorch
-version, ``rmsnorm_reference``, on a CPU tensor. T5LayerNorm is RMSNorm.
+version, ``rmsnorm_reference``, on a CPU tensor. It is differentiable in x
+and scale: the backward is the plain gradient of ``rmsnorm_reference``
+(recomputed from the saved x and scale), as JAX's ``_rms_bwd`` is; the
+Pallas package has no backward kernel for it. T5LayerNorm is RMSNorm.
 ``layernorm`` is plain PyTorch on every device.
 
 The Triton kernel replaces the Pallas TPU kernel ``_rmsnorm_kernel``
@@ -71,14 +74,40 @@ def _rmsnorm_triton(x: torch.Tensor, scale: torch.Tensor,
     return y.reshape(x.shape)
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
-    """y = x * rsqrt(mean(x^2) + eps) * scale, in f32, cast to x's dtype."""
+def _rmsnorm_forward(x, scale, eps):
     if x.is_cuda:
         return _rmsnorm_triton(x, scale, eps)
     if x.device.type == "cpu":
         return rmsnorm_reference(x, scale, eps)
     raise NotImplementedError(f"rmsnorm: no kernel for device {x.device}")
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm_forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            sr = scale.detach().requires_grad_(ctx.needs_input_grad[1])
+            y = rmsnorm_reference(xr, sr, ctx.eps)
+            wrt = [t for t in (xr, sr) if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, g))
+        return (next(grads) if xr.requires_grad else None,
+                next(grads) if sr.requires_grad else None, None)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """y = x * rsqrt(mean(x^2) + eps) * scale, in f32, cast to x's dtype."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rmsnorm_forward(x, scale, eps)
 
 
 # T5LayerNorm == RMSNorm (HF T5LayerNorm has no mean subtraction/bias).

@@ -1,17 +1,16 @@
 """int8 quantization for frozen weights (counterpart of
 thinkdiff_tpu/ops/quant.py): per-output-channel absmax weights, per-row
-dynamic activations, and the w8a8 forward. Inference only: the backward
-comes with the training slice.
+dynamic activations, and the w8a8 product with its dx-only backward.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from thinkdiff_torch.ops.int8_matmul import s8_matmul
+from thinkdiff_torch.ops.int8_matmul import s8_matmul, s8_matmul_bwd
 
 
 def _as_tensor(w) -> torch.Tensor:
@@ -37,14 +36,36 @@ def _absmax_quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
-def int8_dynamic_matmul(x: torch.Tensor, q: torch.Tensor,
-                        scale: torch.Tensor) -> torch.Tensor:
-    """w8a8 forward: x (..., K) float, quantized per row on the fly; q (K, N)
-    int8 with per-column scale (N,). Output in x's dtype."""
-    shape = x.shape
-    xq, sx = _absmax_quant_rows(x.reshape(-1, shape[-1]))
-    y = s8_matmul(xq, sx, q, scale, x.dtype)
-    return y.reshape(*shape[:-1], q.shape[1])
+class _Int8DynamicMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, q, scale, w_kn):
+        shape = x.shape
+        xq, sx = _absmax_quant_rows(x.reshape(-1, shape[-1]))
+        y = s8_matmul(xq, sx, q, scale, x.dtype)
+        ctx.save_for_backward(q if w_kn is None else w_kn, scale)
+        return y.reshape(*shape[:-1], q.shape[1])
+
+    @staticmethod
+    def backward(ctx, dy):
+        w, scale = ctx.saved_tensors
+        dym = dy.reshape(-1, dy.shape[-1])
+        gq, sg = _absmax_quant_rows(dym.float() * scale.float()[None, :])
+        dx = s8_matmul_bwd(gq, sg, w, dy.dtype)
+        return dx.reshape(*dy.shape[:-1], w.shape[0]), None, None, None
+
+
+def int8_dynamic_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                        w_kn: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """w8a8 product: x (..., K) float, quantized per row on the fly; q (K, N)
+    int8 with per-column scale (N,). Output in x's dtype.
+
+    The weights are frozen: the backward gives dx only. It folds the column
+    scales into dy, requantizes per row and runs the s8 input-gradient GEMM
+    over N: dx = f32(sum_n gq[r, n] q[k, n]) * sg[r] (``_w8a8_bwd``).
+    ``w_kn`` is q as a (K, N) row-major tensor, the layout that GEMM reads
+    (a training QDense keeps one). On the card the backward needs it, or a
+    row-major q, and raises otherwise; on the CPU any layout serves."""
+    return _Int8DynamicMatmul.apply(x, q, scale, w_kn)
 
 
 def quantize_tree(params: Any, min_size: int = 1 << 16,
