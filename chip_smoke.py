@@ -8,52 +8,71 @@ non-zero:
                 its name and the nvidia-smi name and power limit;
   2. build    — compiles the CUDA kernels from csrc/ (one nvcc per source,
                 all started together) into build/;
-  3. kernels  — each hand-written kernel against its plain PyTorch version
-                at the serving and the training shapes, bf16, tolerance
-                printed, with the median of 20 timed runs after 3 warm-ups
-                for the kernel, the plain version and, where one PyTorch
-                call computes the same function, that call (library_ms; the
-                port never calls it); the least time the card could take
-                (bound_ms) comes from the bytes and operations of the
-                inputs. The flash backward (dq, dk/dv) is checked on T5's
-                self- and cross-attention of a packed batch (pad query rows
-                that see no key, poisoned) and a GQA D=128 case, with the
-                forward's lse; the s8 input gradient on every projection;
-  4. train-w8a8 — the LVLM aligner's training step, the main path of this
-                slice: configs/train_thinkdiff_lvlm_ccsbu.yaml's model and
-                run sections with bench.py's overrides (w8a8 frozen
-                flan-t5-xxl decoder at full width and depth, fused
-                projections, CE chunk 128, Qwen2-VL-7B width 3584) on
-                bench.py's packed batches (4 rows x 256/256, seed 0): 16
-                batches, one warm pass, two timed passes; losses and
-                gradient norms finite, projector updated, every kernel's
+  3. kernels  — each of the twelve hand-written kernels against its plain
+                PyTorch version at the shapes of the paths that run it, bf16,
+                tolerance printed, with the median of 20 timed runs after 3
+                warm-ups for the kernel, the plain version and, where one
+                PyTorch call computes the same function, that call
+                (library_ms; the port never calls it), each run timed by CUDA
+                events around the call, wrapper included; the kernel's device
+                time alone (device_ms) from torch.profiler; the least time the
+                card could take (bound_ms) comes from the bytes and
+                operations of the inputs. The flash backward (dq, dk/dv) is
+                checked on T5's self- and cross-attention of a packed batch
+                (pad query rows that see no key, poisoned) and a GQA D=128
+                case, with the forward's lse; the s8 input gradient on every
+                projection; the weight-only GEMV on every flan-t5-xxl layer
+                shape at 1, 8 and 32 rows; the wide weight-only GEMM and its
+                input gradient, and the quantize-in-kernel s8 GEMM, at
+                1024 rows;
+  4. train-w8a8 — the LVLM aligner's training step: configs/
+                train_thinkdiff_lvlm_ccsbu.yaml's model and run sections with
+                bench.py's overrides (w8a8 frozen flan-t5-xxl decoder at full
+                width and depth, fused projections, CE chunk 128, Qwen2-VL-7B
+                width 3584) on bench.py's packed batches (4 rows x 256/256,
+                seed 0): 16 batches, one warm pass, two timed passes; losses
+                and gradient norms finite, projector updated, every kernel's
                 launches equal to the count derived from the config; a
                 2-layer copy's loss and projector gradients against the same
                 step on the CPU's plain versions; 10 steps on one batch at
                 lr 1e-3 must lower the loss; one step under torch.profiler;
   5. train-yaml — the shipped YAML as written (bf16 frozen T5, unfused,
                 CE chunk 32) on 4 padded batches of 32 (bench.py's buckets);
-  6. dense slice — configs/qwen2_vl_embed_ccsbu.yaml with the static-batch
+  6. ops      — the ops no model path runs, through their entry points:
+                int8_matmul_wide with its autograd backward, s8_matmul_qx;
+  7. dense slice — configs/qwen2_vl_embed_ccsbu.yaml with the static-batch
                 overrides (8 slots, no chunked prefill, no prefill-ahead, no
                 pipelined EOS): 8 requests through MllamaVllmGenerateModel
                 .forward, the one path whose prefill runs the flash kernel;
-  7. paged slice — the same YAML as written (256 slots, prefill_chunk 128,
+  8. dense-int8 — the dense slice with quantization int8 (the LM
+                weight-only): its decode steps run the GEMV;
+  9. paged slice — the same YAML as written (256 slots, prefill_chunk 128,
                 preadmit_wave 64, eos_lag 2, exact nucleus sampler) on 512
                 requests of one 448x448 image, each stopped at a seeded
                 length from N(80, 40) clipped to [8, 256];
-  8. gumbel slice — the YAML with sampler gumbel and 64 slots, 128
+ 10. profile  — one paged decode step at 256 slots under torch.profiler:
+                device-busy share and the top kernels;
+ 11. gumbel slice — the YAML with sampler gumbel and 64 slots, 128
                 requests: the fused sampler serves first tokens and decode;
-  9. profile  — one paged decode step at 256 slots under torch.profiler:
-                device-busy share and the top kernels.
-Every serving slice runs Qwen2-VL-2B at full width and depth on seeded random
-weights (w8a8 LM with fused projections, weight-only int8 vision) and the
-stand-in tokenizer, on the engine's default device. Each checks output
-shapes, finiteness, vocabulary range and stop lengths, that the kernels of
-its path launched (counts set to 0 just before, read just after), and a
-teacher-forced forward over one request that reproduces its served hidden
-states. The last two lines are a JSON object with per-kernel results
-(launches of #1-#3 and #5-#7 from the train-w8a8 timed passes, #4 from the
-paged slice, #8 from the gumbel slice) and {"ok": true, "device": {...}}.
+ 12. lvlm-text — this slice's main path: configs/test_thinkdiff_lvlm_ccsbu_
+                image_text.yaml (Qwen2-VL-7B, w8a8 LM, bf16 vision, T 0.6,
+                top_p 0.9, 128 tokens, ignore_eos) with the frozen flan-t5-xxl
+                decoder weight-only int8 at full depth:
+                MllamaT5EmbedDecoderWithEngine.generate on 16 requests of one
+                448x448 image (VLM -> hidden states -> projector -> 32 greedy
+                T5 steps each), the GEMV's launches against the count derived
+                from the config, a teacher-forced T5 pass against the GEMV's
+                plain version, then get_text on 8 text-only prompts.
+Every serving slice runs at full width and depth on seeded random weights
+and the stand-in tokenizer, on the engine's default device: Qwen2-VL-2B
+(w8a8 LM with fused projections, weight-only int8 vision) in 7-11, 7B in 12.
+Each checks output shapes, finiteness, vocabulary range and stop lengths,
+that the kernels of its path launched (counts set to 0 just before, read
+just after), and a teacher-forced forward over one request. The last two
+lines are a JSON object with per-kernel results (launches of #1-#3 and
+#5-#7 from the train-w8a8 timed passes, #4 from the paged slice, #8 from
+the gumbel slice, #9 from lvlm-text, #10-#12 from the ops phase) and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -70,6 +89,17 @@ import numpy as np
 import torch
 
 CONFIG = Path(__file__).resolve().parent / "configs" / "qwen2_vl_embed_ccsbu.yaml"
+LVLM_CONFIG = (Path(__file__).resolve().parent / "configs"
+               / "test_thinkdiff_lvlm_ccsbu_image_text.yaml")
+# the one override of the LVLM YAML: the frozen flan-t5-xxl decoder in
+# weight-only int8 (the layout in which the JAX package's decode runs its
+# GEMV), seeded random weights (no checkpoint is in the repository)
+LVLM_OVERRIDES = {"quantize_frozen": "int8", "load_pretrained": False}
+LVLM_REQUESTS, LVLM_TEXT_ONLY = 16, 8
+T5_STEPS = 32
+# teacher-forced T5 pass, kernels vs int8_matmul's plain version: per-position
+# logits cosine at least this
+T5_TF_COS_MIN = 0.99
 TRAIN_CONFIG = (Path(__file__).resolve().parent / "configs"
                 / "train_thinkdiff_lvlm_ccsbu.yaml")
 # bench.py's operating point (bench.py:155-192)
@@ -122,7 +152,18 @@ TPU_KERNELS = {
                             "thinkdiff_tpu/ops/flash_attention.py:438"),
     "s8_matmul_bwd": ("cuda", "thinkdiff_torch/csrc/s8_gemm_bwd.cu",
                       "thinkdiff_tpu/ops/int8_matmul.py:371"),
+    "int8_matmul": ("cuda", "thinkdiff_torch/csrc/int8_gemv.cu",
+                    "thinkdiff_tpu/ops/int8_matmul.py:26"),
+    "int8_matmul_wide_fwd": ("cuda", "thinkdiff_torch/csrc/int8_wide.cu",
+                             "thinkdiff_tpu/ops/int8_matmul.py:116"),
+    "int8_matmul_wide_bwd": ("cuda", "thinkdiff_torch/csrc/int8_wide.cu",
+                             "thinkdiff_tpu/ops/int8_matmul.py:137"),
+    "s8_matmul_qx": ("cuda", "thinkdiff_torch/csrc/s8_gemm_qx.cu",
+                     "thinkdiff_tpu/ops/int8_matmul.py:445"),
 }
+# the kernels no model path of either package runs: their launches come
+# from the ops phase, which calls each op's entry point once
+OP_KERNELS = ("int8_matmul_wide_fwd", "int8_matmul_wide_bwd", "s8_matmul_qx")
 # the kernels whose launches come from the training step
 TRAIN_KERNELS = ("flash_attention_fwd", "s8_matmul", "rmsnorm",
                  "flash_attention_dq", "flash_attention_dkv", "s8_matmul_bwd")
@@ -154,6 +195,26 @@ def time_ms(fn, warmup: int = 3, runs: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, runs: int = 20) -> float:
+    """Device milliseconds of ``fn`` per run: the kernels it launches, summed
+    by torch.profiler over ``runs`` back-to-back runs. Unlike ``time_ms``
+    this leaves out the host's time to enqueue them, which is longer than
+    the kernel for the small ones."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / runs / 1e3
 
 
 def bound_ms(nbytes: float, ops: float, kind: str):
@@ -206,7 +267,10 @@ def phase_build():
         if m and entry:
             name = re.search(r"(flash_fwd_kernelILi\d+|s8_gemm_kernel|"
                              r"paged_decode_kernel|fused_sample_tiles|"
-                             r"fused_sample_reduce)", entry)
+                             r"fused_sample_reduce|flash_bwd_\w+?kernel|"
+                             r"s8_gemm_bwd_kernel|int8_gemv_kernelILi\d+ELb\d+ELb\d|"
+                             r"int8_wide_\w+?_kernelILb\d|"
+                             r"s8_gemm_qx_kernelILb\dELb\d)", entry)
             say("build", f"{name.group(1) if name else entry}: {m.group(1)} "
                 f"registers, {m.group(2)} B smem")
 
@@ -232,16 +296,18 @@ def check(name, shape, run, plain, ok, tol_text, work, library=None,
             raise AssertionError(f"{name} {shape}: max |err| "
                                  f"{float(err.max())} outside {tol_text}")
     ms, plain_ms = time_ms(run), time_ms(plain)
+    dev_ms = device_ms(run)
     lib_ms = time_ms(library) if library is not None else None
     b_ms, b_by = bound_ms(*work)
     say("kernels", f"{name} {shape}: max|err| {max_err:.3g} ({max_rel:.3g} "
-        f"of max|ref|) within {tol_text}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"of max|ref|) within {tol_text}; kernel {ms:.4f} ms (device "
+        f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
         + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
         + f", bound {b_ms:.4f} ms ({b_by}: {work[0] / 1e6:.1f} MB, "
         f"{work[1] / 1e9:.2f} G {work[2]} ops)")
     return {"shape": shape, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "main": main}
+            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "main": main}
 
 
 def kernels_flash(results):
@@ -594,6 +660,111 @@ def kernels_rmsnorm_train(results):
         library=lambda: F.rms_norm(x, (4096,), scale, 1e-6), main=True))
 
 
+# the weight-only layers of the flan-t5-xxl decoder: (K, N) of q/k/v/o and
+# cross q/o, wi_0/wi_1, wo, and the untied lm_head (32128 = 128 * 251)
+T5_GEMV_SHAPES = ((4096, 4096, "q, k, v, o"), (4096, 10240, "wi_0, wi_1"),
+                  (10240, 4096, "wo"), (4096, 32128, "lm_head"))
+
+
+def int8_weight(kk, n, seed):
+    """A seeded int8 weight in QDense's layout (the transpose view of an
+    (N, K) row-major copy) and its per-column scale."""
+    from thinkdiff_torch.ops.quant import quantize_weight
+
+    qw = quantize_weight(randn((kk, n), seed, torch.float32) * 0.05)
+    return qw["q"].t().contiguous().t(), qw["scale"]
+
+
+def kernels_int8_gemv(results):
+    from thinkdiff_torch.ops.int8_matmul import (
+        int8_matmul, int8_matmul_reference)
+
+    # a greedy T5 step at R = t decoder rows (1..32); bf16 in and out. The
+    # products are exact, so kernel and plain differ by f32 summation order
+    # and one bf16 rounding each: 1 bf16 ulp, plus 1e-5 of the largest
+    # output where an output near zero has a smaller ulp than that order
+    for kk, n, proj in T5_GEMV_SHAPES:
+        w, s = int8_weight(kk, n, 60)
+        for r in (1, 8, 32):
+            x = randn((r, kk), 61)
+            y = torch.empty((r, n), dtype=torch.bfloat16, device="cuda")
+            results.append(check(
+                "int8_matmul", f"{proj} R{r} K{kk} N{n}",
+                lambda x=x, w=w, s=s: int8_matmul(x, w, s),
+                lambda x=x, w=w, s=s: int8_matmul_reference(x, w, s),
+                lambda e, ref: e <= bf16_ulp(ref) + 1e-5 * ref.abs().max(),
+                "1 bf16 ulp (+1e-5 max|ref| near 0)",
+                (kk * n + nbytes(x, s, y), 2 * r * kk * n, "bf16"),
+                library=lambda x=x, w=w, s=s: torch.matmul(
+                    x, w.to(torch.bfloat16)) * s.to(torch.bfloat16),
+                main=proj == "wi_0, wi_1" and r == 8))
+        del w
+
+
+def kernels_int8_wide(results):
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    # the flan-t5-xxl FFN at bench.py's 1024 training rows: forward and
+    # input gradient; the plain versions round x and g * scale to bf16 as
+    # the kernels do. Tolerance 2e-2 of max|ref|, the JAX test's
+    tol = "2e-2 max|ref| (the JAX test's)"
+    for kk, n, proj in ((4096, 10240, "wi"), (10240, 4096, "wo")):
+        w, s = int8_weight(kk, n, 62)
+        x, g = randn((1024, kk), 63), randn((1024, n), 64)
+        main = proj == "wi"
+        results["int8_matmul_wide_fwd"].append(check(
+            "int8_matmul_wide_fwd", f"{proj} R1024 K{kk} N{n}",
+            lambda: im.int8_matmul_wide_fwd(x, w, s),
+            lambda: im.int8_matmul_wide_fwd_reference(x, w, s),
+            lambda e, ref: e <= 2e-2 * ref.abs().max(), tol,
+            (kk * n + nbytes(x, s) + 1024 * n * 2, 2 * 1024 * kk * n, "bf16"),
+            library=lambda: torch.matmul(x, w.to(torch.bfloat16)) * s.to(
+                torch.bfloat16), main=main))
+        results["int8_matmul_wide_bwd"].append(check(
+            "int8_matmul_wide_bwd", f"{proj} R1024 K{kk} N{n}: dx over N",
+            lambda: im.int8_matmul_wide_bwd(g, w, s, torch.bfloat16),
+            lambda: im.int8_matmul_wide_bwd_reference(g, w, s, torch.bfloat16),
+            lambda e, ref: e <= 2e-2 * ref.abs().max(), tol,
+            (kk * n + nbytes(g, s) + 1024 * kk * 2, 2 * 1024 * kk * n, "bf16"),
+            library=lambda: torch.matmul((g.float() * s).to(torch.bfloat16),
+                                         w.to(torch.bfloat16).t()), main=main))
+        del w
+
+
+def kernels_s8_qx(results):
+    from thinkdiff_torch.ops import int8_matmul as im
+    from thinkdiff_torch.ops.quant import _absmax_quant_rows
+
+    # x quantized per row in the kernel at bench.py's 1024 rows and
+    # d_model 4096: the o/q projection (N 4096) and wi_fused (N 20480);
+    # identical to the pre-pass chain. Library: the same chain in PyTorch
+    # (absmax pre-pass, torch._int_mm, the scales)
+    for n, proj in ((4096, "o, q"), (20480, "wi_fused")):
+        w, s = int8_weight(4096, n, 65)
+        w_rm = w.contiguous()
+        x = randn((1024, 4096), 66) * 3.0
+        y = torch.empty((1024, n), dtype=torch.bfloat16, device="cuda")
+
+        def library(x=x, w_rm=w_rm, s=s):
+            xq, sx = _absmax_quant_rows(x)
+            return (torch._int_mm(xq, w_rm).float() * sx[:, None]
+                    * s[None]).to(torch.bfloat16)
+
+        row = check(
+            "s8_matmul_qx", f"{proj} R1024 K4096 N{n}",
+            lambda x=x, w=w, s=s: im.s8_matmul_qx(x, w, s),
+            lambda x=x, w=w, s=s: im.s8_matmul_qx_reference(x, w, s),
+            lambda e, ref: e == 0, "identical",
+            (4096 * n + nbytes(x, s, y), 2 * 1024 * 4096 * n, "int8"),
+            library=library, main=proj == "wi_fused")
+        row["prepass_s8_ms"] = time_ms(lambda x=x, w=w, s=s: im.s8_matmul(
+            *_absmax_quant_rows(x), w, s))
+        say("kernels", f"s8_matmul_qx {proj}: the port's pre-pass + s8_matmul "
+            f"(#2) {row['prepass_s8_ms']:.4f} ms")
+        results.append(row)
+        del w, w_rm
+
+
 def phase_kernels():
     results = {name: [] for name in TPU_KERNELS}
     kernels_flash(results["flash_attention_fwd"])
@@ -604,6 +775,9 @@ def phase_kernels():
     kernels_rmsnorm_train(results)
     kernels_paged(results["paged_attention"])
     kernels_fused_sample(results["fused_lm_sample"])
+    kernels_int8_gemv(results["int8_matmul"])
+    kernels_int8_wide(results)
+    kernels_s8_qx(results["s8_matmul_qx"])
     torch.cuda.empty_cache()
     return results
 
@@ -1058,6 +1232,271 @@ def phase_gumbel_slice(base_cfg, cfg, params):
     return launches
 
 
+def phase_ops():
+    """The ops no model path runs, through their entry points at the
+    flan-t5-xxl training shapes, counts set to 0 just before and read just
+    after: int8_matmul_wide forward and backward through autograd (#10,
+    #11) and s8_matmul_qx (#12)."""
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.ops.int8_matmul import int8_matmul_wide, s8_matmul_qx
+
+    w, s = int8_weight(4096, 10240, 67)
+    x = randn((1024, 4096), 68).requires_grad_(True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    y = int8_matmul_wide(x, w, s)
+    (y.float() ** 2).mean().backward()
+    q = s8_matmul_qx(x.detach(), w, s)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if not (torch.isfinite(x.grad.float()).all() and torch.isfinite(
+            q.float()).all()):
+        raise AssertionError("ops: non-finite output or gradient")
+    if any(launches[k] != 1 for k in OP_KERNELS):
+        raise AssertionError(f"ops: launches {launches}")
+    say("ops", "int8_matmul_wide forward + autograd backward and "
+        "s8_matmul_qx at R1024 K4096 N10240: launches "
+        + ", ".join(f"{k} {launches[k]}" for k in OP_KERNELS))
+    return launches
+
+
+def load_7b_weights(vcfg):
+    """Seeded random Qwen2-VL-7B parameters in the LVLM YAML's layout: w8a8
+    LM with fused projections, bf16 vision (the YAML quantizes only the
+    LM)."""
+    from thinkdiff_torch.models.qwen2_vl import (
+        Qwen2VLConfig, fuse_qwen2_params, init_params)
+    from thinkdiff_torch.ops.quant import quantize_tree
+
+    modes = {"int8": True, "int8_dyn": "w8a8", "w8a8": "w8a8"}
+    quant = modes[vcfg["quantization"]]
+    vquant = modes.get(str(vcfg.get("vision_quantization", "")), False)
+    cfg = Qwen2VLConfig.qwen2_vl_7b(quant_int8=quant, fused_proj=bool(quant),
+                                    vision_quant=vquant)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    params = init_params(cfg, gen, device="cuda")
+    params["lm"] = fuse_qwen2_params(quantize_tree(
+        params["lm"], min_size=0, w8a8=quant == "w8a8"))
+    if vquant:
+        params["vision"] = quantize_tree(params["vision"], min_size=0,
+                                         w8a8=vquant == "w8a8")
+    return cfg, params
+
+
+def t5_teacher_forcing(model, hid, ids):
+    """One T5 pass over a sample's decoder inputs (start id, then its final
+    ids but the last) through the kernels, and again with int8_matmul forced
+    to its plain version by name: per-position logits cosine and argmax
+    agreement, and the argmax against the ids the greedy decode chose."""
+    from unittest import mock
+
+    from thinkdiff_torch.ops.int8_matmul import int8_matmul_reference
+
+    t5 = model.frozen["t5"]
+    dec = torch.tensor([[0] + ids[:-1]], device="cuda")
+    with torch.no_grad():
+        proj = model.project(model.trainable, hid[None].to("cuda"))
+        got = t5.decode_with_encoder_states(dec, proj)[0].float()
+        with mock.patch("thinkdiff_torch.models.qdense.int8_matmul",
+                        int8_matmul_reference):
+            want = t5.decode_with_encoder_states(dec, proj)[0].float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("lvlm-text: non-finite T5 logits")
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    served = float((got.argmax(-1).cpu() == torch.tensor(ids)).float().mean())
+    return float(cos.min()), agree, served
+
+
+def profile_t5_step(model, hid, ids):
+    """One greedy T5 step (the decoder at len(ids) + 1 rows, recomputed
+    from the start, as every step is) under torch.profiler: wall time,
+    device-busy share and the kernels that take the time."""
+    from torch.autograd import DeviceType
+
+    t5 = model.frozen["t5"]
+    dec = torch.tensor([[0] + ids], device="cuda")
+    with torch.no_grad():
+        proj = model.project(model.trainable, hid[None].to("cuda"))
+        step = lambda: t5.decode_with_encoder_states(dec, proj)[:, -1].argmax(-1)
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 4
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3
+    say("profile", f"T5 greedy step at {dec.shape[1]} decoder rows, "
+        f"conditioning {hid.shape[0]} rows: {wall_ms:.2f} ms unprofiled; "
+        "device kernel time "
+        + (f"{busy_ms:.2f} ms, busy {busy_ms / wall_ms:.0%}" if by_name
+           else "not measured (no device events in the trace)"))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        say("profile", f"  {us / 1e3:.3f} ms/step  {name[:100]}")
+
+
+def phase_lvlm_text():
+    """configs/test_thinkdiff_lvlm_ccsbu_image_text.yaml with the frozen T5
+    in weight-only int8: MllamaT5EmbedDecoderWithEngine.generate over
+    LVLM_REQUESTS image requests (Qwen2-VL-7B, w8a8, 128 tokens each ->
+    hidden states -> projector 3584 -> 4096 -> greedy flan-t5-xxl decode of
+    32 steps per sample), then get_text on LVLM_TEXT_ONLY text-only raw
+    prompts."""
+    import copy
+
+    import yaml
+
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.engines.embed_engine import EmbedEngine, engine_kwargs
+    from thinkdiff_torch.engines.standin_tokenizer import StandInTokenizer
+    from thinkdiff_torch.models.aligner_lvlm import (
+        MllamaT5EmbedDecoderWithEngine, lvlm_text_launches)
+
+    model_cfg = copy.deepcopy(yaml.safe_load(LVLM_CONFIG.read_text())["model"])
+    model_cfg.update(LVLM_OVERRIDES)
+    vcfg = model_cfg["vllm_config"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = load_7b_weights(vcfg)
+    tok = StandInTokenizer()
+    eos = [tok.eos_token_id, tok.convert_tokens_to_ids("<|im_end|>")]
+    engine = EmbedEngine(cfg, params, tok, eos_ids=eos,
+                         **engine_kwargs(model_cfg))
+    del params
+    model = MllamaT5EmbedDecoderWithEngine(model_cfg, seed=SEED,
+                                           engine=engine)
+    torch.cuda.synchronize()
+    t5c = model.t5_cfg
+    say("lvlm-text", f"Qwen2-VL-7B ({cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads}, vocab "
+        f"{cfg.vocab_size}, LM {vcfg['quantization']} fused, vision bf16; "
+        f"temperature {engine.temperature}, top_p {engine.top_p}, "
+        f"max/min tokens {engine.max_tokens}/{engine.min_tokens}, ignore_eos "
+        f"{engine.ignore_eos}, prefill_chunk {engine.prefill_chunk}) + "
+        f"projector {model.vlm_hidden} -> {t5c.d_model} + flan-t5-xxl "
+        f"decoder {t5c.num_decoder_layers} layers, weight-only int8, fused "
+        f"{t5c.fused_proj}; built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    results = []
+    served = engine.generate
+    engine.generate = lambda *a, **kw: results.append(served(*a, **kw)) \
+        or results[-1]
+    images, prompts = requests(LVLM_REQUESTS, SEED + 5)
+    samples = {"images": images, "answers": prompts}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids, t5_texts, vlm_texts = model.generate(
+        samples, embedding_type="both", max_new_tokens=engine.max_tokens,
+        t5_max_new_tokens=T5_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    res = results[-1]
+    embed_lens = [len(p) + len(o) for p, o in zip(res.prompt_token_ids,
+                                                  res.output_token_ids)]
+    for i in range(LVLM_REQUESTS):
+        hid = torch.cat([res.prompt_hidden_states[i], res.hidden_states[i]])
+        if len(res.output_token_ids[i]) != engine.max_tokens:
+            raise AssertionError(f"lvlm-text request {i}: "
+                                 f"{len(res.output_token_ids[i])} VLM tokens")
+        if tuple(hid.shape) != (embed_lens[i], cfg.hidden_size) or not \
+                torch.isfinite(hid.float()).all():
+            raise AssertionError(f"lvlm-text request {i}: hidden states "
+                                 f"{tuple(hid.shape)} or non-finite")
+        eos_t5 = int(model.cfg.get("t5_eos_token_id", 1))
+        if not (1 <= len(ids[i]) <= T5_STEPS and eos_t5 not in ids[i][:-1]
+                and all(0 <= t < t5c.vocab_size for t in ids[i])):
+            raise AssertionError(f"lvlm-text request {i}: T5 ids {ids[i]}")
+    want = lvlm_text_launches(t5c, embed_lens, T5_STEPS)
+    if launches["int8_matmul"] != want:
+        raise AssertionError(f"lvlm-text: int8_matmul launches "
+                             f"{launches['int8_matmul']} != derived {want}")
+    missing = [k for k in ("flash_attention_fwd", "s8_matmul", "rmsnorm")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"lvlm-text: kernels not launched: {missing}")
+    ph = model.last_phase_times
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("lvlm-text", f"generate(embedding_type='both') on {LVLM_REQUESTS} "
+        f"requests ({len(res.prompt_token_ids[0])} prompt + "
+        f"{engine.max_tokens} generated tokens each): {wall:.2f} s; VLM "
+        f"{ph['vlm']:.2f} s (engine: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in engine.last_phase_times.items())
+        + f"), projector {ph['projector']:.3f} s, T5 decode {ph['t5']:.2f} s "
+        f"({ph['t5_steps']} steps, {ph['t5'] / ph['t5_steps'] * 1e3:.2f} ms "
+        f"a step); T5 lengths " + ",".join(str(len(i)) for i in ids)
+        + f"; peak {peak:.2f} GiB")
+    say("lvlm-text", f"int8_matmul launches {launches['int8_matmul']} = "
+        f"derived {want} ({T5_STEPS} steps x {LVLM_REQUESTS} samples x the "
+        "weight-only layers at <= 32 rows); launches " + str(launches))
+    hid = torch.cat([res.prompt_hidden_states[0], res.hidden_states[0]])
+    cos, agree, served_agree = t5_teacher_forcing(model, hid, ids[0])
+    say("lvlm-text", f"teacher-forced T5 pass over request 0's {len(ids[0])} "
+        f"ids, kernels vs int8_matmul's plain version: logits cosine min "
+        f"{cos:.5f} (limit {T5_TF_COS_MIN}), argmax agreement {agree:.3f}; "
+        f"kernel argmax vs the served greedy ids {served_agree:.3f}")
+    if not cos >= T5_TF_COS_MIN:
+        raise AssertionError("lvlm-text: teacher-forced T5 check failed")
+    profile_t5_step(model, hid, ids[0][:15])
+
+    prompts = [f"<|im_start|>user\nwrite a line about topic {i}<|im_end|>\n"
+               f"<|im_start|>assistant\n" for i in range(LVLM_TEXT_ONLY)]
+    t0 = time.perf_counter()
+    texts = model.get_text(prompts, need_process=False,
+                           max_new_tokens=engine.max_tokens)
+    wall_text = time.perf_counter() - t0
+    res = results[-1]
+    if len(texts) != LVLM_TEXT_ONLY or any(
+            len(o) != engine.max_tokens for o in res.output_token_ids):
+        raise AssertionError("lvlm-text: get_text on text-only prompts")
+    say("lvlm-text", f"get_text(need_process=False) on {LVLM_TEXT_ONLY} "
+        f"text-only prompts ({len(res.prompt_token_ids[0])} prompt tokens): "
+        f"{engine.max_tokens} tokens each in {wall_text:.2f} s")
+    engine.generate = served
+    return launches, {"wall_s": wall, "t5_ms_per_step":
+                      ph["t5"] / ph["t5_steps"] * 1e3}
+
+
+def phase_dense_int8(base_cfg, params):
+    """The dense slice with ``quantization: int8``: the 2B LM weight-only
+    (the same seeded int8 weights without the w8a8 input scales), so every
+    decode step's projections take the GEMV."""
+    import copy
+
+    from thinkdiff_torch.models.qwen2_vl import Qwen2VLConfig
+
+    cfg_d = copy.deepcopy(base_cfg)
+    cfg_d["vllm_config"]["quantization"] = "int8"
+    cfg = Qwen2VLConfig.qwen2_vl_2b(quant_int8=True, fused_proj=True,
+                                    vision_quant=True)
+
+    def strip(node):
+        return {k: strip(v) for k, v in node.items() if k != "input_scale"} \
+            if isinstance(node, dict) else node
+
+    wparams = {"vision": params["vision"], "lm": strip(params["lm"])}
+    model = build_model(cfg_d, cfg, wparams, DENSE_OVERRIDES)
+    out, images, launches, _, _ = serve(
+        "dense-int8", model, 8, None,
+        ["flash_attention_fwd", "rmsnorm", "int8_matmul"])
+    if launches["s8_matmul"]:
+        raise AssertionError("dense-int8: a weight-only LM launched s8 GEMMs")
+    teacher_forcing_check("dense-int8", model.engine, out, images, 0)
+    return launches
+
+
 def teacher_forcing_check(phase, engine, out, images, i):
     """One causal forward (flash kernel, no cache) over request i's prompt
     and generated tokens must reproduce the hidden states the engine
@@ -1191,8 +1630,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_yaml()
     torch.cuda.empty_cache()
+    ops = phase_ops()
+    for k in OP_KERNELS:
+        launches[k] = ops[k]
     base_cfg, cfg, params = load_weights()
     phase_dense_slice(base_cfg, cfg, params)
+    phase_dense_int8(base_cfg, params)
     served, paged_engine, rates = phase_paged_slice(base_cfg, cfg, params)
     launches["paged_attention"] = served["paged_attention"]
     phase_profile(paged_engine)
@@ -1200,11 +1643,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["fused_lm_sample"] = phase_gumbel_slice(
         base_cfg, cfg, params)["fused_lm_sample"]
+    del params
+    torch.cuda.empty_cache()
+    lvlm, lvlm_rates = phase_lvlm_text()
+    launches["int8_matmul"] = lvlm["int8_matmul"]
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; "
         f"train-w8a8 {train['step_ms']:.1f} ms a step, "
         f"{train['samples_per_s']:.2f} samples/s per GPU, peak "
         f"{train['peak_gib']:.2f} GiB; paged slice {rates['imgs_per_s']:.2f} "
-        f"imgs/s, {rates['tokens_per_s']:.1f} generated tokens/s")
+        f"imgs/s, {rates['tokens_per_s']:.1f} generated tokens/s; lvlm-text "
+        f"{lvlm_rates['wall_s']:.2f} s for {LVLM_REQUESTS} requests, "
+        f"{lvlm_rates['t5_ms_per_step']:.2f} ms a T5 step")
     report = []
     for kname, (route, source, replaces) in TPU_KERNELS.items():
         rows = results[kname]
@@ -1213,9 +1662,12 @@ def main() -> int:
             "name": kname, "route": route, "source": source,
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "ms": main_row["ms"], "device_ms": main_row["device_ms"],
+            "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
+            "launches_from": ("ops phase (no model path runs it)"
+                              if kname in OP_KERNELS else "main path"),
             "timed_shape": main_row["shape"],
             "shapes": [{k: v for k, v in r.items() if k != "main"}
                        for r in rows],

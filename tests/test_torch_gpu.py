@@ -383,3 +383,164 @@ def test_w8a8_backward_without_the_kn_copy_raises(cuda):
     with pytest.raises(ValueError, match="row-major"):
         y.float().sum().backward()
     assert kernels.launch_counts()["s8_matmul_bwd"] == before
+
+
+def _qdense_layout(w_q: torch.Tensor) -> torch.Tensor:
+    """A (K, N) int8 weight as QDense keeps it: the transpose view of an
+    (N, K) row-major copy, the storage the weight-only kernels read."""
+    return w_q.t().contiguous().t()
+
+
+def _int8_weight(k, n, seed, cuda):
+    qw = quantize_weight(_randn((k, n), seed, cuda, torch.float32) * 0.05)
+    return _qdense_layout(qw["q"]), qw["scale"]
+
+
+# the weight-only GEMV: bf16 x and output; exact products (int8 and bf16 in
+# bf16 mma, f32 sums), so the kernel and the plain f32 product differ by the
+# order of their f32 sums only and round to bf16 once each: one bf16 ulp of
+# the value, plus 1e-5 of the largest output where a sum near zero makes
+# that ulp smaller than the f32 summation error
+@pytest.mark.parametrize("r,k,n", [(1, 4096, 32128), (32, 4096, 32128),
+                                   (8, 4096, 4096), (17, 10240, 4096),
+                                   (3, 64, 48), (32, 4096, 10240),
+                                   (70, 256, 96)])
+def test_int8_matmul_kernel_within_one_ulp(cuda, r, k, n):
+    from thinkdiff_torch.ops.int8_matmul import (
+        int8_matmul, int8_matmul_reference)
+
+    x = _randn((r, k), 40, cuda)
+    w, s = _int8_weight(k, n, 41, cuda)
+    before = kernels.launch_counts()["int8_matmul"]
+    out = int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["int8_matmul"] == before + -(-r // 32)
+    ref = int8_matmul_reference(x, w, s)
+    assert out.dtype == torch.bfloat16 and out.shape == (r, n)
+    err = (out.float() - ref.float()).abs()
+    tol = _bf16_ulp(ref) + 1e-5 * ref.float().abs().max()
+    assert (err <= tol).all(), float(err.max())
+
+
+def test_int8_matmul_kernel_f32(cuda):
+    """f32 x is split into three bf16 terms in the kernel: its products are
+    exact, so an f32 output agrees with the plain f32 product to 1e-5 of
+    its largest element."""
+    from thinkdiff_torch.ops.int8_matmul import (
+        int8_matmul, int8_matmul_reference)
+
+    x = _randn((5, 512), 42, cuda, torch.float32) * 3.0
+    w, s = _int8_weight(512, 384, 43, cuda)
+    out = int8_matmul(x, w, s)
+    ref = int8_matmul_reference(x, w, s)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_int8_matmul_kernel_rejects_unaligned_k(cuda):
+    from thinkdiff_torch.ops.int8_matmul import int8_matmul
+
+    x = _randn((4, 40), 44, cuda)
+    with pytest.raises(ValueError, match="K=40"):
+        int8_matmul(x, torch.zeros((40, 32), dtype=torch.int8, device=cuda),
+                    torch.ones(32, device=cuda))
+
+
+@pytest.mark.parametrize("r,k,n,dtype", [(300, 1024, 1552, torch.bfloat16),
+                                         (1024, 4096, 4096, torch.bfloat16),
+                                         (33, 256, 96, torch.float32)])
+def test_int8_matmul_wide_kernels_match_plain(cuda, r, k, n, dtype):
+    """Forward (#10) and input gradient (#11), directly and through
+    autograd, against the plain versions, which round x and g * scale to
+    bf16 as the kernels do: 2e-2 of the largest element (the JAX test's
+    tolerance; in practice f32 summation order and one bf16 rounding)."""
+    from thinkdiff_torch.ops.int8_matmul import (
+        int8_matmul_wide, int8_matmul_wide_bwd, int8_matmul_wide_bwd_reference,
+        int8_matmul_wide_fwd, int8_matmul_wide_fwd_reference)
+
+    x = _randn((r, k), 45, cuda, dtype)
+    g = _randn((r, n), 46, cuda, dtype)
+    w, s = _int8_weight(k, n, 47, cuda)
+    y = int8_matmul_wide_fwd(x, w, s)
+    dx = int8_matmul_wide_bwd(g, w, s, dtype)
+    torch.cuda.synchronize()
+    for got, want in ((y, int8_matmul_wide_fwd_reference(x, w, s)),
+                      (dx, int8_matmul_wide_bwd_reference(g, w, s, dtype))):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 2e-2 * want.float().abs().max(), float(err)
+    xr = x.detach().requires_grad_(True)
+    before = kernels.launch_counts()
+    out = int8_matmul_wide(xr, w, s)
+    out.backward(g)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["int8_matmul_wide_fwd"] == before["int8_matmul_wide_fwd"] + 1
+    assert after["int8_matmul_wide_bwd"] == before["int8_matmul_wide_bwd"] + 1
+    assert torch.equal(out, y) and torch.equal(xr.grad, dx)
+
+
+@pytest.mark.parametrize("r,k,n,dtype", [(33, 128, 128, torch.float32),
+                                         (300, 4096, 1552, torch.bfloat16),
+                                         (1024, 4096, 4096, torch.bfloat16)])
+def test_s8_matmul_qx_kernel_identical(cuda, r, k, n, dtype):
+    """Per-row scales, IEEE division, round half to even and exact int32
+    sums: identical to the plain pre-pass chain, with an all-zero row (the
+    1e-30 scale floor) and exact halves at scale 1."""
+    from thinkdiff_torch.ops.int8_matmul import (
+        s8_matmul_qx, s8_matmul_qx_reference)
+
+    x = _randn((r, k), 48, cuda, torch.float32) * 3.0
+    x[1] = 0.0
+    x[2] = 0.0
+    x[2, :4] = torch.tensor([127.0, 0.5, -1.5, 2.5])
+    x = x.to(dtype)
+    w, s = _int8_weight(k, n, 49, cuda)
+    before = kernels.launch_counts()["s8_matmul_qx"]
+    out = s8_matmul_qx(x, w, s, dtype)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["s8_matmul_qx"] == before + 1
+    assert torch.equal(out, s8_matmul_qx_reference(x, w, s, dtype))
+
+
+def test_weight_only_qdense_takes_the_gemv_at_32_rows(cuda):
+    """A weight-only QDense launches the GEMV at <= 32 rows and not above,
+    and agrees with the same layer on the CPU (bf16 outputs of the same
+    function: one bf16 ulp, plus the ulp lost where the CPU's wide branch
+    rounds its product to bf16 before the scale)."""
+    from thinkdiff_torch.models.bridge import load_params
+    from thinkdiff_torch.models.qdense import QDense
+
+    qw = quantize_weight(_randn((256, 384), 50, cuda, torch.float32) * 0.05)
+    params = {"kernel_q": qw["q"].cpu(), "kernel_scale": qw["scale"].cpu()}
+    for rows, gemv in ((8, True), (32, True), (40, False)):
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            layer = load_params(QDense(256, 384, torch.bfloat16, True,
+                                       device=dev), params)
+            x = _randn((rows, 256), 51, dev)
+            before = kernels.launch_counts()["int8_matmul"]
+            outs.append(layer(x).float().cpu())
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert (kernels.launch_counts()["int8_matmul"]
+                        == before + int(gemv))
+        got, want = outs
+        assert ((got - want).abs() <= 2 * _bf16_ulp(want)
+                + 1e-5 * want.abs().max()).all()
+
+
+def test_activation_scale_on_the_card_is_a_reciprocal_product(cuda):
+    """The per-row scale the card's plain quantization computes, which the
+    quantize-in-kernel GEMM reproduces: PyTorch's CUDA division by a Python
+    scalar multiplies by its f32 reciprocal, so the scale is max(amax,
+    1e-30) * fl(1/127), bit for bit, where the CPU divides."""
+    x = _randn((512, 4096), 52, cuda, torch.float32) * 3.0
+    _, s = _absmax_quant_rows(x)
+    amax = torch.clamp(x.abs().amax(dim=-1), min=1e-30)
+    inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(
+        127.0, dtype=torch.float32)
+    assert torch.equal(s, amax * inv.to(cuda))
+    _, s_cpu = _absmax_quant_rows(x.cpu())
+    assert torch.equal(s_cpu, amax.cpu() / torch.tensor(127.0))

@@ -1,0 +1,250 @@
+"""Port parity: the weight-only int8 GEMV (``int8_matmul``), the wide
+weight-only GEMM and its input gradient (``int8_matmul_wide``), the
+quantize-in-kernel s8 GEMM (``s8_matmul_qx``) and the weight-only QDense,
+against the JAX package with its Pallas kernels in interpret mode (the
+backend patched to "tpu" where the JAX code asks for it). On the CPU the
+port runs each kernel's plain version."""
+
+import importlib
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from thinkdiff_torch import kernels
+from thinkdiff_torch.models.bridge import load_params
+from thinkdiff_torch.models.qdense import QDense as TQDense
+from thinkdiff_torch.ops import int8_matmul as ti
+from thinkdiff_tpu.models.t5 import QDense as JQDense
+from thinkdiff_tpu.ops import quant as jq
+
+jim = importlib.import_module("thinkdiff_tpu.ops.int8_matmul")
+jt5 = importlib.import_module("thinkdiff_tpu.models.t5")
+
+
+def _interpret():
+    real = jim.pl.pallas_call
+
+    def call(*args, **kwargs):
+        kwargs["interpret"] = True
+        kwargs.pop("compiler_params", None)
+        kwargs.pop("cost_estimate", None)
+        return real(*args, **kwargs)
+
+    return mock.patch.object(jim.pl, "pallas_call", call)
+
+
+def _tpu_backend():
+    return mock.patch.object(jax, "default_backend", lambda: "tpu")
+
+
+def _operands(seed, r, k, n, lead=()):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(*lead, r, k).astype(np.float32)
+    wq = rs.randint(-127, 128, (k, n)).astype(np.int8)
+    sc = (rs.rand(n) * 0.01 + 1e-3).astype(np.float32)
+    return x, wq, sc
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,k,n", [(1, 256, 384), (8, 512, 1152),
+                                   (32, 256, 384)])
+def test_int8_matmul_matches_pallas(r, k, n, dtype):
+    """f32: the same integer-valued products summed in another order (1e-4,
+    the JAX test's tolerance). bf16 x and output: the same bf16 inputs, the
+    f32 sums rounded to bf16 once on each side (one bf16 ulp)."""
+    x, wq, sc = _operands(0, r, k, n)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with _interpret():
+        want = np.asarray(jim.int8_matmul(jnp.asarray(x, jdt), jnp.asarray(wq),
+                                          jnp.asarray(sc)), np.float32)
+    tx = torch.from_numpy(x).to(tdt)
+    got = ti.int8_matmul(tx, torch.from_numpy(wq), torch.from_numpy(sc))
+    assert got.dtype == tdt and got.shape == (r, n)
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _, e = np.frexp(np.maximum(np.abs(want), 2.0 ** -126))
+        assert (np.abs(got - want) <= np.ldexp(1.0, e - 8)).all()
+
+
+def test_int8_matmul_leading_dims_and_out_dtype():
+    x, wq, sc = _operands(1, 3, 128, 256, lead=(2,))
+    with _interpret():
+        want = np.asarray(jim.int8_matmul(jnp.asarray(x), jnp.asarray(wq),
+                                          jnp.asarray(sc),
+                                          out_dtype=jnp.bfloat16), np.float32)
+    got = ti.int8_matmul(torch.from_numpy(x), torch.from_numpy(wq),
+                         torch.from_numpy(sc), out_dtype=torch.bfloat16)
+    assert got.shape == (2, 3, 256) and got.dtype == torch.bfloat16
+    _, e = np.frexp(np.maximum(np.abs(want), 2.0 ** -126))
+    assert (np.abs(got.float().numpy() - want) <= np.ldexp(1.0, e - 8)).all()
+
+
+@pytest.mark.parametrize("k,n", [(100, 96), (128, 40), (24, 32)])
+def test_weight_only_kernels_refuse_unaligned_shapes(k, n):
+    """The check every CUDA-bound weight-only call makes before launching:
+    K and N multiples of 16, else a ValueError naming the shape (the kernel
+    never falls back to the plain version)."""
+    wq = torch.zeros((k, n), dtype=torch.int8)
+    for name in ("int8_matmul", "int8_matmul_wide_fwd", "s8_matmul_qx"):
+        with pytest.raises(ValueError, match=f"K={k} and N={n}"):
+            ti._check_int8_operands(name, k, wq, torch.ones(n))
+    ti._check_int8_operands("int8_matmul", 128, torch.zeros(
+        (128, 48), dtype=torch.int8), torch.ones(48))
+    with pytest.raises(TypeError):
+        ti._check_int8_operands("int8_matmul", 128, torch.zeros(
+            (128, 48), dtype=torch.int16), torch.ones(48))
+
+
+def test_gemv_k_split():
+    """Column strips alone when they fill every SM twice; K slices of a
+    multiple of 64 (at least 512) otherwise."""
+    assert ti.gemv_k_split(4096, 32128, 132) == 4096
+    assert ti.gemv_k_split(4096, 10240, 132) == 4096
+    ks = ti.gemv_k_split(4096, 4096, 132)
+    assert ks % 64 == 0 and -(-4096 // ks) == 3
+    ks = ti.gemv_k_split(10240, 4096, 132)
+    assert ks % 64 == 0 and -(-10240 // ks) == 3
+    assert ti.gemv_k_split(512, 16, 132) == 512
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_matmul_wide_forward_and_grad_match_pallas(dtype):
+    """Forward and x's gradient through autograd against the JAX custom_vjp
+    with its Pallas kernels: within 2e-2 of the largest element (the JAX
+    test's tolerance; both round x, and g * scale, to bf16)."""
+    x, wq, sc = _operands(2, 96, 256, 384, lead=(3,))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jx = jnp.asarray(x, jdt)
+    with _interpret(), _tpu_backend():
+        want = jim.int8_matmul_wide(jx, jnp.asarray(wq), jnp.asarray(sc))
+        wgrad = jax.grad(lambda a: jnp.sum(jim.int8_matmul_wide(
+            a, jnp.asarray(wq), jnp.asarray(sc)).astype(jnp.float32) ** 2))(jx)
+    want, wgrad = (np.asarray(a, np.float32) for a in (want, wgrad))
+    tx = torch.tensor(x, dtype=tdt, requires_grad=True)
+    tw, ts = torch.from_numpy(wq), torch.from_numpy(sc)
+    y = ti.int8_matmul_wide(tx, tw, ts)
+    assert y.dtype == tdt and y.shape == (3, 96, 384)
+    (grad,) = torch.autograd.grad((y.float() ** 2).sum(), tx)
+    assert grad.dtype == tdt
+    np.testing.assert_allclose(y.detach().float().numpy(), want, rtol=0,
+                               atol=2e-2 * np.abs(want).max())
+    np.testing.assert_allclose(grad.float().numpy(), wgrad, rtol=0,
+                               atol=2e-2 * np.abs(wgrad).max())
+    assert not tw.requires_grad and not ts.requires_grad
+
+
+def test_int8_matmul_wide_plain_keeps_the_kernel_rounding():
+    """The plain forward rounds x to bf16 and the plain backward rounds
+    g * scale to bf16 before the product, as the Pallas kernels do: at f32
+    the port equals the JAX kernels (interpret mode) to f32 summation order,
+    not only to the 2e-2 tolerance."""
+    x, wq, sc = _operands(3, 64, 128, 256)
+    g = np.random.RandomState(4).randn(64, 256).astype(np.float32)
+    with _interpret():
+        want = np.asarray(jim._int8_matmul_wide_fwd(
+            jnp.asarray(x), jnp.asarray(wq), jnp.asarray(sc), jnp.float32))
+        want_dx = np.asarray(jim._int8_matmul_wide_bwd(
+            jnp.asarray(g), jnp.asarray(wq), jnp.asarray(sc), jnp.float32))
+    got = ti.int8_matmul_wide_fwd(torch.from_numpy(x), torch.from_numpy(wq),
+                                  torch.from_numpy(sc)).numpy()
+    got_dx = ti.int8_matmul_wide_bwd(torch.from_numpy(g), torch.from_numpy(wq),
+                                     torch.from_numpy(sc), torch.float32).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_dx, want_dx, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [(96, 256, 384, "float32"),
+                                         (33, 128, 128, "float32"),
+                                         (64, 384, 256, "bfloat16")])
+def test_s8_matmul_qx_bit_identical(m, k, n, dtype):
+    """Quantize-in-kernel: bit for bit the pre-pass chain the JAX test holds
+    it to (_absmax_quant_rows, then the Pallas _s8_fwd_kernel), in the JAX
+    package and in the port; and within the JAX test's 1e-5 of the Pallas
+    _s8_fwd_qx_kernel in interpret mode, where XLA turns the kernel's
+    ``amax / 127`` into ``amax * (1 / 127)`` and moves some rows' scale by
+    one ulp (6 of 96 rows at this seed), so that one is not bit for bit."""
+    rs = np.random.RandomState(11)
+    x = rs.randn(m, k).astype(np.float32)
+    x[1] = 0.0                                       # the 1e-30 scale floor
+    x[2, :4] = [127.0, 0.5, -1.5, 2.5]               # exact halves at s = 1
+    x[2, 4:] = 0.0
+    wq = rs.randint(-127, 128, (k, n)).astype(np.int8)
+    sc = (rs.rand(n) * 0.01 + 1e-3).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jx = jnp.asarray(x, jdt)
+    with _interpret():
+        chain = np.asarray(jim._s8_matmul_fused(
+            *jq._absmax_quant_rows(jx), jnp.asarray(wq), jnp.asarray(sc),
+            jnp.float32))
+        qx = np.asarray(jim._s8_matmul_fused_qx(
+            jx, jnp.asarray(wq), jnp.asarray(sc), jnp.float32))
+    tx = torch.from_numpy(x).to(tdt)
+    got = ti.s8_matmul_qx(tx, torch.from_numpy(wq), torch.from_numpy(sc),
+                          torch.float32)
+    np.testing.assert_array_equal(got.numpy(), chain)
+    np.testing.assert_allclose(got.numpy(), qx, rtol=1e-5, atol=1e-5)
+    from thinkdiff_torch.ops.quant import _absmax_quant_rows
+
+    xq, sx = _absmax_quant_rows(tx)
+    port_chain = ti.s8_matmul(xq, sx, torch.from_numpy(wq),
+                              torch.from_numpy(sc), torch.float32)
+    assert torch.equal(got, port_chain)
+
+
+@pytest.mark.parametrize("r,k,n", [(96, 256, 384), (33, 128, 128),
+                                   (1024, 8192, 4096), (1024, 4096, 12288),
+                                   (8, 4096, 100), (8, 200, 256),
+                                   (1024, 4096, 20480)])
+def test_s8_qx_supported_matches_jax(r, k, n):
+    assert ti.s8_qx_supported(r, k, n) == jim.s8_qx_supported(r, k, n)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32, 33])
+def test_weight_only_qdense_matches_jax(rows):
+    """The weight-only QDense at <= 32 rows (the GEMV: Pallas under the
+    patched backend, the port's plain int8_matmul on the CPU) and at 33
+    (both packages' wide branch: the product in the layer dtype, then the
+    scale), f32, with a bias."""
+    rs = np.random.RandomState(5)
+    k, n = 256, 384
+    x = rs.randn(rows, k).astype(np.float32)
+    qw = jq.quantize_weight(rs.randn(k, n).astype(np.float32) * 0.05)
+    params = {"kernel_q": qw["q"], "kernel_scale": qw["scale"],
+              "bias": rs.randn(n).astype(np.float32) * 0.1}
+    called = []
+    real = jim.int8_matmul
+
+    def spy(*a, **kw):
+        called.append(True)
+        return real(*a, **kw)
+
+    with _interpret(), _tpu_backend(), mock.patch.object(
+            jim, "int8_matmul", spy):
+        want = np.asarray(JQDense(n, quant=True, use_bias=True).apply(
+            {"params": jax.tree.map(jnp.asarray, params)}, jnp.asarray(x)))
+    assert bool(called) == (rows <= 32)
+    layer = load_params(TQDense(k, n, torch.float32, True, True), params)
+    assert set(dict(layer.named_buffers())) == {"kernel_q", "kernel_scale"}
+    ran = []
+    with mock.patch("thinkdiff_torch.models.qdense.int8_matmul",
+                    lambda *a, **kw: ran.append(1) or ti.int8_matmul(*a, **kw)):
+        got = layer(torch.from_numpy(x)).numpy()
+    assert bool(ran) == (rows <= 32)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_cpu_wrappers_launch_nothing():
+    kernels.reset_launch_counts()
+    x, wq, sc = _operands(6, 4, 64, 32)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    args = (torch.from_numpy(wq), torch.from_numpy(sc))
+    ti.int8_matmul(tx.detach(), *args)
+    ti.int8_matmul_wide(tx, *args).sum().backward()
+    ti.s8_matmul_qx(tx.detach(), *args)
+    assert all(v == 0 for v in kernels.launch_counts().values())

@@ -42,6 +42,7 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     for name in ("engines.embed_engine", "engines.trainer", "models.t5",
+                 "ops.int8_matmul", "models.qdense",
                  "models.aligner_lvlm", "models.projector", "ops.chunked_ce",
                  "core.optim", "data.packing", "data.synthetic"):
         assert f"thinkdiff_torch.{name}" in _submodules()
@@ -95,7 +96,9 @@ def test_cpu_tensors_take_the_plain_paths():
     assert kernels.launch_counts() == {
         "flash_attention_fwd": 0, "s8_matmul": 0, "rmsnorm": 0,
         "paged_attention": 0, "fused_lm_sample": 0, "flash_attention_dq": 0,
-        "flash_attention_dkv": 0, "s8_matmul_bwd": 0}
+        "flash_attention_dkv": 0, "s8_matmul_bwd": 0, "int8_matmul": 0,
+        "int8_matmul_wide_fwd": 0, "int8_matmul_wide_bwd": 0,
+        "s8_matmul_qx": 0}
 
 
 def test_own_registry_beside_the_jax_one():
@@ -113,15 +116,18 @@ def test_own_registry_beside_the_jax_one():
 def test_kernel_build_inputs():
     names = [p.name for p in _build.sources()]
     assert names == ["flash_bwd.cu", "flash_fwd.cu", "fused_sample.cu",
-                     "paged_decode.cu", "s8_gemm.cu", "s8_gemm_bwd.cu"]
+                     "int8_gemv.cu", "int8_wide.cu", "paged_decode.cu",
+                     "s8_gemm.cu", "s8_gemm_bwd.cu", "s8_gemm_qx.cu"]
     # the int8 tile is one header shared by the GEMMs and the fused sampler,
     # the bf16 mma step one shared by the flash kernels; an edit to either
     # names a new library
     assert [p.name for p in _build.headers()] == ["bf16_mma.cuh",
                                                   "s8_tile.cuh"]
-    for name in ("fused_sample.cu", "s8_gemm.cu", "s8_gemm_bwd.cu"):
+    for name in ("fused_sample.cu", "s8_gemm.cu", "s8_gemm_bwd.cu",
+                 "s8_gemm_qx.cu"):
         assert '#include "s8_tile.cuh"' in (_build.CSRC / name).read_text()
-    for name in ("flash_fwd.cu", "flash_bwd.cu"):
+    for name in ("flash_fwd.cu", "flash_bwd.cu", "int8_gemv.cu",
+                 "int8_wide.cu"):
         assert '#include "bf16_mma.cuh"' in (_build.CSRC / name).read_text()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     path = _build.library_path()
@@ -173,4 +179,6 @@ def test_kernel_library_builds_and_loads():
     assert (lib.thinkdiff_s8_gemm and lib.thinkdiff_flash_fwd
             and lib.thinkdiff_paged_decode and lib.thinkdiff_fused_sample
             and lib.thinkdiff_s8_gemm_bwd and lib.thinkdiff_flash_bwd_dq
-            and lib.thinkdiff_flash_bwd_dkv)
+            and lib.thinkdiff_flash_bwd_dkv and lib.thinkdiff_int8_gemv
+            and lib.thinkdiff_int8_wide_fwd and lib.thinkdiff_int8_wide_bwd
+            and lib.thinkdiff_s8_gemm_qx)

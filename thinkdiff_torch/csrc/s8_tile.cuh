@@ -1,7 +1,8 @@
-// The int8 tensor-core tile shared by the w8a8 GEMM (s8_gemm.cu) and the
-// fused lm_head sampler (fused_sample.cu): a 128 x 128 int32 block of
-// A @ B^T for int8 A (rows, K) and B (cols, K), both K-contiguous, so each
-// kernel keeps only its own epilogue.
+// The int8 tensor-core tile shared by the w8a8 GEMMs (s8_gemm.cu,
+// s8_gemm_bwd.cu, s8_gemm_qx.cu) and the fused lm_head sampler
+// (fused_sample.cu): a 128 x 128 int32 block of A @ B^T for int8 A (rows, K)
+// and B (cols, K), both K-contiguous, so each kernel keeps only its own
+// epilogue (and, for s8_gemm_qx.cu, its own A loader).
 //
 // 8 warps of mma.sync m16n8k32 s8 x s8 -> s32, so the products run on the
 // tensor cores and the int32 sum is exact (no f32 rounding of partial sums:
@@ -51,14 +52,16 @@ __device__ __forceinline__ void load_tile(int8_t* smem, const int8_t* g,
   }
 }
 
-// The block's int32 tile of a[m0:m0+BM] @ b[n0:n0+BN]^T over all of K,
-// staged through As and Bs (BM * LDS and BN * LDS bytes of shared memory).
-// This thread's share: acc[i][j] holds c0,c1 at (row wm + 16i + g, cols
-// wn + 8j + 2t, +1) and c2,c3 at row + 8, with g = lane / 4, t = lane % 4
-// and the warp's corner wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN.
-__device__ __forceinline__ void s8_tile_product(
-    int (&acc)[MT][NT][4], int8_t* As, int8_t* Bs, const int8_t* a, int m0,
-    int n_a, const int8_t* b, int n0, int n_b, int K) {
+// The block's int32 tile of A @ b[n0:n0+BN]^T over all of K, staged through
+// As and Bs (BM * LDS and BN * LDS bytes of shared memory); `load_a(As, k0)`
+// stages the (BM x BK) A tile at k0 as load_tile does. This thread's share:
+// acc[i][j] holds c0,c1 at (row wm + 16i + g, cols wn + 8j + 2t, +1) and
+// c2,c3 at row + 8, with g = lane / 4, t = lane % 4 and the warp's corner
+// wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN.
+template <typename LoadA>
+__device__ __forceinline__ void s8_tile_product_with(
+    int (&acc)[MT][NT][4], int8_t* As, int8_t* Bs, LoadA load_a,
+    const int8_t* b, int n0, int n_b, int K) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // groupID
@@ -73,7 +76,7 @@ __device__ __forceinline__ void s8_tile_product(
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tile(As, a, m0, n_a, k0, K);
+    load_a(As, k0);
     load_tile(Bs, b, n0, n_b, k0, K);
     __syncthreads();
 #pragma unroll
@@ -98,6 +101,17 @@ __device__ __forceinline__ void s8_tile_product(
     }
     __syncthreads();
   }
+}
+
+// The block's int32 tile of a[m0:m0+BM] @ b[n0:n0+BN]^T over all of K, both
+// int8 and K-contiguous (see s8_tile_product_with).
+__device__ __forceinline__ void s8_tile_product(
+    int (&acc)[MT][NT][4], int8_t* As, int8_t* Bs, const int8_t* a, int m0,
+    int n_a, const int8_t* b, int n0, int n_b, int K) {
+  s8_tile_product_with(
+      acc, As, Bs,
+      [=](int8_t* smem, int k0) { load_tile(smem, a, m0, n_a, k0, K); },
+      b, n0, n_b, K);
 }
 
 }  // namespace

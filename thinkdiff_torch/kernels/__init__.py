@@ -16,7 +16,9 @@ from typing import Dict, Optional
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0, "s8_matmul": 0,
                             "rmsnorm": 0, "paged_attention": 0,
                             "fused_lm_sample": 0, "flash_attention_dq": 0,
-                            "flash_attention_dkv": 0, "s8_matmul_bwd": 0}
+                            "flash_attention_dkv": 0, "s8_matmul_bwd": 0,
+                            "int8_matmul": 0, "int8_matmul_wide_fwd": 0,
+                            "int8_matmul_wide_bwd": 0, "s8_matmul_qx": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _build_info: Dict[str, object] = {}
@@ -40,6 +42,10 @@ _SIGNATURES = {
                                _I, _F, _P],
     "thinkdiff_fused_sample": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _F, _I, _P],
+    "thinkdiff_int8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "thinkdiff_int8_wide_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "thinkdiff_int8_wide_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "thinkdiff_s8_gemm_qx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

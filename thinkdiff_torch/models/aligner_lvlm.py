@@ -1,7 +1,9 @@
 """ThinkDiff-LVLM aligner: a trainable MLP projector on precomputed
 Qwen2-VL hidden states conditions the frozen, encoder-less flan-t5 decoder,
 trained to reconstruct the VLM's generated text (counterpart of
-``MllamaT5EmbedDecoder`` in thinkdiff_tpu/models/aligner_lvlm.py).
+``MllamaT5EmbedDecoder`` in thinkdiff_tpu/models/aligner_lvlm.py), and its
+inference variant ``MllamaT5EmbedDecoderWithEngine``, which owns a Qwen2-VL
+engine: VLM generation -> hidden-state tap -> projector -> greedy T5 decode.
 
 The model is built on its device (``device="cuda"`` by default; it raises
 without a card, and the CPU runs the kernels' plain versions only when
@@ -19,16 +21,19 @@ model does when no checkpoint is on disk.
 
 from __future__ import annotations
 
+import logging
 import math
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from thinkdiff_torch import registry, resolve_device
 from thinkdiff_torch.core.optim import tree_map
 from thinkdiff_torch.models.bridge import (
-    local_hf_state_dict, to_numpy, to_tensor)
-from thinkdiff_torch.models.projector import build_vision_projector
+    local_hf_dir, local_hf_state_dict, to_numpy, to_tensor)
+from thinkdiff_torch.models.projector import (
+    build_vision_projector, convert_projector_torch, export_projector_torch)
 from thinkdiff_torch.models.qdense import QDense
 from thinkdiff_torch.models.t5 import (
     T5Config, T5ForConditionalGeneration, ce_stats, cross_entropy_loss,
@@ -36,6 +41,8 @@ from thinkdiff_torch.models.t5 import (
 from thinkdiff_torch.ops.chunked_ce import (
     chunked_head_ce_stats, chunked_head_cross_entropy)
 from thinkdiff_torch.ops.quant import quantize_weight
+
+logger = logging.getLogger(__name__)
 
 # Qwen2-VL text hidden sizes
 _VLM_HIDDEN = {
@@ -139,6 +146,39 @@ class MllamaT5EmbedDecoder:
         frozen tower's is ``bridge.params_of(frozen["t5"])``."""
         return tree_map(to_numpy, self.trainable)
 
+    def convert_reference_checkpoint(self, sd: Dict) -> Dict[str, Any]:
+        """The reference's trainable checkpoint (its ``mm_projector.*``
+        entries) -> the trainable tree, numpy leaves (``load_trainable``
+        takes it)."""
+        return {"projector": convert_projector_torch(
+            {k: v for k, v in sd.items() if "mm_projector" in k})}
+
+    def export_reference_checkpoint(self, trainable: Dict) -> Dict:
+        """Inverse of ``convert_reference_checkpoint``: a state dict the
+        reference's PyTorch stack loads."""
+        return export_projector_torch(
+            trainable["projector"],
+            self.cfg.get("mm_projector_type", "mlp2x_gelu_t5_norm"))
+
+    def get_t5_tokenizer(self):
+        """The T5 tokenizer from local files only; None when they are not on
+        disk (nothing is downloaded, and without local files transformers
+        is not even imported)."""
+        path = self.cfg.get("text_pretrained_model_name_or_path",
+                            "google/flan-t5-xxl")
+        local = local_hf_dir(path)
+        if local is None:
+            logger.warning("T5 tokenizer unavailable: %s is not on disk", path)
+            return None
+        try:
+            from transformers import AutoTokenizer
+
+            return AutoTokenizer.from_pretrained(local, local_files_only=True)
+        except (ImportError, OSError, ValueError) as e:
+            # no transformers, or incomplete files
+            logger.warning("T5 tokenizer unavailable for %s: %s", path, e)
+            return None
+
     # -- compute ------------------------------------------------------------
     def project(self, trainable, embeds: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -190,6 +230,196 @@ class MllamaT5EmbedDecoder:
                 hidden, labels, t5.lm_head, dtype=self.dtype,
                 chunk=int(self.cfg.get("chunked_ce", 32) or 32))
         return ce_stats(t5.logits(hidden), labels)
+
+    @torch.no_grad()
+    def greedy_decode(self, proj: torch.Tensor, embed_mask=None,
+                      max_new_tokens: int = 32) -> torch.Tensor:
+        """Greedy T5 decode conditioned on projected states (B, S, d_model):
+        decoder start id 0, every step recomputes the whole prefix (no KV
+        cache, as the JAX package) and appends the argmax of the last
+        position. Returns the (B, max_new_tokens) new ids."""
+        t5 = self.frozen["t5"]
+        mask = None if embed_mask is None else to_tensor(embed_mask).to(
+            self.device)
+        dec = torch.zeros((proj.shape[0], 1), dtype=torch.long,
+                          device=self.device)
+        for _ in range(max_new_tokens):
+            logits = t5.decode_with_encoder_states(dec, proj, cross_mask=mask)
+            nxt = logits[:, -1].argmax(dim=-1)
+            dec = torch.cat([dec, nxt[:, None]], dim=1)
+        return dec[:, 1:]
+
+    @torch.no_grad()
+    def generate(self, embeds, embed_mask=None, max_new_tokens: int = 32):
+        """Greedy T5 decode conditioned on projected VLM hidden states
+        (B, S, Dv): the reference's ``generate``, recompute-per-step."""
+        proj = self.project(self.trainable, to_tensor(embeds).to(self.device))
+        return self.greedy_decode(proj, embed_mask, max_new_tokens)
+
+    @torch.no_grad()
+    def get_embed_from_hidden(self, hidden_states, rng=None):
+        """Aligned conditioning tokens from VLM hidden states (the tail of
+        the reference's ``get_embed``)."""
+        return self.project(self.trainable,
+                            to_tensor(hidden_states).to(self.device), rng)
+
+
+@registry.register_model("mllama-vllm-t5-embed-decoder-5")
+class MllamaT5EmbedDecoderWithEngine(MllamaT5EmbedDecoder):
+    """The inference variant that owns a Qwen2-VL generation engine
+    (counterpart of the JAX class of the same name): ``get_text`` (VLM text
+    only), ``generate`` (VLM -> projector -> greedy T5 per sample) and
+    ``get_embed`` (VLM -> projector). The engine is built lazily from the
+    model config (``EmbedEngine.from_config``, local checkpoint files) on
+    first use, or passed in as ``engine``; any object with the engine's
+    ``generate`` and ``num_system_tokens`` serves."""
+
+    def __init__(self, cfg: Optional[Dict[str, Any]] = None, seed: int = 0,
+                 device="cuda", engine=None):
+        super().__init__(cfg, seed, device)
+        self._engine = engine
+        self.t5_tokenizer = None
+        # seconds of the last generate(): VLM, projector, T5 decode (each
+        # ending in a device sync) and the number of T5 decode steps
+        self.last_phase_times: Dict[str, float] = {}
+
+    @property
+    def engine(self):
+        if self._engine is None:
+            from thinkdiff_torch.engines.embed_engine import EmbedEngine
+
+            self._engine = EmbedEngine.from_config(self.cfg,
+                                                   device=self.device)
+        return self._engine
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @staticmethod
+    def _vllm_inputs_to_samples(mllama_inputs) -> Dict[str, List[Any]]:
+        """vLLM-style pre-formatted inputs -> engine samples: one dict or a
+        list of ``{"prompt": str, "multi_modal_data": {"image": PIL | [PIL,
+        ...]}}`` or plain prompt strings (text-only: image None). Prompts
+        are tokenized as they are (no chat template)."""
+        if isinstance(mllama_inputs, dict):
+            mllama_inputs = [mllama_inputs]
+        prompts, images = [], []
+        for entry in mllama_inputs:
+            if isinstance(entry, str):
+                prompts.append(entry)
+                images.append(None)
+            else:
+                prompts.append(entry["prompt"])
+                images.append(entry.get("multi_modal_data", {}).get("image"))
+        return {"raw_prompts": prompts, "images": images}
+
+    def get_text(self, mllama_inputs, embedding_type: str = "both",
+                 output_len_factor: int = 1, need_process: bool = True,
+                 max_new_tokens: int = 128, **generate_kwargs) -> List[str]:
+        """VLM text generation only. ``need_process=True`` takes
+        {"answers": [...], "images": [...]} and renders the chat template;
+        ``need_process=False`` takes pre-formatted vLLM-style inputs,
+        text-only prompts included. ``embedding_type`` and
+        ``output_len_factor`` are accepted and unused, as in the
+        reference."""
+        samples = (mllama_inputs if need_process
+                   else self._vllm_inputs_to_samples(mllama_inputs))
+        return self.engine.generate(samples,
+                                    max_new_tokens=max_new_tokens).texts
+
+    def _hidden(self, result, i: int, embedding_type: str) -> torch.Tensor:
+        """Sample i's VLM hidden states (S, Dv) of ``embedding_type``."""
+        inp = to_tensor(result.prompt_hidden_states[i])
+        out = to_tensor(result.hidden_states[i])
+        if embedding_type == "both":
+            return torch.cat([inp, out], dim=0)
+        if embedding_type == "input_embed":
+            return inp
+        if embedding_type == "input_no_system":
+            return inp[self.engine.num_system_tokens:]
+        if embedding_type == "output_embed":
+            return out
+        raise ValueError(embedding_type)
+
+    @torch.no_grad()
+    def generate(self, samples, embedding_type: str = "both",
+                 output_len_factor: int = 1, max_new_tokens: int = 128,
+                 t5_max_new_tokens: int = 32, rng=None):
+        """VLM generate -> hidden-state tap -> projector -> per-sample greedy
+        T5 decode. Returns (T5 ids per sample, each cut after its first EOS
+        ``t5_eos_token_id`` (default 1), the T5 texts ("" without a local
+        tokenizer), the VLM texts): the full per-sample list, where the
+        reference returns only its last sample's decode."""
+        if embedding_type not in ("both", "input_embed", "output_embed"):
+            raise ValueError(embedding_type)
+        t0 = time.perf_counter()
+        result = self.engine.generate(samples, max_new_tokens=max_new_tokens)
+        times = {"vlm": time.perf_counter() - t0, "projector": 0.0,
+                 "t5": 0.0, "t5_steps": 0}
+        if self.t5_tokenizer is None:
+            self.t5_tokenizer = self.get_t5_tokenizer()
+        eos_id = int(self.cfg.get("t5_eos_token_id", 1))
+        outputs_list, t5_texts = [], []
+        for i in range(len(result.hidden_states)):
+            hid = self._hidden(result, i, embedding_type)
+            t0 = time.perf_counter()
+            proj = self.project(self.trainable, hid[None].to(self.device))
+            self._sync()
+            t1 = time.perf_counter()
+            ids = self.greedy_decode(proj, None, t5_max_new_tokens)[0].tolist()
+            times["projector"] += t1 - t0
+            times["t5"] += time.perf_counter() - t1
+            times["t5_steps"] += t5_max_new_tokens
+            if eos_id in ids:
+                ids = ids[: ids.index(eos_id) + 1]
+            outputs_list.append(ids)
+            t5_texts.append(
+                self.t5_tokenizer.decode([t for t in ids if t != eos_id],
+                                         skip_special_tokens=True)
+                if self.t5_tokenizer is not None else "")
+        self.last_phase_times = times
+        return outputs_list, t5_texts, result.texts
+
+    @torch.no_grad()
+    def get_embed(self, samples, embedding_type: str = "output_embed",
+                  max_new_tokens: int = 128, rng=None):
+        """images + prompts -> VLM generate -> hidden-state tap ->
+        projector: (a list of (S, d_model) conditioning tensors on the
+        model's device, the engine's result). ``embedding_type`` in both,
+        input_embed, input_no_system (the prompt without its system turn:
+        ``engine.num_system_tokens``), output_embed."""
+        result = self.engine.generate(samples, max_new_tokens=max_new_tokens)
+        conds = [self.project(self.trainable,
+                              self._hidden(result, i, embedding_type)[None]
+                              .to(self.device), rng)[0]
+                 for i in range(len(result.hidden_states))]
+        return conds, result
+
+
+def lvlm_text_launches(t5_cfg: T5Config, embed_lens: List[int],
+                       steps: int) -> int:
+    """GEMV (``int8_matmul``) launches of a weight-only greedy T5 decode of
+    ``steps`` steps per sample, one sample per entry of ``embed_lens`` (its
+    conditioning length): at step i the decoder holds i + 1 tokens, <= 32
+    rows, so each of its weight-only layers takes the GEMV, and the cross
+    k/v projections do too when the conditioning has <= 32 rows."""
+    from thinkdiff_torch.ops.int8_matmul import GEMV_ROWS
+
+    if t5_cfg.quant_int8 is not True:
+        raise ValueError("lvlm_text_launches counts the weight-only layout")
+    if steps > GEMV_ROWS:
+        raise ValueError(f"{steps} steps exceed the GEMV's {GEMV_ROWS} rows")
+    n = t5_cfg.num_decoder_layers
+    ffn = (2 if t5_cfg.fused_proj else 3) if t5_cfg.is_gated else 2
+    self_attn = 2 if t5_cfg.fused_proj else 4       # qkv | q, k, v; o
+    per_step = n * (self_attn + 2 + ffn)            # + cross q, o
+    head = 0 if t5_cfg.tie_word_embeddings else 1
+    total = 0
+    for s in embed_lens:
+        cross_kv = (1 if t5_cfg.fused_proj else 2) if s <= GEMV_ROWS else 0
+        total += steps * (per_step + n * cross_kv + head)
+    return total
 
 
 def step_launches(t5_cfg: T5Config, dec_len: int, chunk: int) -> Dict[str, int]:

@@ -104,22 +104,34 @@ def params_of(module: nn.Module) -> Dict[str, Any]:
     return tree_of(module, lambda _, t: to_numpy(t))
 
 
+def local_hf_dir(repo_or_path: str):
+    """The local directory of an HF repo id or path (the directory itself,
+    or the newest hub-cache snapshot), or None when it is not on disk."""
+    import os
+
+    path = os.path.expanduser(repo_or_path)
+    if os.path.isdir(path):
+        return path
+    cache = os.environ.get("HF_HOME") or os.path.expanduser(
+        "~/.cache/huggingface")
+    snaps = os.path.join(cache, "hub", "models--" + repo_or_path.replace(
+        "/", "--"), "snapshots")
+    if os.path.isdir(snaps) and os.listdir(snaps):
+        path = os.path.join(snaps, sorted(os.listdir(snaps))[-1])
+        if os.path.isdir(path):
+            return path
+    return None
+
+
 def local_hf_state_dict(repo_or_path: str):
     """A local HF checkpoint (directory or hub-cache snapshot) as a numpy
     state dict, or None when it is not on disk. Never downloads."""
     import glob
     import os
 
-    path = os.path.expanduser(repo_or_path)
-    if not os.path.isdir(path):
-        cache = os.environ.get("HF_HOME") or os.path.expanduser(
-            "~/.cache/huggingface")
-        snaps = os.path.join(cache, "hub", "models--" + repo_or_path.replace(
-            "/", "--"), "snapshots")
-        if os.path.isdir(snaps) and os.listdir(snaps):
-            path = os.path.join(snaps, sorted(os.listdir(snaps))[-1])
-        if not os.path.isdir(path):
-            return None
+    path = local_hf_dir(repo_or_path)
+    if path is None:
+        return None
     files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
     if not files:
         return None

@@ -86,3 +86,85 @@ def build_vision_projector(projector_type: str, out_dim: int,
     if projector_type == "identity":
         return IdentityProjector()
     raise ValueError(f"Unknown projector type: {projector_type}")
+
+
+def _as_numpy(v):
+    import numpy as np
+
+    return (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v))
+
+
+def convert_projector_torch(sd, dtype=None) -> Dict[str, Any]:
+    """Reference ``mm_projector`` state dict (a .pth of torch tensors or
+    numpy arrays) -> the projector tree as numpy, the JAX package's
+    ``convert_projector_torch``: the reference's nn.Sequential(Linear, GELU,
+    Linear[, T5LayerNorm]) keys ``mm_projector.<idx>.weight`` map to
+    ``layer_i`` in order of appearance (kernels transposed to (in, out)), a
+    1-D weight to the trailing ``t5_norm``; a bare ``mm_projector.weight``
+    (type ``linear``) to ``layer_0``."""
+    by_idx: Dict[int, Dict[str, Any]] = {}
+    for key, val in sd.items():
+        m = re.match(r"^(?:mm_projector\.)?(?:(\d+)\.)?(weight|bias)$", key)
+        if not m:
+            continue
+        arr = _as_numpy(val)
+        if dtype is not None:
+            arr = arr.astype(dtype)
+        by_idx.setdefault(int(m.group(1) or 0), {})[m.group(2)] = arr
+    flat: Dict[str, Any] = {}
+    linear_idx = 0
+    for idx in sorted(by_idx):
+        entry = by_idx[idx]
+        w = entry.get("weight")
+        if w is not None and w.ndim == 2:
+            layer = {"kernel": w.T}
+            if "bias" in entry:
+                layer["bias"] = entry["bias"]
+            flat[f"layer_{linear_idx}"] = layer
+            linear_idx += 1
+        elif w is not None:
+            flat["t5_norm"] = {"weight": w}
+    return flat
+
+
+def export_projector_torch(flat, projector_type: Optional[str] = None,
+                           prefix: str = "mm_projector") -> Dict[str, Any]:
+    """Inverse of ``convert_projector_torch`` (the JAX package's
+    ``export_projector_torch``): a projector tree -> the reference's
+    Sequential key layout, numpy leaves. ``projector_type=None`` infers it
+    from the tree; ``mlpNx_gelu_t5_norm`` exports only for N <= 2 (the
+    reference interleaves a norm after every extra linear beyond that)."""
+    arr = _as_numpy
+    linear_keys = sorted((k for k in flat if k.startswith("layer_")),
+                         key=lambda k: int(k.split("_")[1]))
+    if projector_type is None:
+        projector_type = (f"mlp{len(linear_keys)}x_gelu"
+                          + ("_t5_norm" if "t5_norm" in flat else ""))
+    out: Dict[str, Any] = {}
+    if projector_type == "linear":
+        layer = flat["layer_0"]
+        out[f"{prefix}.weight"] = arr(layer["kernel"]).T
+        if "bias" in layer:
+            out[f"{prefix}.bias"] = arr(layer["bias"])
+        return out
+    m = re.match(r"^mlp(\d+)x_gelu(_t5_norm)?$", projector_type)
+    if not m:
+        raise ValueError(f"Unknown projector type: {projector_type}")
+    use_norm = m.group(2) is not None
+    if use_norm and len(linear_keys) > 2:
+        raise ValueError(
+            "mlpNx_gelu_t5_norm export only supports N <= 2 (the reference "
+            "interleaves norms per extra linear for deeper stacks)")
+    idx = 0
+    for i, k in enumerate(linear_keys):
+        if i > 0:
+            idx += 1  # the GELU slot in the reference Sequential
+        layer = flat[k]
+        out[f"{prefix}.{idx}.weight"] = arr(layer["kernel"]).T
+        if "bias" in layer:
+            out[f"{prefix}.{idx}.bias"] = arr(layer["bias"])
+        idx += 1
+    if use_norm:
+        out[f"{prefix}.{idx}.weight"] = arr(flat["t5_norm"]["weight"])
+    return out

@@ -4,9 +4,13 @@
 ``quant`` modes:
   False          — float kernel ``kernel`` (in, out) in the layer's dtype.
   True / "int8"  — weight-only int8: ``kernel_q`` (in, out) + per-column
-                   ``kernel_scale``; the int8 kernel is converted to the
-                   layer's dtype, multiplied with ``torch.matmul``, and the
-                   scale is applied to the output.
+                   ``kernel_scale``. At <= 32 rows (a decode step) the
+                   product is the int8 GEMV (ops/int8_matmul ``int8_matmul``:
+                   the kernel on the card, its plain version on the CPU);
+                   above that the int8 kernel is converted to the layer's
+                   dtype, multiplied with ``torch.matmul``, and the scale is
+                   applied to the output. The two branches of the JAX
+                   QDense, whose GEMV is the Pallas kernel.
   "w8a8"         — weights int8 AND activations quantized per row on the
                    fly; the product runs in the s8 GEMM kernel
                    (ops/int8_matmul). x is first divided by ``input_scale``
@@ -32,6 +36,7 @@ from typing import Any, Dict, List
 import torch
 from torch import nn
 
+from thinkdiff_torch.ops.int8_matmul import GEMV_ROWS, int8_matmul
 from thinkdiff_torch.ops.quant import int8_dynamic_matmul
 
 
@@ -82,6 +87,9 @@ class QDense(nn.Module):
             xs = x * (1.0 / self.input_scale.to(self.dtype))
             y = int8_dynamic_matmul(xs, self.kernel_q, self.kernel_scale,
                                     self.kernel_q_kn)
+        elif self.quant and x.numel() // x.shape[-1] <= GEMV_ROWS:
+            y = int8_matmul(x, self.kernel_q, self.kernel_scale,
+                            out_dtype=self.dtype)
         elif self.quant:
             y = torch.matmul(x, self.kernel_q.to(self.dtype))
             y = y * self.kernel_scale.to(self.dtype)

@@ -94,7 +94,10 @@ class Qwen2VLConfig:
 
     @classmethod
     def qwen2_vl_7b(cls, vision_quant: Any = False, **kw):
+        # Qwen2-VL-7B-Instruct's config.json: vocab 152064, where the 2B
+        # has 151936 (the JAX factory keeps the 2B's)
         base = dict(
+            vocab_size=152064,
             hidden_size=3584, intermediate_size=18944, num_layers=28,
             num_heads=28, num_kv_heads=4, tie_word_embeddings=False,
             dtype=torch.bfloat16,

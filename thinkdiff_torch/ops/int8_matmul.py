@@ -1,22 +1,38 @@
-"""The w8a8 s8 x s8 GEMMs with their dequantization epilogues (counterparts
-of ``_s8_matmul_fused`` and ``_s8_matmul_fused_bwd`` in
-thinkdiff_tpu/ops/int8_matmul.py).
+"""The int8 GEMMs of thinkdiff_tpu/ops/int8_matmul.py, each a hand-written
+kernel on a CUDA tensor and its plain version on a CPU tensor.
 
-forward:        y = out_dtype(f32(sum_k xq[r, k] * w_q[k, n]) * sx[r] * scale[n])
-input gradient: dx = out_dtype(f32(sum_n gq[r, n] * w_q[k, n]) * sg[r])
+w8a8 (s8 x s8, exact int32 sums; the references accumulate in float64,
+which holds every int32 sum exactly, so the kernels equal them on the card):
+  ``s8_matmul``      y = out(f32(sum_k xq[r, k] * w_q[k, n]) * sx[r] * scale[n])
+                     (``_s8_matmul_fused``, csrc/s8_gemm.cu)
+  ``s8_matmul_bwd``  dx = out(f32(sum_n gq[r, n] * w_q[k, n]) * sg[r])
+                     (``_s8_matmul_fused_bwd``, csrc/s8_gemm_bwd.cu)
+  ``s8_matmul_qx``   s8_matmul with x quantized per row inside the kernel
+                     (``_s8_matmul_fused_qx``, csrc/s8_gemm_qx.cu)
+weight-only int8 (x float, f32 accumulation):
+  ``int8_matmul``       y = out(f32(x) @ f32(w_q) * scale), R <= 32 rows a
+                        launch (``int8_matmul``, csrc/int8_gemv.cu)
+  ``int8_matmul_wide``  the same at any R with bf16 products, and its input
+                        gradient (``int8_matmul_wide``, csrc/int8_wide.cu)
 
-On a CUDA tensor ``s8_matmul`` / ``s8_matmul_bwd`` launch the hand-written
-kernels of ``csrc/s8_gemm.cu`` / ``csrc/s8_gemm_bwd.cu``; on a CPU tensor
-they run ``s8_matmul_reference`` / ``s8_matmul_bwd_reference``. The
-references accumulate in float64, which holds every int32 sum exactly
-(K=10240 x 127^2 exceeds f32's 2^24), so the kernels equal them on the card.
+Every kernel reads the int8 weight as its (N, K) row-major storage: QDense
+keeps its (K, N) kernel as the transpose view of such a copy, made once at
+load; any other layout is copied per call. ``s8_matmul_bwd`` alone reads the
+(K, N) row-major layout (a training QDense keeps that copy too).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from thinkdiff_torch import kernels
+
+# the weight-only GEMV takes R <= GEMV_ROWS rows a launch (two m16 tiles)
+GEMV_ROWS = 32
+_GEMV_COLS = 32     # output columns per block of the GEMV kernel
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def s8_matmul_reference(xq, sx, w_q, scale, out_dtype=torch.bfloat16):
@@ -38,6 +54,12 @@ def _transposed_storage(w_q: torch.Tensor) -> torch.Tensor:
     return wt if wt.is_contiguous() else wt.contiguous()
 
 
+def _aligned(name, *named):
+    for label, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: {label} is not 16-byte aligned")
+
+
 def _s8_matmul_cuda(xq, sx, w_q, scale, out_dtype):
     r, k = xq.shape
     k2, n = w_q.shape
@@ -56,9 +78,7 @@ def _s8_matmul_cuda(xq, sx, w_q, scale, out_dtype):
     wt = _transposed_storage(w_q)
     sx = sx.float().contiguous()
     scale = scale.float().contiguous()
-    for name, t in (("xq", xq), ("w_q", wt)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"s8_matmul kernel: {name} is not 16-byte aligned")
+    _aligned("s8_matmul", ("xq", xq), ("w_q", wt))
     y = torch.empty((r, n), dtype=torch.bfloat16, device=xq.device)
     rc = kernels.library().thinkdiff_s8_gemm(
         kernels.ptr(xq), kernels.ptr(sx), kernels.ptr(wt), kernels.ptr(scale),
@@ -97,10 +117,7 @@ def _s8_matmul_bwd_cuda(gq, sg, w_q, out_dtype):
                          "tensor (QDense(train_layout=True) keeps one)")
     gq, w = gq.contiguous(), w_q
     sg = sg.float().contiguous()
-    for name, t in (("gq", gq), ("w_q", w)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"s8_matmul_bwd kernel: {name} is not 16-byte "
-                             "aligned")
+    _aligned("s8_matmul_bwd", ("gq", gq), ("w_q", w))
     dx = torch.empty((r, k), dtype=torch.bfloat16, device=gq.device)
     rc = kernels.library().thinkdiff_s8_gemm_bwd(
         kernels.ptr(gq), kernels.ptr(sg), kernels.ptr(w), kernels.ptr(dx),
@@ -118,3 +135,220 @@ def s8_matmul_bwd(gq, sg, w_q, out_dtype=torch.bfloat16):
     if gq.device.type == "cpu":
         return s8_matmul_bwd_reference(gq, sg, w_q, out_dtype)
     raise NotImplementedError(f"s8_matmul_bwd: no kernel for {gq.device}")
+
+
+# ------------------------------- weight-only ---------------------------------
+
+def int8_matmul_reference(x, w_q, scale, out_dtype=None):
+    """(f32(x) @ f32(w_q)) * f32(scale), cast to ``out_dtype`` (x's dtype by
+    default): the JAX ``int8_matmul_reference``."""
+    out_dtype = out_dtype or x.dtype
+    y = x.float() @ w_q.float()
+    return (y * scale.float()[None]).to(out_dtype)
+
+
+def _check_int8_operands(name, k, w_q, scale):
+    """The shapes every weight-only kernel takes: w_q (K, N) int8, scale
+    (N,), K and N multiples of 16 (every weight-only layer of the repo's
+    configurations). Anything else raises a ValueError naming the shape."""
+    if w_q.dim() != 2 or w_q.shape[0] != k or scale.shape != (w_q.shape[1],):
+        raise ValueError(f"{name}: bad shapes K={k}, w_q {tuple(w_q.shape)}, "
+                         f"scale {tuple(scale.shape)}")
+    n = w_q.shape[1]
+    if k % 16 or n % 16:
+        raise ValueError(f"{name} kernel: K={k} and N={n} must be multiples "
+                         "of 16")
+    if w_q.dtype != torch.int8:
+        raise TypeError(f"{name} kernel takes an int8 weight")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gemv_k_split(k: int, n: int, sms: int) -> int:
+    """K per block of the GEMV: all of K while the 32-column strips give
+    every SM two blocks; otherwise K cut into slices (multiples of 64, at
+    least 512 each) until they do."""
+    strips = -(-n // _GEMV_COLS)
+    slices = min(-(-2 * sms // strips), max(1, k // 512))
+    if slices <= 1:
+        return k
+    return -(-k // (slices * 64)) * 64
+
+
+def _int8_matmul_cuda(x, w_q, scale, out_dtype):
+    k = x.shape[-1]
+    _check_int8_operands("int8_matmul", k, w_q, scale)
+    if x.dtype not in _KERNEL_DTYPES or out_dtype not in _KERNEL_DTYPES:
+        raise TypeError("int8_matmul kernel takes and writes bf16 or f32, not "
+                        f"{x.dtype} -> {out_dtype}")
+    n = w_q.shape[1]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k).contiguous()
+    wt = _transposed_storage(w_q)
+    scale = scale.float().contiguous()
+    _aligned("int8_matmul", ("x", x2), ("w_q", wt))
+    r = x2.shape[0]
+    y = torch.empty((r, n), dtype=out_dtype, device=x.device)
+    k_split = gemv_k_split(k, n, _sm_count(x.device.index or 0))
+    slices = -(-k // k_split)
+    part = (torch.empty((slices, min(r, GEMV_ROWS), n), dtype=torch.float32,
+                        device=x.device) if slices > 1 else None)
+    lib = kernels.library()
+    for r0 in range(0, r, GEMV_ROWS):
+        xs, ys = x2[r0:r0 + GEMV_ROWS], y[r0:r0 + GEMV_ROWS]
+        rc = lib.thinkdiff_int8_gemv(
+            kernels.ptr(xs), kernels.ptr(wt), kernels.ptr(scale),
+            kernels.ptr(ys), kernels.ptr(part), xs.shape[0], k, n, k_split,
+            int(x.dtype == torch.float32), int(out_dtype == torch.float32),
+            kernels.stream_of(x))
+        kernels.check_launch(rc, "int8_matmul")
+        kernels.count_launch("int8_matmul")
+    return y.reshape(*lead, n)
+
+
+def int8_matmul(x, w_q, scale, out_dtype=None):
+    """x (..., K) @ int8 w_q (K, N) * scale (N,) -> (..., N) in
+    ``out_dtype`` (x's dtype by default): the weight-only product of a
+    decode step. On the card, one GEMV launch per 32 rows; K and N must be
+    multiples of 16 there."""
+    out_dtype = out_dtype or x.dtype
+    if x.is_cuda:
+        return _int8_matmul_cuda(x, w_q, scale, out_dtype)
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, w_q, scale, out_dtype)
+    raise NotImplementedError(f"int8_matmul: no kernel for {x.device}")
+
+
+def int8_matmul_wide_fwd_reference(x, w_q, scale):
+    """The wide forward's arithmetic: x rounded to bf16 (the kernels' MXU /
+    tensor-core operand), then ``int8_matmul_reference`` in x's dtype."""
+    return int8_matmul_reference(x.to(torch.bfloat16), w_q, scale, x.dtype)
+
+
+def int8_matmul_wide_bwd_reference(g, w_q, scale, out_dtype):
+    """dx = f32(bf16(f32(g) * scale)) @ f32(w_q)^T, cast to ``out_dtype``:
+    the Pallas ``_wide_bwd_kernel`` rounds g * scale to bf16 before its
+    product."""
+    gs = (g.float() * scale.float()).to(torch.bfloat16).float()
+    return (gs @ w_q.float().t()).to(out_dtype)
+
+
+def _int8_wide_cuda(name, a, w_q, scale, out_dtype, backward):
+    k, n = w_q.shape
+    _check_int8_operands(name, k, w_q, scale)
+    if a.dtype not in _KERNEL_DTYPES or out_dtype != a.dtype:
+        raise TypeError(f"{name} kernel takes bf16 or f32 and writes the same "
+                        f"type, not {a.dtype} -> {out_dtype}")
+    a2 = a.reshape(-1, a.shape[-1]).contiguous()
+    if a2.shape[1] != (n if backward else k):
+        raise ValueError(f"{name}: input {tuple(a.shape)} for w_q "
+                         f"{tuple(w_q.shape)}")
+    wt = _transposed_storage(w_q)
+    scale = scale.float().contiguous()
+    _aligned(name, ("input", a2), ("w_q", wt), ("scale", scale))
+    out = torch.empty((a2.shape[0], k if backward else n), dtype=out_dtype,
+                      device=a.device)
+    fn = (kernels.library().thinkdiff_int8_wide_bwd if backward
+          else kernels.library().thinkdiff_int8_wide_fwd)
+    rc = fn(kernels.ptr(a2), kernels.ptr(wt), kernels.ptr(scale),
+            kernels.ptr(out), a2.shape[0], k, n,
+            int(a.dtype == torch.float32), kernels.stream_of(a))
+    kernels.check_launch(rc, name)
+    kernels.count_launch(name)
+    return out.reshape(*a.shape[:-1], out.shape[1])
+
+
+def int8_matmul_wide_fwd(x, w_q, scale):
+    """x (..., K) -> (..., N) in x's dtype (bf16 products, f32 sums)."""
+    if x.is_cuda:
+        return _int8_wide_cuda("int8_matmul_wide_fwd", x, w_q, scale,
+                               x.dtype, backward=False)
+    if x.device.type == "cpu":
+        return int8_matmul_wide_fwd_reference(x, w_q, scale)
+    raise NotImplementedError(f"int8_matmul_wide: no kernel for {x.device}")
+
+
+def int8_matmul_wide_bwd(g, w_q, scale, out_dtype):
+    """g (..., N) -> dx (..., K) in ``out_dtype``."""
+    if g.is_cuda:
+        return _int8_wide_cuda("int8_matmul_wide_bwd", g, w_q, scale,
+                               out_dtype, backward=True)
+    if g.device.type == "cpu":
+        return int8_matmul_wide_bwd_reference(g, w_q, scale, out_dtype)
+    raise NotImplementedError(f"int8_matmul_wide: no kernel for {g.device}")
+
+
+class _Int8MatmulWide(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_q, scale):
+        ctx.save_for_backward(w_q, scale)
+        ctx.x_dtype = x.dtype
+        return int8_matmul_wide_fwd(x, w_q, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, scale = ctx.saved_tensors
+        # frozen weight: no gradient for w_q or scale (JAX returns None)
+        return int8_matmul_wide_bwd(g.to(ctx.x_dtype), w_q, scale,
+                                    ctx.x_dtype), None, None
+
+
+def int8_matmul_wide(x, w_q, scale):
+    """x (..., K) @ int8 w_q (K, N) * scale (N,) -> (..., N) in x's dtype,
+    streaming the weight as int8 in the forward and the input gradient
+    (the JAX ``jax.custom_vjp`` of the same name; the weight is frozen)."""
+    return _Int8MatmulWide.apply(x, w_q, scale)
+
+
+# ------------------------- w8a8, quantize in kernel --------------------------
+
+def s8_qx_supported(r: int, k: int, n: int) -> bool:
+    """The JAX op's geometry gate (K 128-aligned and <= 4096, N with a
+    128-multiple block), kept so that callers pick the same path in both
+    packages; the port's kernel itself takes any K, N multiple of 16."""
+    return bool(k <= 4096 and k % 128 == 0
+                and any(n % b == 0 for b in (512, 384, 256, 128)))
+
+
+def s8_matmul_qx_reference(x, w_q, scale, out_dtype=torch.bfloat16):
+    """The pre-pass chain the kernel fuses: per-row absmax quantization
+    (``_absmax_quant_rows``), then ``s8_matmul_reference``."""
+    from thinkdiff_torch.ops.quant import _absmax_quant_rows
+
+    xq, sx = _absmax_quant_rows(x)
+    return s8_matmul_reference(xq, sx, w_q, scale, out_dtype)
+
+
+def _s8_matmul_qx_cuda(x, w_q, scale, out_dtype):
+    r, k = x.shape
+    _check_int8_operands("s8_matmul_qx", k, w_q, scale)
+    if x.dtype not in _KERNEL_DTYPES or out_dtype not in _KERNEL_DTYPES:
+        raise TypeError("s8_matmul_qx kernel takes and writes bf16 or f32, "
+                        f"not {x.dtype} -> {out_dtype}")
+    n = w_q.shape[1]
+    x = x.contiguous()
+    wt = _transposed_storage(w_q)
+    scale = scale.float().contiguous()
+    _aligned("s8_matmul_qx", ("x", x), ("w_q", wt))
+    y = torch.empty((r, n), dtype=out_dtype, device=x.device)
+    rc = kernels.library().thinkdiff_s8_gemm_qx(
+        kernels.ptr(x), kernels.ptr(wt), kernels.ptr(scale), kernels.ptr(y),
+        r, k, n, int(x.dtype == torch.float32),
+        int(out_dtype == torch.float32), kernels.stream_of(x))
+    kernels.check_launch(rc, "s8_matmul_qx")
+    kernels.count_launch("s8_matmul_qx")
+    return y
+
+
+def s8_matmul_qx(x, w_q, scale, out_dtype=torch.bfloat16):
+    """x (R, K) float, UNquantized; w_q (K, N) int8; scale (N,) f32: the
+    w8a8 product with x quantized per row inside the kernel, numerics
+    identical to ``_absmax_quant_rows`` + ``s8_matmul``."""
+    if x.is_cuda:
+        return _s8_matmul_qx_cuda(x, w_q, scale, out_dtype)
+    if x.device.type == "cpu":
+        return s8_matmul_qx_reference(x, w_q, scale, out_dtype)
+    raise NotImplementedError(f"s8_matmul_qx: no kernel for {x.device}")
