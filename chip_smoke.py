@@ -107,12 +107,17 @@ BENCH_OVERRIDES = {"load_pretrained": False, "quantize_frozen": "int8_dyn",
                    "chunked_ce": 128, "vlm_hidden_size": 3584,
                    "t5_config": {"fused_proj": True, "dropout_rate": 0.0}}
 BENCH_ROWS, BENCH_CAP, BENCH_BATCHES = 4, 256, 16
-# gradient check of the 2-layer copy against the CPU's plain versions: the
-# loss agreed to 3.7e-7 and the projector gradients to a cosine of 0.99654
-# at worst (NVIDIA H100 80GB HBM3, 700 W): each side quantizes its own bf16
-# activations and gradients to int8 per row, so an element one rounding
-# apart moves one quantum, which bounds the agreement
-GRAD_LOSS_TOL, GRAD_COS_MIN = 2e-6, 0.995
+# gradient check of the 2-layer copy against the CPU's plain versions. Each
+# side quantizes its own bf16 activations and gradients to int8 per row, so
+# an element one rounding apart moves one quantum: that noise bounds the
+# agreement. The loss limit is three times the largest relative difference
+# of ``gradient_draws`` (5 draws, model seeds 5-9 and packed rows of seeds
+# 0-4, each as shipped and with every activation scale one f32 ulp up;
+# NVIDIA H100 80GB HBM3, 700.00 W, flash forward of the mma.sync kernel):
+# as shipped 3.7e-7, 2.29e-5, 3.99e-5, 2.54e-5, 2.8e-7; scales one ulp up
+# 1.41e-5, 5.29e-5, 7.36e-5, 1.42e-5, 2.56e-5. Gradient cosine 0.99595 at
+# worst over those ten, 0.99654 for draw 0 (the check's own)
+GRAD_LOSS_TOL, GRAD_COS_MIN = 2.2e-4, 0.995
 # cosine does not see a gradient's scale: each leaf's gradient norm, card
 # over CPU, must also lie in this band. Measured 0.99947-1.00154 over the
 # five leaves (same card); a band of about three times that spread still
@@ -140,7 +145,7 @@ TPU_KERNELS = {
                             "thinkdiff_tpu/ops/flash_attention.py:64"),
     "s8_matmul": ("cuda", "thinkdiff_torch/csrc/s8_gemm.cu",
                   "thinkdiff_tpu/ops/int8_matmul.py:291"),
-    "rmsnorm": ("triton", "thinkdiff_torch/ops/norms.py",
+    "rmsnorm": ("cuda", "thinkdiff_torch/csrc/rmsnorm.cu",
                 "thinkdiff_tpu/ops/norms.py:27"),
     "paged_attention": ("cuda", "thinkdiff_torch/csrc/paged_decode.cu",
                         "thinkdiff_tpu/ops/paged_attention.py:77"),
@@ -257,22 +262,31 @@ def phase_build():
     say("build", f"CUDA kernels {info['path']}: nvcc {info['seconds']:.1f} s "
         f"(one process per source, in parallel), load "
         f"{time.perf_counter() - t0:.1f} s")
-    # ptxas -v: registers and shared memory of each kernel
-    entry = None
+    # ptxas -v: registers, static shared memory and spills of each kernel
+    # (the flash forward and RMSNorm take only dynamic shared memory), and
+    # any warning (a wgmma pipeline that ptxas serializes says so here)
+    entry, stack, spill = None, "0", "0"
     for line in str(info["log"]).splitlines():
+        if "ptxas" in line and "warning" in line.lower():
+            say("build", line.strip()[:300])
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            entry = m.group(1)
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            entry, stack, spill = m.group(1), "0", "0"
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            stack, spill = m.group(1), m.group(2)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and entry:
-            name = re.search(r"(flash_fwd_kernelILi\d+|s8_gemm_kernel|"
+            name = re.search(r"(flash_fwd_kernelILi\d+ELi\d+ELi\d|"
+                             r"rmsnorm_\w{1,48}|s8_gemm_kernel|"
                              r"paged_decode_kernel|fused_sample_tiles|"
                              r"fused_sample_reduce|flash_bwd_\w+?kernel|"
                              r"s8_gemm_bwd_kernel|int8_gemv_kernelILi\d+ELb\d+ELb\d|"
                              r"int8_wide_\w+?_kernelILb\d|"
                              r"s8_gemm_qx_kernelILb\dELb\d)", entry)
             say("build", f"{name.group(1) if name else entry}: {m.group(1)} "
-                f"registers, {m.group(2)} B smem")
+                f"registers, {m.group(2) or 0} B static smem, {stack} B "
+                f"stack frame, {spill} B spill stores")
 
 
 def check(name, shape, run, plain, ok, tol_text, work, library=None,
@@ -298,16 +312,19 @@ def check(name, shape, run, plain, ok, tol_text, work, library=None,
     ms, plain_ms = time_ms(run), time_ms(plain)
     dev_ms = device_ms(run)
     lib_ms = time_ms(library) if library is not None else None
+    lib_dev = device_ms(library) if library is not None else None
     b_ms, b_by = bound_ms(*work)
     say("kernels", f"{name} {shape}: max|err| {max_err:.3g} ({max_rel:.3g} "
         f"of max|ref|) within {tol_text}; kernel {ms:.4f} ms (device "
         f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
-        + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
+        + (f"{lib_ms:.4f} ms (device {lib_dev:.4f} ms)" if lib_ms is not None
+           else "none")
         + f", bound {b_ms:.4f} ms ({b_by}: {work[0] / 1e6:.1f} MB, "
         f"{work[1] / 1e9:.2f} G {work[2]} ops)")
     return {"shape": shape, "max_abs_err": max_err, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "main": main}
+            "library_device_ms": lib_dev, "bound_ms": b_ms, "bound_by": b_by,
+            "main": main}
 
 
 def kernels_flash(results):
@@ -327,6 +344,20 @@ def kernels_flash(results):
         ok, tol, (nbytes(q, k, v, q), 4 * q.numel() * 1024, "bf16"),
         library=lambda: F.scaled_dot_product_attention(q, k, v,
                                                        scale=80 ** -0.5)))
+    # the same as the vision block hands it over: (B, H, S, D) views of the
+    # fused (B, S, 3, H, 80) qkv projection (models/qwen2_vl.py VisionBlock)
+    qkv = randn((32, 1024, 3, 16, 80), 1)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    results.append(check(
+        "flash_attention_fwd", "vision strided B32 H16 S1024 D80 (fused qkv "
+        "slices)",
+        lambda: flash_attention(q, k, v, None, None, False, 80 ** -0.5),
+        lambda: mha_reference(q, k, v, None, None, False, 80 ** -0.5),
+        ok, tol, (nbytes(q, k, v, q), 4 * q.numel() * 1024, "bf16"),
+        library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       scale=80 ** -0.5)))
+    del qkv, q, k, v
+    kernels_flash_t5_decode(results, ok, tol)
     # LM one-shot prefill (dense slice): causal + key-padding bias, GQA 12:2
     q = randn((8, 12, 512, 128), 4)
     k, v = randn((8, 2, 512, 128), 5), randn((8, 2, 512, 128), 6)
@@ -344,6 +375,219 @@ def kernels_flash(results):
         ok, tol, (nbytes(q, k, v, q, bias), 4 * pairs * 128, "bf16"),
         library=lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=128 ** -0.5, enable_gqa=True)))
+
+
+def kernels_flash_t5_decode(results, ok, tol):
+    """A greedy flan-t5-xxl step of lvlm-text (B1, 64 heads of 64, sm_scale
+    1): self-attention over the t decoder rows (causal + the relative bias)
+    and cross-attention of t rows over the 411 conditioning rows (kv_mask),
+    q/k/v as the T5 layer hands them over: head-transposed views of the
+    fused projections."""
+    import torch.nn.functional as F
+
+    from thinkdiff_torch.ops.flash_attention import (
+        flash_attention, mha_reference)
+
+    heads = lambda x, t: x.reshape(1, t, 64, 64).transpose(1, 2)
+    t = 16
+    qkv = randn((1, t, 3 * 4096), 90)
+    q, k, v = (heads(x, t) for x in qkv.split(4096, dim=-1))
+    bias = randn((1, 64, t, t), 91, torch.float32) * 0.5
+    causal = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+    mask = torch.where(causal, bias, -1e30).to(torch.bfloat16)
+    results.append(check(
+        "flash_attention_fwd", f"t5 decode self B1 H64 T{t} D64 causal + rel "
+        "bias (fused qkv views)",
+        lambda: flash_attention(q, k, v, bias, None, True, 1.0),
+        lambda: mha_reference(q, k, v, bias, None, True, 1.0),
+        ok, tol, (nbytes(q, k, v, q, bias), 4 * 64 * t * (t + 1) // 2 * 64,
+                  "bf16"),
+        library=lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=1.0)))
+    tk = 411
+    kv = randn((1, tk, 2 * 4096), 92)
+    k, v = (heads(x, tk) for x in kv.split(4096, dim=-1))
+    kv_mask = (torch.arange(tk, device="cuda") < tk - 11).int()[None]
+    for t in (16, 32):
+        q = heads(randn((1, t, 4096), 93), t)
+        mask = torch.where(kv_mask[:, None, None, :] > 0, 0.0, -1e30).to(
+            torch.bfloat16)
+        results.append(check(
+            "flash_attention_fwd", f"t5 decode cross B1 H64 Tq{t} Tk{tk} D64 "
+            "kv_mask (fused kv views)",
+            lambda q=q: flash_attention(q, k, v, None, kv_mask, False, 1.0),
+            lambda q=q: mha_reference(q, k, v, None, kv_mask, False, 1.0),
+            ok, tol, (nbytes(q, k, v, q, kv_mask),
+                      4 * 64 * t * (tk - 11) * 64, "bf16"),
+            library=lambda q=q, mask=mask: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=1.0)))
+
+
+def host_us(fn, calls: int = 400) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue its work: calls
+    back to back, one synchronize at the end (for a kernel shorter than its
+    enqueue, the card waits on the host)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def flash_tile_sweep():
+    """The forward kernel's tile configurations (block_q, block_k, ring
+    stages) and RMSNorm's warps a row at the kernel table's shapes: device
+    ms of each (torch.profiler) against the plain version, and the host
+    time a call of the wrappers (flash attention, RMSNorm) and of their
+    one-call yardsticks. Run alone:
+    ``python3 -c "import chip_smoke as c; c.phase_device(); c.flash_tile_sweep()"``."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from thinkdiff_torch.ops import flash_attention as fa
+    from thinkdiff_torch.ops.norms import rmsnorm
+
+    dec, enc = packed_segments()
+    heads = lambda x, t: x.reshape(x.shape[0], t, -1, 64).transpose(1, 2)
+    q, k, v = (randn((32, 16, 1024, 80), s) for s in (1, 2, 3))
+    cases = [("vision B32 H16 S1024 D80", q, k, v,
+              dict(sm_scale=80 ** -0.5))]
+    q, k, v = (randn((4, 64, 256, 64), s) for s in (30, 31, 32))
+    cases += [("t5 self B4 H64 T256", q, k, v, dict(
+        bias=randn((1, 64, 256, 256), 34, torch.float32) * 0.5, causal=True,
+        sm_scale=1.0, q_segment_ids=dec, kv_segment_ids=dec)),
+        ("t5 cross B4 H64 256x256", q, k, v, dict(
+            kv_mask=(enc > 0).int(), sm_scale=1.0, q_segment_ids=dec,
+            kv_segment_ids=enc))]
+    q = randn((8, 12, 512, 128), 4)
+    k, v = randn((8, 2, 512, 128), 5), randn((8, 2, 512, 128), 6)
+    lens = torch.tensor([512, 480, 300, 290, 280, 270, 260, 100], device="cuda")
+    pad = ((torch.arange(512, device="cuda")[None] >= lens[:, None]).float()
+           * -1e30)[:, None, None, :]
+    cases.append(("lm prefill B8 Hq12 Hkv2 T512 D128", q, k, v,
+                  dict(bias=pad, causal=True)))
+    kv = randn((1, 411, 8192), 92)
+    k, v = (heads(x, 411) for x in kv.split(4096, dim=-1))
+    cases.append(("t5 decode cross Tq16 Tk411", heads(randn((1, 16, 4096), 93), 16),
+                  k, v, dict(kv_mask=torch.ones((1, 411), dtype=torch.int32,
+                                                device="cuda"), sm_scale=1.0)))
+    for label, q, k, v, kw in cases:
+        d = q.shape[-1]
+        ref = fa.mha_reference(q, k, v, **kw)
+        bias = kw.get("bias")
+        mode = None if bias is None else "tile" if bias.shape[2] > 1 else "row"
+        flags = (mode, "kv_mask" in kw, "q_segment_ids" in kw)
+        chosen = fa.flash_fwd_tiles(q.shape[2], d, *flags)
+        bk = 128 if d == 64 else 64  # the instantiated (D, block_k)
+        for bq in (64, 128, 192) if d == 80 else (64, 128):
+            for st in (2, 3, 4, 6, 8):
+                if fa.flash_fwd_smem(d, bq, bk, st, *flags) > fa.SMEM_LIMIT:
+                    continue
+                cfg = (bq, bk, st)
+                with mock.patch.object(fa, "flash_fwd_tiles",
+                                       lambda *a, c=cfg, **_: c):
+                    run = lambda: fa.flash_attention(q, k, v, **kw)
+                    err = float((run().float() - ref.float()).abs().max())
+                    dev = device_ms(run)
+                say("sweep", f"flash {label} block_q {bq} block_k {bk} "
+                    f"stages {st}{' (chosen)' if cfg == chosen else ''}: "
+                    f"device {dev:.4f} ms, max|err| {err:.3g}")
+    from thinkdiff_torch.ops import norms
+
+    for r, d in ((256, 1536), (4096, 1536), (16, 3584), (2048, 3584),
+                 (1024, 4096)):
+        x, scale = randn((r, d), 9) * 3.0, randn((d,), 10)
+        ref = norms.rmsnorm_reference(x, scale)
+        for w in (1, 2, 4, 8):
+            with mock.patch.object(norms, "rmsnorm_warps",
+                                   lambda *a, w=w: w):
+                run = lambda: norms.rmsnorm(x, scale)
+                err = float((run().float() - ref.float()).abs().max())
+                dev = device_ms(run)
+            say("sweep", f"rmsnorm R{r} D{d} warps a row {w}"
+                f"{' (chosen)' if w == norms.rmsnorm_warps(r, d) else ''}: "
+                f"device {dev:.4f} ms, max|err| {err:.3g}")
+    q, k, v, kw = cases[-1][1:]
+    x, scale = randn((256, 1536), 9), randn((1536,), 10)
+    mask = torch.zeros((1, 1, 16, 411), dtype=torch.bfloat16, device="cuda")
+    say("sweep", "host us a call (enqueue, back to back): flash t5 decode "
+        f"cross {host_us(lambda: fa.flash_attention(q, k, v, **kw)):.1f}, "
+        "SDPA same "
+        f"{host_us(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)):.1f}"
+        f"; rmsnorm R256 D1536 {host_us(lambda: rmsnorm(x, scale)):.1f}, "
+        f"F.rms_norm same {host_us(lambda: F.rms_norm(x, (1536,), scale, 1e-6)):.1f}")
+
+
+def kernel_ab(root: str = "."):
+    """Device and event ms of the flash forward (#1) and RMSNorm (#3) at the
+    kernel table's shapes, through the package of the checkout at ``root``,
+    so that two commits' kernels can be held against each other on one
+    machine: unpack the other commit (``git archive``) into a git-ignored
+    directory and alternate the two processes, e.g.
+    ``python3 -c "import chip_smoke as c; c.phase_device(); c.kernel_ab('build/parent')"``
+    then ``c.kernel_ab('.')``, then again in the reverse order."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import thinkdiff_torch
+    from thinkdiff_torch.ops.flash_attention import flash_attention
+    from thinkdiff_torch.ops.norms import rmsnorm
+
+    where = Path(thinkdiff_torch.__file__).resolve().parent.parent
+    dec, enc = packed_segments()
+    heads = lambda x, t: x.reshape(x.shape[0], t, -1, 64).transpose(1, 2)
+    cases = []
+    q, k, v = (randn((32, 16, 1024, 80), s) for s in (1, 2, 3))
+    cases.append(("vision B32 H16 S1024 D80", q, k, v,
+                  dict(sm_scale=80 ** -0.5)))
+    qkv = randn((32, 1024, 3, 16, 80), 1)
+    cases.append(("vision strided (fused qkv slices)",
+                  *(qkv[:, :, i].transpose(1, 2) for i in range(3)),
+                  dict(sm_scale=80 ** -0.5)))
+    q, k, v = (randn((4, 64, 256, 64), s) for s in (30, 31, 32))
+    cases.append(("train self B4 H64 T256 D64", q, k, v, dict(
+        bias=randn((1, 64, 256, 256), 34, torch.float32) * 0.5, causal=True,
+        sm_scale=1.0, q_segment_ids=dec, kv_segment_ids=dec)))
+    cases.append(("train cross B4 H64 256x256 D64", q, k, v, dict(
+        kv_mask=(enc > 0).int(), sm_scale=1.0, q_segment_ids=dec,
+        kv_segment_ids=enc)))
+    q, k, v = (randn(s, i) for s, i in (((4, 16, 256, 128), 40),
+                                         ((4, 4, 256, 128), 41),
+                                         ((4, 4, 256, 128), 42)))
+    cases.append(("GQA B4 Hq16 Hkv4 T256 D128 causal", q, k, v,
+                  dict(causal=True)))
+    q = randn((8, 12, 512, 128), 4)
+    k, v = randn((8, 2, 512, 128), 5), randn((8, 2, 512, 128), 6)
+    lens = torch.tensor([512, 480, 300, 290, 280, 270, 260, 100], device="cuda")
+    pad = ((torch.arange(512, device="cuda")[None] >= lens[:, None]).float()
+           * -1e30)[:, None, None, :]
+    cases.append(("lm prefill B8 Hq12 Hkv2 T512 D128 causal+pad", q, k, v,
+                  dict(bias=pad, causal=True)))
+    qkv = randn((1, 16, 3 * 4096), 90)
+    q, k, v = (heads(x, 16) for x in qkv.split(4096, dim=-1))
+    cases.append(("t5 decode self B1 H64 T16", q, k, v, dict(
+        bias=randn((1, 64, 16, 16), 91, torch.float32) * 0.5, causal=True,
+        sm_scale=1.0)))
+    kv = randn((1, 411, 8192), 92)
+    k, v = (heads(x, 411) for x in kv.split(4096, dim=-1))
+    kv_mask = (torch.arange(411, device="cuda") < 400).int()[None]
+    for t in (16, 32):
+        cases.append((f"t5 decode cross B1 H64 Tq{t} Tk411", heads(
+            randn((1, t, 4096), 93), t), k, v,
+            dict(kv_mask=kv_mask, sm_scale=1.0)))
+    for label, q, k, v, kw in cases:
+        run = lambda: flash_attention(q, k, v, **kw)
+        say("ab", f"{where.name} flash {label}: device "
+            f"{device_ms(run, runs=50):.4f} ms, event {time_ms(run):.4f} ms")
+    del cases, q, k, v, qkv, kv
+    for r, d in ((256, 1536), (4096, 1536), (16, 3584), (2048, 3584),
+                 (1024, 4096)):
+        x, scale = randn((r, d), 9) * 3.0, randn((d,), 10)
+        run = lambda: rmsnorm(x, scale, 1e-6)
+        say("ab", f"{where.name} rmsnorm R{r} D{d}: device "
+            f"{device_ms(run, runs=50):.4f} ms, event {time_ms(run):.4f} ms")
 
 
 def kernels_s8(results):
@@ -382,15 +626,18 @@ def kernels_rmsnorm(results):
 
     from thinkdiff_torch.ops.norms import rmsnorm, rmsnorm_reference
 
-    for r in (256, 4096):
-        x, scale = randn((r, 1536), 9) * 3.0, randn((1536,), 10)
+    # the 2B LM (D1536) at the paged decode step and a prefill chunk batch,
+    # the 7B LM of lvlm-text (D3584) at its decode step (16 requests) and a
+    # 16 x 128 prefill chunk
+    for r, d in ((256, 1536), (4096, 1536), (16, 3584), (2048, 3584)):
+        x, scale = randn((r, d), 9) * 3.0, randn((d,), 10)
         results.append(check(
-            "rmsnorm", f"R{r} D1536",
+            "rmsnorm", f"R{r} D{d}",
             lambda x=x, s=scale: rmsnorm(x, s, 1e-6),
             lambda x=x, s=scale: rmsnorm_reference(x, s, 1e-6),
             lambda e, ref: e <= bf16_ulp(ref), "1 bf16 ulp",
             (nbytes(x, scale, x), 4 * x.numel(), "bf16"),
-            library=lambda x=x, s=scale: F.rms_norm(x, (1536,), s, 1e-6)))
+            library=lambda x=x, s=scale, d=d: F.rms_norm(x, (d,), s, 1e-6)))
 
 
 def kernels_paged(results):
@@ -824,40 +1071,100 @@ def cosine(a, b):
     return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
 
 
-def gradient_check(model_cfg, batch):
-    """A 2-layer copy of the w8a8 model at full width: loss and projector
-    gradients of one packed row on the card (the kernels) against the same
-    step through the plain versions on the CPU."""
+def _grad_step(model, frozen, row, dev):
+    """Loss and projector gradients of one step of ``model`` on ``row``
+    with its trainable parameters copied to ``dev`` in f32: (loss,
+    {leaf: gradient on the CPU}, seconds)."""
     from thinkdiff_torch.core.optim import tree_leaves, tree_map
+
+    params = tree_map(lambda t: t.detach().to(dev, torch.float32,
+                                              copy=True).requires_grad_(),
+                      model.trainable_params())
+    t0 = time.perf_counter()
+    loss = model.loss_fn(params, frozen, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in row.items()})
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss, [p for _, p in leaves])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return (float(loss.detach()),
+            {n: g.float().cpu() for (n, _), g in zip(leaves, grads)},
+            time.perf_counter() - t0)
+
+
+def _two_layer_copy(model_cfg, seed):
+    """The w8a8 model cut to 2 decoder layers at full width, and the same
+    frozen T5 on the CPU (plain versions)."""
     from thinkdiff_torch.models.aligner_lvlm import MllamaT5EmbedDecoder
     from thinkdiff_torch.models.bridge import load_params, tree_of
     from thinkdiff_torch.models.t5 import T5ForConditionalGeneration
 
     cfg = dict(model_cfg)
     cfg["t5_config"] = {**cfg["t5_config"], "num_decoder_layers": 2}
-    model = MllamaT5EmbedDecoder(cfg, seed=SEED + 5)
-    row = {k: v[:1] for k, v in batch.items()}
+    model = MllamaT5EmbedDecoder(cfg, seed=seed)
     cpu_t5 = T5ForConditionalGeneration(model.t5_cfg, device="cpu")
     load_params(cpu_t5, tree_of(model.frozen["t5"], lambda _, t: t))
-    out = {}
-    for dev, frozen in ((model.device, model.frozen),
-                        (torch.device("cpu"), {"t5": cpu_t5})):
-        params = tree_map(lambda t: t.detach().to(dev, torch.float32,
-                                                  copy=True).requires_grad_(),
-                          model.trainable_params())
-        t0 = time.perf_counter()
-        loss = model.loss_fn(params, frozen,
-                             {k: torch.from_numpy(v).to(dev)
-                              for k, v in row.items()})
-        leaves = tree_leaves(params)
-        grads = torch.autograd.grad(loss, [p for _, p in leaves])
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        out[dev.type] = (float(loss.detach()), {n: g.float().cpu() for (n, _), g in
-                                  zip(leaves, grads)},
-                    time.perf_counter() - t0)
-    (lk, gk, tk), (lp, gp, tp) = out[model.device.type], out["cpu"]
-    del model, cpu_t5
+    return model, {"t5": cpu_t5}
+
+
+def _ulp_up_quant_rows(x):
+    """``_absmax_quant_rows`` with every scale one f32 ulp larger, and the
+    rows quantized by it: the size of the disagreement between two devices
+    whose scales round apart (the card multiplies by 1/127 where the CPU
+    divides)."""
+    x32 = x.float()
+    s = torch.clamp(x32.abs().amax(dim=-1), min=1e-30) / 127.0
+    s = torch.nextafter(s, torch.full_like(s, float("inf")))
+    q = torch.clamp(torch.round(x32 / s[:, None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def gradient_draws(seeds=range(5)):
+    """The gradient check's loss agreement over several draws: for each
+    seed a 2-layer copy (model seed SEED + 5 + seed) and the first row of a
+    packed batch drawn from that seed; the card's loss against the CPU's,
+    as shipped and with the activation scales one ulp up. Prints one line a
+    draw and returns the largest relative difference seen. Run alone:
+    ``python3 -c "import chip_smoke as c; c.phase_device(); c.gradient_draws()"``."""
+    from unittest import mock
+
+    from thinkdiff_torch.data.synthetic import build_batches_packed
+
+    model_cfg, _ = train_config(BENCH_OVERRIDES)
+    worst = 0.0
+    for s in seeds:
+        model, cpu = _two_layer_copy(model_cfg, SEED + 5 + s)
+        (b,), _ = build_batches_packed(np.random.RandomState(s), 1, BENCH_ROWS,
+                                       BENCH_CAP, BENCH_CAP, model.vlm_hidden,
+                                       model.t5_cfg.vocab_size)
+        row = {k: v[:1] for k, v in b.items()}
+        lk, gk, _ = _grad_step(model, model.frozen, row, model.device)
+        with mock.patch("thinkdiff_torch.ops.quant._absmax_quant_rows",
+                        _ulp_up_quant_rows):
+            lu, gu, _ = _grad_step(model, model.frozen, row, model.device)
+        lp, gp, tp = _grad_step(model, cpu, row, torch.device("cpu"))
+        rel, rel_ulp = abs(lk - lp) / abs(lp), abs(lu - lp) / abs(lp)
+        worst = max(worst, rel, rel_ulp)
+        say("grad-draws", f"seed {s}: loss card {lk:.7f}, card with scales "
+            f"one ulp up {lu:.7f}, CPU plain {lp:.7f}: rel {rel:.3e} / "
+            f"{rel_ulp:.3e}; cosine min {min(cosine(gk[n], gp[n]) for n in gk):.5f}"
+            f" / {min(cosine(gu[n], gp[n]) for n in gu):.5f}; CPU {tp:.1f} s")
+        del model, cpu
+        torch.cuda.empty_cache()
+    say("grad-draws", f"largest relative loss difference {worst:.3e} over "
+        f"{len(seeds)} draws x 2")
+    return worst
+
+
+def gradient_check(model_cfg, batch):
+    """A 2-layer copy of the w8a8 model at full width: loss and projector
+    gradients of one packed row on the card (the kernels) against the same
+    step through the plain versions on the CPU."""
+    model, cpu = _two_layer_copy(model_cfg, SEED + 5)
+    row = {k: v[:1] for k, v in batch.items()}
+    lk, gk, _ = _grad_step(model, model.frozen, row, model.device)
+    lp, gp, tp = _grad_step(model, cpu, row, torch.device("cpu"))
+    del model, cpu
     rel = abs(lk - lp) / abs(lp)
     cos = {n: cosine(gk[n], gp[n]) for n in gk}
     ratio = {n: float(gk[n].double().norm() / gp[n].double().norm())

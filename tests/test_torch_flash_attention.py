@@ -285,3 +285,80 @@ def test_bias_gradient_is_refused():
         tf.flash_attention(torch.tensor(q, requires_grad=True),
                            torch.from_numpy(k), torch.from_numpy(v), bias,
                            causal=True, sm_scale=1.0)
+
+
+# the forward kernel's tile choice at every shape the main paths give it:
+# (Tq, D, bias, kv_mask, segments) -> (block_q, block_k, stages)
+TILE_CHOICES = {
+    "vision S1024 D80": ((1024, 80, None, False, False), (192, 64, 5)),
+    "lm prefill T283 D128 pad bias": ((283, 128, "row", False, False),
+                                      (128, 64, 5)),
+    "t5 train self T256": ((256, 64, "tile", False, True), (128, 128, 2)),
+    "t5 train cross T256": ((256, 64, None, True, True), (128, 128, 6)),
+    "t5 yaml self T128 mask": ((128, 64, "tile", True, False), (128, 128, 2)),
+    "t5 decode self T1": ((1, 64, "tile", False, False), (64, 128, 3)),
+    "t5 decode self T32": ((32, 64, "tile", False, False), (64, 128, 3)),
+    "t5 decode cross T16": ((16, 64, None, True, False), (64, 128, 6)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TILE_CHOICES))
+def test_forward_tile_choice_is_a_function_of_the_shapes(name):
+    args, want = TILE_CHOICES[name]
+    tq, d = args[:2]
+    got = tf.flash_fwd_tiles(*args)
+    assert got == want
+    block_q, block_k, stages = got
+    # an instantiated (D, block_k) pair, 64-row tiles for the decode's few
+    # rows, and a plan that fits the shared memory of a block
+    assert (d, block_k) in {(64, 128), (80, 64), (128, 64)}
+    assert block_q == (64 if tq <= 64 else 192 if d == 80 else 128)
+    assert tf.flash_fwd_smem(d, *got, *args[2:]) <= tf.SMEM_LIMIT
+    # the deepest ring that fits
+    assert 2 <= stages <= tf.MAX_STAGES
+    if stages < tf.MAX_STAGES:
+        assert tf.flash_fwd_smem(d, block_q, block_k, stages + 1,
+                                 *args[2:]) > tf.SMEM_LIMIT
+
+
+def test_forward_operand_checks_raise_before_any_launch():
+    """The kernel's operand rules, held on CPU tensors (the checks run
+    before the library is touched): a head dim outside {64, 80, 128}, a
+    head dim that is not contiguous, other strides that are not multiples
+    of 16 bytes."""
+    q = torch.zeros((1, 2, 8, 96), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        tf._forward_cuda(q, q, q, None, None, False, 1.0, None, None, False)
+    q = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError, match="strides"):
+        tf._forward_cuda(q, q, q, None, None, False, 1.0, None, None, False)
+    q = torch.zeros((1, 2, 8, 68), dtype=torch.bfloat16)[..., 4:]
+    with pytest.raises(ValueError, match="strides"):
+        tf._forward_cuda(q, q, q, None, None, False, 1.0, None, None, False)
+    q = torch.zeros((1, 2, 8, 64))
+    with pytest.raises(TypeError, match="bf16"):
+        tf._forward_cuda(q, q, q, None, None, False, 1.0, None, None, False)
+    # head-transposed views of (B, T, 3, H, D) memory pass the checks
+    qkv = torch.zeros((1, 8, 3, 2, 80), dtype=torch.bfloat16)
+    for i in range(3):
+        tf._tma_operand(qkv[:, :, i].transpose(1, 2), "q")
+
+
+def test_bias_operand_layout():
+    """A relative bias whose rows are not 16 bytes apart, or not f32, is
+    converted once into the kernel's layout (kernel_bias: padded rows,
+    values unchanged); one already in it, or a (B, 1, 1, Tk) padding row,
+    passes as it is."""
+    rs = np.random.RandomState(0)
+    odd = torch.from_numpy(rs.randn(1, 2, 15, 15).astype(np.float32))
+    got, strides = tf._bias_operand(odd, 3, 2, 15, 15)
+    assert got is not odd and torch.equal(got, odd)
+    assert got.stride() == (2 * 15 * 16, 15 * 16, 16, 1)
+    assert strides == (0, 15 * 16, 16)
+    laid = tf.kernel_bias(odd)
+    assert tf._bias_operand(laid, 3, 2, 15, 15)[0] is laid
+    row = torch.from_numpy(rs.randn(3, 1, 1, 15).astype(np.float32))
+    got, strides = tf._bias_operand(row, 3, 2, 15, 15)
+    assert got is row and strides == (15, 0, 0)
+    got, _ = tf._bias_operand(odd.to(torch.bfloat16), 3, 2, 15, 15)
+    assert got.dtype == torch.float32

@@ -49,16 +49,51 @@ FLASH_CASES = {
     "d64_segments": dict(b=2, hq=2, hkv=2, tq=96, tk=96, d=64, segments=True),
     "d128_full_bias_scale1": dict(b=1, hq=2, hkv=2, tq=65, tk=33, d=128,
                                   full_bias=True, sm_scale=1.0),
+    # q, k, v as (B, T, H, D) memory seen as (B, H, T, D): the vision
+    # block's fused qkv slices and T5's head-transposed projections
+    "strided_d80_vision": dict(b=2, hq=16, hkv=16, tq=260, tk=260, d=80,
+                               strided=True),
+    "strided_d64_t5_self": dict(b=2, hq=8, hkv=8, tq=96, tk=96, d=64,
+                                strided=True, causal=True, full_bias=True,
+                                sm_scale=1.0, segments=True),
+    # the greedy T5 decode: a few query rows over 411 conditioning rows
+    "decode_tq32_tk411_kv_mask": dict(b=1, hq=8, hkv=8, tq=32, tk=411, d=64,
+                                      strided=True, kv_mask=True,
+                                      sm_scale=1.0),
+    "decode_tq3_tk411_kv_mask": dict(b=2, hq=4, hkv=4, tq=3, tk=411, d=64,
+                                     kv_mask=True),
+    # a T5 decode step's self-attention: an odd length and the relative
+    # bias in the layout the T5 layer gives it (rows padded to 16 bytes)
+    "decode_self_t15_rel_bias": dict(b=1, hq=8, hkv=8, tq=15, tk=15, d=64,
+                                     causal=True, full_bias=True,
+                                     padded_bias=True, sm_scale=1.0),
+    "ragged_tail_tk1000": dict(b=1, hq=2, hkv=2, tq=130, tk=1000, d=128),
+    "ragged_tail_tk1000_d80": dict(b=1, hq=2, hkv=2, tq=70, tk=1000, d=80),
+    "causal_t300": dict(b=2, hq=2, hkv=2, tq=300, tk=300, d=64, causal=True),
+    "gqa_12_2_pad_bias_t300": dict(b=2, hq=12, hkv=2, tq=300, tk=300, d=128,
+                                   causal=True, pad_bias=True, strided=True),
+    "d80_full_bias": dict(b=1, hq=2, hkv=2, tq=130, tk=200, d=80,
+                          full_bias=True),
 }
+
+
+def _flash_inputs(cuda, b, hq, hkv, tq, tk, d, strided):
+    if not strided:
+        return (_randn((b, hq, tq, d), 0, cuda), _randn((b, hkv, tk, d), 1, cuda),
+                _randn((b, hkv, tk, d), 2, cuda))
+    q = _randn((b, tq, 3, hq, d), 0, cuda)[:, :, 1].transpose(1, 2)
+    kv = _randn((b, tk, 2, hkv, d), 1, cuda)
+    return q, kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
 
 
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_attention_kernel_matches_plain(cuda, case):
+    from thinkdiff_torch.ops.flash_attention import (
+        _forward_cuda, kernel_bias, logsumexp_reference)
+
     c = dict(FLASH_CASES[case])
     b, hq, hkv, tq, tk, d = (c.pop(k) for k in ("b", "hq", "hkv", "tq", "tk", "d"))
-    q = _randn((b, hq, tq, d), 0, cuda)
-    k = _randn((b, hkv, tk, d), 1, cuda)
-    v = _randn((b, hkv, tk, d), 2, cuda)
+    q, k, v = _flash_inputs(cuda, b, hq, hkv, tq, tk, d, c.get("strided"))
     kw = dict(causal=c.get("causal", False), sm_scale=c.get("sm_scale"))
     if c.get("pad_bias"):
         lens = torch.tensor([tk, tk - 37], device=cuda)
@@ -66,9 +101,12 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
         kw["bias"] = (1.0 - valid.float())[:, None, None, :] * -1e30
     if c.get("full_bias"):
         kw["bias"] = _randn((1, hq, tq, tk), 3, cuda, torch.float32) * 0.5
+        if c.get("padded_bias"):
+            kw["bias"] = kernel_bias(kw["bias"])
     if c.get("kv_mask"):
-        kw["kv_mask"] = (torch.arange(tk, device=cuda)[None]
-                         < torch.tensor([[tk], [tk // 2]], device=cuda)).int()
+        lens = torch.tensor([[tk - 11 * (i % 2) - tk // 2 * (i % 2)]
+                             for i in range(b)], device=cuda)
+        kw["kv_mask"] = (torch.arange(tk, device=cuda)[None] < lens).int()
     if c.get("segments"):
         seg = (torch.arange(tq, device=cuda)[None] // 40 + 1).repeat(b, 1)
         seg[1, -10:] = 0
@@ -81,6 +119,56 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     err = (out.float() - ref.float()).abs()
     assert torch.isfinite(out.float()).all()
     assert (err <= 2e-2 + 2e-2 * ref.float().abs()).all(), float(err.max())
+    # the lse the backward reads: a few f32 ulps (chip_smoke.py's LSE_TOL)
+    args = (kw.get("bias"), kw.get("kv_mask"), kw["causal"],
+            kw["sm_scale"] or d ** -0.5, kw.get("q_segment_ids"),
+            kw.get("kv_segment_ids"))
+    _, lse = _forward_cuda(q, k, v, *args, with_lse=True)
+    lse_ref = logsumexp_reference(q, k, *args)
+    assert float((lse - lse_ref).abs().max()) <= 3e-5
+
+
+def test_flash_attention_all_masked_rows(cuda):
+    """Rows whose keys are all masked get the plain version's uniform
+    softmax over the Tk keys and an lse of -1e30: a batch row with no valid
+    key, and query rows whose segment id no key carries."""
+    from thinkdiff_torch.ops.flash_attention import (
+        _forward_cuda, logsumexp_reference)
+
+    b, h, tq, tk, d = 2, 4, 150, 200, 64
+    q, k, v = _flash_inputs(cuda, b, h, h, tq, tk, d, True)
+    kv_mask = torch.ones((b, tk), dtype=torch.int32, device=cuda)
+    kv_mask[1] = 0
+    q_seg = torch.ones((b, tq), dtype=torch.int32, device=cuda)
+    q_seg[0, -20:] = 0  # no key has segment 0
+    kv_seg = torch.ones((b, tk), dtype=torch.int32, device=cuda)
+    args = (None, kv_mask, False, d ** -0.5, q_seg, kv_seg)
+    out, lse = _forward_cuda(q, k, v, *args, with_lse=True)
+    torch.cuda.synchronize()
+    ref = mha_reference(q, k, v, *args)
+    uniform = v.float().mean(dim=2, keepdim=True)  # the uniform softmax
+    assert (out[1].float() - uniform[1]).abs().max() <= 2e-2
+    assert (out[0, :, -20:].float() - uniform[0]).abs().max() <= 2e-2
+    err = (out.float() - ref.float()).abs()
+    assert (err <= 2e-2 + 2e-2 * ref.float().abs()).all(), float(err.max())
+    lse_ref = logsumexp_reference(q, k, *args)
+    neg_big = float(torch.tensor(-1e30))  # -1e30 in f32
+    assert torch.equal(lse[1], lse_ref[1]) and float(lse[1].max()) == neg_big
+    assert float((lse - lse_ref).abs().max()) <= 3e-5
+
+
+def test_flash_attention_kernel_rejects_what_tma_cannot_take(cuda):
+    """No fallback: a head dim outside {64, 80, 128}, a head dim that is not
+    contiguous, or a start that is not 16-byte aligned raises."""
+    q = _randn((1, 2, 64, 96), 0, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    q = _randn((1, 2, 64, 128), 0, cuda)[..., ::2]
+    with pytest.raises(ValueError, match="strides"):
+        flash_attention(q, q, q)
+    q = _randn((1, 2, 64, 68), 0, cuda)[..., 4:]
+    with pytest.raises(ValueError, match="strides"):
+        flash_attention(q, q, q)
 
 
 @pytest.mark.parametrize("r,k,n", [(1, 64, 16), (8, 1536, 2048),
@@ -106,9 +194,12 @@ def test_s8_matmul_kernel_rejects_unaligned_k(cuda):
         s8_matmul(xq, torch.ones(4, device=cuda), w, torch.ones(32, device=cuda))
 
 
-@pytest.mark.parametrize("rows,d,dtype", [(7, 64, torch.float32),
-                                          (4096, 1536, torch.bfloat16),
-                                          (33, 1280, torch.bfloat16)])
+@pytest.mark.parametrize("rows,d,dtype", [
+    (7, 64, torch.float32), (4096, 1536, torch.bfloat16),
+    (33, 1280, torch.bfloat16), (5, 1000, torch.bfloat16),
+    (3, 1001, torch.float32)] + [
+    (r, d, dt) for r in (1, 7, 4096) for d in (1536, 3584, 4096)
+    for dt in (torch.float32, torch.bfloat16)])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype):
     x = _randn((rows, d), 6, cuda, dtype) * 3.0
     scale = _randn((d,), 7, cuda, dtype)

@@ -129,3 +129,25 @@ def test_rmsnorm_gradient_only_where_asked():
     tn.rmsnorm(tx, ts).sum().backward()
     assert tx.grad is not None and ts.grad is None
     assert kernels.launch_counts()["rmsnorm"] == 0
+
+
+@pytest.mark.parametrize("d", [1536, 3584, 4096, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_reference_matches_jax_at_the_kernel_widths(d, dtype):
+    """The plain version the CUDA kernel is held against, at the widths the
+    kernel serves (the 2B and 7B LMs, flan-t5-xxl and the projector) and a
+    width that is not a whole number of 16-byte vectors: equal to JAX's
+    rmsnorm_reference to f32 rounding, within one bf16 ulp in bf16."""
+    x, scale = _inputs((7, d), 3)
+    jt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    want = np.asarray(jn.rmsnorm_reference(
+        jnp.asarray(x).astype(jt), jnp.asarray(scale).astype(jt), 1e-6)
+    ).astype(np.float32)
+    xt = torch.from_numpy(x).to(tt)
+    st = torch.from_numpy(scale).to(tt)
+    got = tn.rmsnorm_reference(xt, st, 1e-6).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        assert (np.abs(got - want) <= _bf16_ulp(want)).all()

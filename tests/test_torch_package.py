@@ -48,6 +48,28 @@ def test_every_module_imports_without_jax():
         assert f"thinkdiff_torch.{name}" in _submodules()
 
 
+def test_no_module_level_triton_or_jax_package_import():
+    """Importing every module of the port loads neither Triton (the kernels
+    are CUDA C++ in one library) nor anything of the JAX package, and no
+    source of the port names Triton or the JAX package in an import."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for name in {_submodules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('triton', 'thinkdiff_tpu'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    pkg = Path(thinkdiff_torch.__file__).parent
+    for path in pkg.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                assert words[1].split(".")[0] not in (
+                    "triton", "thinkdiff_tpu", "jax"), (path, line)
+
+
 def test_cpu_tensors_take_the_plain_paths():
     kernels.reset_launch_counts()
     rs = np.random.RandomState(0)
@@ -117,18 +139,30 @@ def test_kernel_build_inputs():
     names = [p.name for p in _build.sources()]
     assert names == ["flash_bwd.cu", "flash_fwd.cu", "fused_sample.cu",
                      "int8_gemv.cu", "int8_wide.cu", "paged_decode.cu",
-                     "s8_gemm.cu", "s8_gemm_bwd.cu", "s8_gemm_qx.cu"]
+                     "rmsnorm.cu", "s8_gemm.cu", "s8_gemm_bwd.cu",
+                     "s8_gemm_qx.cu"]
     # the int8 tile is one header shared by the GEMMs and the fused sampler,
-    # the bf16 mma step one shared by the flash kernels; an edit to either
-    # names a new library
+    # the bf16 mma step one shared by the mma.sync kernels, the Hopper PTX
+    # (TMA, mbarriers, wgmma) the flash forward's; an edit to any names a
+    # new library
     assert [p.name for p in _build.headers()] == ["bf16_mma.cuh",
+                                                  "hopper.cuh",
                                                   "s8_tile.cuh"]
     for name in ("fused_sample.cu", "s8_gemm.cu", "s8_gemm_bwd.cu",
                  "s8_gemm_qx.cu"):
         assert '#include "s8_tile.cuh"' in (_build.CSRC / name).read_text()
-    for name in ("flash_fwd.cu", "flash_bwd.cu", "int8_gemv.cu",
-                 "int8_wide.cu"):
+    for name in ("flash_bwd.cu", "int8_gemv.cu", "int8_wide.cu"):
         assert '#include "bf16_mma.cuh"' in (_build.CSRC / name).read_text()
+    fwd = (_build.CSRC / "flash_fwd.cu").read_text()
+    hopper = (_build.CSRC / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in fwd
+    # the forward multiplies with wgmma on tiles that TMA copies into an
+    # mbarrier ring
+    for op in ("wgmma.mma_async", "cp.async.bulk.tensor",
+               "mbarrier.try_wait.parity"):
+        assert op in hopper
+    for call in ("wgmma_ss<", "wgmma_rs<", "tma_load_4d(", "mbar_wait("):
+        assert call in fwd
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     path = _build.library_path()
     assert path.parent == REPO / "build" and path.suffix == ".so"

@@ -2,7 +2,7 @@
 
 The JAX package stays the reference; this package mirrors its layout
 (``ops/``, ``models/``, ``engines/``) with hand-written Hopper kernels in
-``csrc/`` (CUDA C++, built by ``kernels/``) and Triton (``ops/norms``).
+``csrc/`` (CUDA C++, built and bound by ``kernels/``).
 It imports ``torch`` and never JAX. See ROADMAP.md for what is ported.
 """
 

@@ -1,10 +1,10 @@
 """Hand-written Hopper kernels: the CUDA library, and launch counters.
 
 The CUDA kernels (``csrc/*.cu``) are built with nvcc at first use
-(``kernels/_build.py``) and bound with ctypes; the RMSNorm kernel is Triton
-and lives in ``ops/norms.py``. Every wrapper adds one to its counter in
-``LAUNCHES`` where it launches its kernel, and nowhere else, so a run can
-show that its main path went through the kernels.
+(``kernels/_build.py``) into one library and bound with ctypes. Every
+wrapper adds one to its counter in ``LAUNCHES`` where it launches its
+kernel, and nowhere else, so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -27,11 +27,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "thinkdiff_s8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "thinkdiff_s8_gemm_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "thinkdiff_flash_fwd": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P,
-                            _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "thinkdiff_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LP, _LP,
+                            _F, _P],
     "thinkdiff_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
                                _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                _I, _P],
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "thinkdiff_int8_wide_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "thinkdiff_int8_wide_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "thinkdiff_s8_gemm_qx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "thinkdiff_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
 }
 
 
@@ -96,6 +98,7 @@ def ptr(t) -> Optional[int]:
 
 
 def stream_of(t) -> int:
+    """The raw handle of the current CUDA stream of t's device."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -239,8 +239,9 @@ class MllamaT5EmbedDecoder:
         cache, as the JAX package) and appends the argmax of the last
         position. Returns the (B, max_new_tokens) new ids."""
         t5 = self.frozen["t5"]
+        # int32 once here, the flash kernel's type, not once a layer a step
         mask = None if embed_mask is None else to_tensor(embed_mask).to(
-            self.device)
+            self.device, torch.int32)
         dec = torch.zeros((proj.shape[0], 1), dtype=torch.long,
                           device=self.device)
         for _ in range(max_new_tokens):

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from thinkdiff_torch.models.qdense import QDense, concat_dense_params
-from thinkdiff_torch.ops.flash_attention import flash_attention
+from thinkdiff_torch.ops.flash_attention import flash_attention, kernel_bias
 from thinkdiff_torch.ops.norms import rmsnorm
 
 
@@ -260,7 +260,9 @@ class T5Decoder(nn.Module):
     def forward(self, input_embeds, encoder_states, self_mask=None,
                 cross_mask=None, segments=None, enc_segments=None):
         t = input_embeds.shape[1]
-        bias = self.rel_bias(t, t).float()  # the kernels read f32
+        # f32, rows 16 bytes apart: the forward kernel's layout, made once
+        # for every layer
+        bias = kernel_bias(self.rel_bias(t, t))
         x = input_embeds
         for i in range(self.cfg.num_decoder_layers):
             x = getattr(self, f"block_{i}")(

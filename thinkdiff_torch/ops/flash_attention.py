@@ -2,16 +2,19 @@
 thinkdiff_tpu/ops/flash_attention.py).
 
 On CUDA tensors ``flash_attention`` launches the hand-written kernels:
-the forward of ``csrc/flash_fwd.cu`` and, when a gradient is needed, the
-FlashAttention-2 backward of ``csrc/flash_bwd.cu`` (a dq kernel that also
-computes delta, then a dk/dv kernel), inside a ``torch.autograd.Function``.
-On CPU tensors it runs the plain versions they are held against:
-``mha_reference`` for the forward and ``flash_attention_backward_reference``
-for the backward.
+the forward of ``csrc/flash_fwd.cu`` (wgmma on TMA-fed tiles) and, when a
+gradient is needed, the FlashAttention-2 backward of ``csrc/flash_bwd.cu``
+(a dq kernel that also computes delta, then a dk/dv kernel), inside a
+``torch.autograd.Function``. On CPU tensors it runs the plain versions they
+are held against: ``mha_reference`` for the forward and
+``flash_attention_backward_reference`` for the backward.
 
-Shapes: q (B, Hq, Tq, D); k, v (B, Hkv, Tk, D); Hq % Hkv == 0.
-bias: additive, broadcastable to (B, Hq, Tq, Tk) — the kernels read it
-through strides, so a (B, 1, 1, Tk) padding bias or T5's (1, H, T, T)
+Shapes: q (B, Hq, Tq, D); k, v (B, Hkv, Tk, D); Hq % Hkv == 0. The forward
+takes q, k and v through their strides (head-transposed views of (B, T, H,
+D) projections go in without a copy) and returns a (B, Hq, Tq, D) view of
+(B, Tq, Hq, D) memory, so the caller's ``transpose(1, 2).reshape(...)`` is
+free. bias: additive, broadcastable to (B, Hq, Tq, Tk) — the kernels read
+it through strides, so a (B, 1, 1, Tk) padding bias or T5's (1, H, T, T)
 relative bias is never expanded. It gets no gradient: the bias is frozen on
 every training path (T5's relative-position table), and a bias that
 requires grad raises. kv_mask: (B, Tk) int, 1 = valid key.
@@ -27,6 +30,8 @@ packed cross-attention) gets dq = 0 and adds exactly 0 to dk and dv.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -154,7 +159,8 @@ def flash_attention_backward_reference(q, k, v, bias, kv_mask, causal,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned start (the kernel's vector loads)."""
+    """Contiguous, with a 16-byte aligned start (the backward kernels'
+    vector loads)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -165,12 +171,14 @@ def _int_rows(x: Optional[torch.Tensor], b: int, t: int, name: str):
     if x.shape != (b, t):
         raise ValueError(f"flash_attention: {name} must be ({b}, {t}), got "
                          f"{tuple(x.shape)}")
-    return x.to(torch.int32).contiguous()
+    if x.dtype != torch.int32 or not x.is_contiguous():
+        x = x.to(torch.int32).contiguous()
+    return x
 
 
 def _kernel_operands(q, k, v, bias, kv_mask, q_segment_ids, kv_segment_ids,
                      head_dims):
-    """Checked, aligned operands of the CUDA kernels: (q, k, v, bias,
+    """Checked, aligned operands of the backward kernels: (q, k, v, bias,
     bias strides, kv_mask, q_seg, kv_seg)."""
     b, hq, tq, d = q.shape
     bk, hkv, tk, dk = k.shape
@@ -194,21 +202,131 @@ def _kernel_operands(q, k, v, bias, kv_mask, q_segment_ids, kv_segment_ids,
             _int_rows(kv_segment_ids, b, tk, "kv_segment_ids"))
 
 
+SMEM_LIMIT = 232448  # bytes of shared memory an H100 block may use
+MAX_STAGES = 8       # the deepest k/v ring the kernel takes
+_SHAPE = ctypes.c_longlong * 10    # the kernel's shape argument
+_STRIDES = ctypes.c_longlong * 15  # and its strides
+
+
+def flash_fwd_smem(d: int, block_q: int, block_k: int, stages: int,
+                   bias: Optional[str], kv_mask: bool, segments: bool) -> int:
+    """Shared memory of the forward kernel (``Plan`` in csrc/flash_fwd.cu):
+    q, ``stages`` k/v tiles (rows cut in 64-column chunks of 128 bytes), the
+    bias tiles ("tile": f32, BK/32 boxes of 32 x BQ) or rows ("row"), the
+    kv_mask and key-segment rows, the barriers, and 1024 bytes of
+    alignment."""
+    nch = -(-d // 64)
+    bias_bytes = {"tile": block_k // 32 * block_q * 128, "row": 1024,
+                  None: 0}[bias]
+    vec = block_k * 4 * (int(kv_mask) + int(segments))
+    return (nch * block_q * 128
+            + stages * (2 * nch * block_k * 128 + bias_bytes + vec)
+            + (2 + 2 * stages) * 8 + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_fwd_tiles(tq: int, d: int, bias: Optional[str] = None,
+                    kv_mask: bool = False, segments: bool = False) -> tuple:
+    """(block_q, block_k, stages) of the forward kernel for a call, from its
+    shapes alone: 128 query rows (two consumer warpgroups), 192 (three) for
+    the vision tower's D = 80 past 128 rows, and 64 where the call has at
+    most 64 rows (T5's greedy decode, Tq <= 32); 128 keys a
+    tile at D = 64, else 64 (D = 128: the registers; D = 80: measured
+    faster on an H100, see PERF.md); as deep a
+    ring of k/v stages as fits in shared memory, 2 to 8 (the copies run
+    that far ahead of the math). ``bias`` is None, "row" (no query axis)
+    or "tile"."""
+    block_q = 64 if tq <= 64 else 192 if d == 80 and tq > 128 else 128
+    block_k = 128 if d == 64 else 64
+    stages = max([2] + [s for s in range(3, MAX_STAGES + 1) if flash_fwd_smem(
+        d, block_q, block_k, s, bias, kv_mask, segments) <= SMEM_LIMIT])
+    return block_q, block_k, stages
+
+
+def _tma_operand(t: torch.Tensor, name: str) -> torch.Tensor:
+    """q, k or v as the forward kernel's tensor maps take it: any strides
+    with the head dim contiguous, the others multiples of 16 bytes, and a
+    16-byte aligned start. Raises otherwise; never copies."""
+    sb, sh, st, sd = t.stride()
+    if sd != 1 or sb % 8 or sh % 8 or st % 8 or t.data_ptr() % 16:
+        raise ValueError(
+            f"flash_attention kernel: {name} strides {tuple(t.stride())} at "
+            f"offset {t.data_ptr() % 16}: TMA needs the head dim contiguous, "
+            "the other strides multiples of 8 elements and a 16-byte "
+            "aligned start")
+    return t
+
+
+def kernel_bias(bias: torch.Tensor) -> torch.Tensor:
+    """A bias in the layout the forward kernel copies in tiles: f32, the
+    key axis contiguous and rows a multiple of 16 bytes apart (a view of a
+    padded buffer)."""
+    *lead, tq, tk = bias.shape
+    out = torch.empty((*lead, tq, -(-tk // 4) * 4), dtype=torch.float32,
+                      device=bias.device)[..., :tk]
+    return out.copy_(bias)
+
+
+def _bias_operand(bias, b, hq, tq, tk):
+    """(f32 bias, its strides over batch, head and row) for the kernel, or
+    (None, zeros). The kernel needs the key axis contiguous and, when the
+    bias has a query axis (copied in 2-D tiles by TMA), a 16-byte aligned
+    start and nonzero strides that are multiples of 4 elements; a bias in
+    another layout or dtype is first converted (``kernel_bias``), one
+    launch. The T5 layer hands over its relative bias in this layout."""
+    if bias is None:
+        return None, (0, 0, 0)
+
+    def fits(x):
+        sb = x.expand(b, hq, tq, tk).stride()
+        return (x.dtype == torch.float32 and (tk == 1 or sb[3] == 1)
+                and not (sb[2] and (x.data_ptr() % 16
+                                    or any(st % 4 for st in sb[:3]))))
+
+    if not fits(bias):
+        bias = kernel_bias(bias.expand(*bias.shape[:-1], tk))
+    return bias, bias.expand(b, hq, tq, tk).stride()[:3]
+
+
 def _forward_cuda(q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
                   kv_segment_ids, with_lse: bool):
-    q, k, v, bias, strides, kv_mask, q_seg, kv_seg = _kernel_operands(
-        q, k, v, bias, kv_mask, q_segment_ids, kv_segment_ids,
-        KERNEL_HEAD_DIMS)
+    """The forward kernel on q, k, v as they come (strided views too). The
+    output is a (B, Hq, Tq, D) view of (B, Tq, Hq, D) memory, so a caller's
+    ``transpose(1, 2).reshape(B, Tq, Hq * D)`` is free."""
     b, hq, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    bk, hkv, tk, dk = k.shape
+    if (bk, dk) != (b, d) or v.shape != k.shape or hq % hkv:
+        raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError("flash_attention kernel takes bf16 q, k, v")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head dim {d} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("flash_attention: segment ids come in pairs")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _tma_operand(t, name)
+    bias, sb = _bias_operand(bias, b, hq, tq, tk)
+    kv_mask = _int_rows(kv_mask, b, tk, "kv_mask")
+    q_seg = _int_rows(q_segment_ids, b, tq, "q_segment_ids")
+    kv_seg = _int_rows(kv_segment_ids, b, tk, "kv_segment_ids")
+    block_q, block_k, stages = flash_fwd_tiles(
+        tq, d, None if bias is None else "tile" if sb[2] else "row",
+        kv_mask is not None, q_seg is not None)
+    out = torch.empty((b, tq, hq, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
     lse = (torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    shape = _SHAPE(b, hq, hkv, tq, tk, d, block_q, block_k, int(bool(causal)),
+                   stages)
+    strides = _STRIDES(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                       *out.stride()[:3], *sb)
     rc = kernels.library().thinkdiff_flash_fwd(
-        kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out),
-        kernels.ptr(lse), kernels.ptr(bias), *strides, kernels.ptr(kv_mask),
-        kernels.ptr(q_seg), kernels.ptr(kv_seg), b, hq, hkv, tq, tk, d,
-        float(sm_scale), int(bool(causal)), kernels.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        kernels.ptr(lse), kernels.ptr(bias), kernels.ptr(kv_mask),
+        kernels.ptr(q_seg), kernels.ptr(kv_seg), shape, strides,
+        float(sm_scale), kernels.stream_of(q))
     kernels.check_launch(rc, "flash_attention_fwd")
     kernels.count_launch("flash_attention_fwd")
     return out, lse

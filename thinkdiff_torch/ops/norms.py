@@ -1,26 +1,29 @@
 """Normalization ops (counterpart of thinkdiff_tpu/ops/norms.py).
 
-``rmsnorm`` runs a Triton kernel on a CUDA tensor and its plain PyTorch
-version, ``rmsnorm_reference``, on a CPU tensor. It is differentiable in x
-and scale: the backward is the plain gradient of ``rmsnorm_reference``
-(recomputed from the saved x and scale), as JAX's ``_rms_bwd`` is; the
-Pallas package has no backward kernel for it. T5LayerNorm is RMSNorm.
-``layernorm`` is plain PyTorch on every device.
+``rmsnorm`` launches the CUDA kernel of ``csrc/rmsnorm.cu`` on a CUDA
+tensor and runs its plain PyTorch version, ``rmsnorm_reference``, on a CPU
+tensor. It is differentiable in x and scale: the backward is the plain
+gradient of ``rmsnorm_reference`` (recomputed from the saved x and scale),
+as JAX's ``_rms_bwd`` is; the Pallas package has no backward kernel for it.
+T5LayerNorm is RMSNorm. ``layernorm`` is plain PyTorch on every device.
 
-The Triton kernel replaces the Pallas TPU kernel ``_rmsnorm_kernel``
+The kernel replaces the Pallas TPU kernel ``_rmsnorm_kernel``
 (thinkdiff_tpu/ops/norms.py). It is bound by bytes: one read of x and one
-write of y per row, with the reduction in f32 registers. One program per
-row, the whole row in one block (BLOCK = next power of two >= D, masked),
-so x is read once and no partial sums leave the program.
+write of y per row, the reduction in f32 registers (one warp a row,
+16-byte loads; see the source).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from thinkdiff_torch import kernels
 
-_triton_kernel = None
+# the kernel's dtype codes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MAX_KERNEL_WIDTH = 12288  # the f32 scale in 48 KB of shared memory
 
 
 def rmsnorm_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -31,52 +34,51 @@ def rmsnorm_reference(x: torch.Tensor, scale: torch.Tensor,
     return (y * scale.float()).to(x.dtype)
 
 
-def _get_triton_kernel():
-    global _triton_kernel
-    if _triton_kernel is None:
-        import triton
-        import triton.language as tl
-
-        @triton.jit
-        def rmsnorm_kernel(x_ptr, s_ptr, y_ptr, d, eps,
-                           BLOCK: tl.constexpr):
-            row = tl.program_id(0).to(tl.int64)
-            cols = tl.arange(0, BLOCK)
-            mask = cols < d
-            x = tl.load(x_ptr + row * d + cols, mask=mask,
-                        other=0.0).to(tl.float32)
-            var = tl.sum(x * x, axis=0) / d
-            y = x * tl.rsqrt(var + eps)
-            s = tl.load(s_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-            tl.store(y_ptr + row * d + cols,
-                     (y * s).to(y_ptr.dtype.element_ty), mask=mask)
-
-        _triton_kernel = rmsnorm_kernel
-    return _triton_kernel
+@functools.lru_cache(maxsize=None)
+def rmsnorm_warps(rows: int, d: int) -> int:
+    """Warps of the kernel that share a row (1, 2, 4 or 8), from the shape
+    alone: more warps a row where there are few rows, so that rows x warps
+    reaches 4096 and enough loads are in flight, but no more warps than
+    the row has groups of 64 16-byte vectors (8 bf16 values a vector)."""
+    nvec = d // 8
+    w = 1
+    while w < 8 and rows * w < 4096 and nvec >= 64 * w:
+        w *= 2
+    return w
 
 
-def _rmsnorm_triton(x: torch.Tensor, scale: torch.Tensor,
-                    eps: float) -> torch.Tensor:
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+def _rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """The kernel: checks, one output allocation, one library call. x is
+    taken as rows of its last dimension (a strided x is copied first); the
+    scale is read in its own dtype when that is x's, else in f32."""
+    code = _DTYPES.get(x.dtype)
+    if code is None:
         raise TypeError(f"rmsnorm kernel: unsupported dtype {x.dtype}")
-    if not scale.is_cuda or scale.shape != (x.shape[-1],):
-        raise ValueError("rmsnorm kernel: scale must be a (D,) CUDA tensor")
-    import triton
-
     d = x.shape[-1]
-    x2 = x.reshape(-1, d).contiguous()
-    y = torch.empty_like(x2)
-    block = triton.next_power_of_2(d)
-    _get_triton_kernel()[(x2.shape[0],)](
-        x2, scale.contiguous(), y, d, eps, BLOCK=block,
-        num_warps=8 if block >= 2048 else 4)
+    if not scale.is_cuda or scale.shape != (d,):
+        raise ValueError("rmsnorm kernel: scale must be a (D,) CUDA tensor")
+    if d > MAX_KERNEL_WIDTH:
+        raise ValueError(f"rmsnorm kernel: width {d} > {MAX_KERNEL_WIDTH}")
+    scale_f32 = scale.dtype != x.dtype
+    if scale_f32:
+        scale = scale.float()
+    x, scale = x.contiguous(), scale.contiguous()
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    rows = x.numel() // d
+    rc = kernels.library().thinkdiff_rmsnorm(
+        x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d, eps, code,
+        int(scale_f32), rmsnorm_warps(rows, d), kernels.stream_of(x))
+    kernels.check_launch(rc, "rmsnorm")
     kernels.count_launch("rmsnorm")
-    return y.reshape(x.shape)
+    return y
 
 
 def _rmsnorm_forward(x, scale, eps):
     if x.is_cuda:
-        return _rmsnorm_triton(x, scale, eps)
+        return _rmsnorm_cuda(x, scale, eps)
     if x.device.type == "cpu":
         return rmsnorm_reference(x, scale, eps)
     raise NotImplementedError(f"rmsnorm: no kernel for device {x.device}")
