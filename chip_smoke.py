@@ -19,12 +19,14 @@ non-zero:
                 card could take (bound_ms) comes from the bytes and
                 operations of the inputs. The flash backward (dq, dk/dv) is
                 checked on T5's self- and cross-attention of a packed batch
-                (pad query rows that see no key, poisoned) and a GQA D=128
-                case, with the forward's lse; the s8 input gradient on every
-                projection; the weight-only GEMV on every flan-t5-xxl layer
-                shape at 1, 8 and 32 rows; the wide weight-only GEMM and its
-                input gradient, and the quantize-in-kernel s8 GEMM, at
-                1024 rows;
+                (pad query rows that see no key, poisoned), contiguous and
+                as the T5 layer hands them over (head-transposed views; no
+                operand copy, dq/dk/dv views of (B, T, H, D) memory), and a
+                GQA D=128 case, with the forward's lse; the s8 input
+                gradient on every projection; the weight-only GEMV on every
+                flan-t5-xxl layer shape at 1, 8 and 32 rows; the wide
+                weight-only GEMM and its input gradient, and the
+                quantize-in-kernel s8 GEMM, at 1024 rows;
   4. train-w8a8 — the LVLM aligner's training step: configs/
                 train_thinkdiff_lvlm_ccsbu.yaml's model and run sections with
                 bench.py's overrides (w8a8 frozen flan-t5-xxl decoder at full
@@ -263,7 +265,7 @@ def phase_build():
         f"(one process per source, in parallel), load "
         f"{time.perf_counter() - t0:.1f} s")
     # ptxas -v: registers, static shared memory and spills of each kernel
-    # (the flash forward and RMSNorm take only dynamic shared memory), and
+    # (the flash kernels and RMSNorm take only dynamic shared memory), and
     # any warning (a wgmma pipeline that ptxas serializes says so here)
     entry, stack, spill = None, "0", "0"
     for line in str(info["log"]).splitlines():
@@ -280,7 +282,8 @@ def phase_build():
             name = re.search(r"(flash_fwd_kernelILi\d+ELi\d+ELi\d|"
                              r"rmsnorm_\w{1,48}|s8_gemm_kernel|"
                              r"paged_decode_kernel|fused_sample_tiles|"
-                             r"fused_sample_reduce|flash_bwd_\w+?kernel|"
+                             r"fused_sample_reduce|"
+                             r"flash_bwd_d\w+?_kernelILi\d+E(?:Li\d)?|"
                              r"s8_gemm_bwd_kernel|int8_gemv_kernelILi\d+ELb\d+ELb\d|"
                              r"int8_wide_\w+?_kernelILb\d|"
                              r"s8_gemm_qx_kernelILb\dELb\d)", entry)
@@ -522,9 +525,74 @@ def flash_tile_sweep():
         f"F.rms_norm same {host_us(lambda: F.rms_norm(x, (1536,), scale, 1e-6)):.1f}")
 
 
+def flash_bwd_tile_sweep():
+    """The backward kernels (#5 dq, #6 dk/dv) at the training shapes, device
+    ms each (torch.profiler): 64 or 128 rows a dq CTA, the ring depths that
+    fit, the masks dropped one at a time, and B1 against B4, so that the
+    time a CTA takes and what it spends it on can be read (the tile rule of
+    ``flash_bwd_tiles`` comes from it; the cross-attention gap to SDPA is
+    still open). Run alone: ``python3 -c "import chip_smoke as c;
+    c.phase_device(); c.flash_bwd_tile_sweep()"``."""
+    from unittest import mock
+
+    from thinkdiff_torch.ops import flash_attention as fa
+
+    names = ("bias", "kv_mask", "causal", "sm_scale", "q_segment_ids",
+             "kv_segment_ids")
+    cases = list(attention_cases())
+    variants = []
+    for label, q, k, v, do, kw in (cases[0], cases[1]):
+        variants.append((label, q, k, v, do, kw))
+        for drop in ("bias", "kv_mask", "q_segment_ids"):
+            if kw[drop] is not None:
+                kw2 = dict(kw, **{drop: None})
+                if drop == "q_segment_ids":
+                    kw2["kv_segment_ids"] = None
+                variants.append((f"{label[:5]} without {drop}", q, k, v, do,
+                                 kw2))
+        one = {n: (x[:1] if isinstance(x, torch.Tensor) and x.shape[0] == 4
+                   else x) for n, x in kw.items()}
+        variants.append((f"{label[:5]} B1 (one wave)", q[:1], k[:1], v[:1],
+                         do[:1], one))
+    for label, q, k, v, do, kw in variants:
+        args = [kw[n] for n in names]
+        lse = fa._forward_cuda(q, k, v, *args, with_lse=True)[1]
+        bargs = (q, k, v, *args, lse, do)
+        mode = None if kw["bias"] is None else "tile"
+        tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
+        chosen = fa.flash_bwd_tiles(tq, tk, d, mode)
+        want = fa.flash_attention_backward_reference(*bargs)
+        sizes = [("dq", 0, (bq, 64), st) for bq in (64, 128)
+                 for st in range(2, fa.MAX_STAGES + 1)]
+        sizes += [("dkv", 1, (64, 64), st)
+                  for st in range(2, fa.MAX_STAGES + 1)]
+        for kernel, pick, (bq, bk), st in sizes:
+            smem = fa.flash_bwd_smem(kernel, d, bq, bk, st, mode)
+            if smem > fa.SMEM_LIMIT:
+                continue
+            cfg = list(chosen)
+            cfg[pick] = (bq, bk, st)
+            with mock.patch.object(fa, "flash_bwd_tiles",
+                                   lambda *a, c=tuple(cfg), **_: c):
+                got = fa.flash_attention_backward(*bargs)
+                err = max(float((g.float() - w.float()).abs().max()
+                                / w.float().abs().max())
+                          for g, w in zip(got, want))
+                _, delta = fa.flash_dq_cuda(*bargs)
+                run = ((lambda: fa.flash_dq_cuda(*bargs)) if kernel == "dq"
+                       else (lambda: fa.flash_dkv_cuda(*bargs, delta)))
+                dev = device_ms(run, runs=50)
+            say("sweep", f"flash {kernel} {label}: block_q {bq} block_k "
+                f"{bk} stages {st}"
+                f"{' (chosen)' if (bq, bk, st) == chosen[pick] else ''}: "
+                f"device {dev:.4f} ms, max|err| {err:.3g} of max|ref|")
+
+
 def kernel_ab(root: str = "."):
-    """Device and event ms of the flash forward (#1) and RMSNorm (#3) at the
-    kernel table's shapes, through the package of the checkout at ``root``,
+    """Device and event ms of the flash forward (#1), RMSNorm (#3) and the
+    flash backward (#5 and #6 each, and ``flash_attention_backward``, both
+    at the training shapes, contiguous and in the T5 layout) at the kernel
+    table's shapes, through the package of the checkout at ``root``,
     so that two commits' kernels can be held against each other on one
     machine: unpack the other commit (``git archive``) into a git-ignored
     directory and alternate the two processes, e.g.
@@ -588,6 +656,22 @@ def kernel_ab(root: str = "."):
         run = lambda: rmsnorm(x, scale, 1e-6)
         say("ab", f"{where.name} rmsnorm R{r} D{d}: device "
             f"{device_ms(run, runs=50):.4f} ms, event {time_ms(run):.4f} ms")
+    from thinkdiff_torch.ops import flash_attention as fa
+
+    names = ("bias", "kv_mask", "causal", "sm_scale", "q_segment_ids",
+             "kv_segment_ids")
+    for label, q, k, v, do, kw in attention_cases():
+        args = [kw[n] for n in names]
+        lse = fa._forward_cuda(q, k, v, *args, with_lse=True)[1]
+        bargs = (q, k, v, *args, lse, do)
+        delta = fa.flash_dq_cuda(*bargs)[1]
+        for part, run in (
+                ("dq", lambda: fa.flash_dq_cuda(*bargs)),
+                ("dkv", lambda: fa.flash_dkv_cuda(*bargs, delta)),
+                ("backward", lambda: fa.flash_attention_backward(*bargs))):
+            say("ab", f"{where.name} flash {part} {label}: device "
+                f"{device_ms(run, runs=50):.4f} ms, event "
+                f"{time_ms(run):.4f} ms")
 
 
 def kernels_s8(results):
@@ -735,18 +819,31 @@ def packed_segments():
 
 def attention_cases():
     """(label, q, k, v, dO, kwargs) of the training step's attentions at
-    bench.py's point (64 heads of 64, sm_scale 1) and one GQA D=128 case."""
+    bench.py's point (64 heads of 64, sm_scale 1), contiguous and as the T5
+    layer hands them to the kernels (head-transposed views of the fused
+    qkv / kv_fused projections, dO the head-transposed view of a contiguous
+    (B, T, H*D) gradient), and one GQA D=128 case."""
     dec, enc = packed_segments()
     b, t = dec.shape
     q, k, v, do = (randn((b, 64, t, 64), s) for s in (30, 31, 32, 33))
     bias = randn((1, 64, t, t), 34, torch.float32) * 0.5  # relative bias
+    self_kw = dict(bias=bias, kv_mask=None, causal=True, sm_scale=1.0,
+                   q_segment_ids=dec, kv_segment_ids=dec)
+    cross_kw = dict(bias=None, kv_mask=(enc > 0).int(), causal=False,
+                    sm_scale=1.0, q_segment_ids=dec, kv_segment_ids=enc)
     yield ("self B4 H64 T256 D64 causal+rel bias+packed segments", q, k, v,
-           do, dict(bias=bias, kv_mask=None, causal=True, sm_scale=1.0,
-                    q_segment_ids=dec, kv_segment_ids=dec))
+           do, self_kw)
     yield ("cross B4 H64 256x256 D64 kv_mask+packed segments (pad rows see "
-           "no key)", q, k, v, do,
-           dict(bias=None, kv_mask=(enc > 0).int(), causal=False,
-                sm_scale=1.0, q_segment_ids=dec, kv_segment_ids=enc))
+           "no key)", q, k, v, do, cross_kw)
+    heads = lambda x: x.reshape(b, t, 64, 64).transpose(1, 2)
+    qkv = randn((b, t, 3 * 4096), 39)
+    do_t5 = heads(randn((b, t, 4096), 33))
+    yield ("self, T5 layout (fused qkv views, strided dO)",
+           *(heads(x) for x in qkv.split(4096, dim=-1)), do_t5, self_kw)
+    kv = randn((b, t, 2 * 4096), 40)
+    yield ("cross, T5 layout (q, kv_fused views, strided dO)",
+           heads(randn((b, t, 4096), 41)),
+           *(heads(x) for x in kv.split(4096, dim=-1)), do_t5, cross_kw)
     q, do = randn((b, 16, t, 128), 35), randn((b, 16, t, 128), 36)
     k, v = randn((b, 4, t, 128), 37), randn((b, 4, t, 128), 38)
     yield ("GQA B4 Hq16 Hkv4 T256 D128 causal", q, k, v, do,
@@ -827,6 +924,26 @@ def kernels_attention_train(results):
             lambda: fa.flash_dkv_reference(*bargs, delta), bwd_ok, bwd_tol,
             (nbytes(q, k, v, do, k, v) + side + 2 * lse_bytes,
              8 * pairs * d, "bf16"), library=library, main=i == 0))
+        if "T5 layout" in label:
+            # the training path's layout: no copy of q, k, v or dO (the
+            # backward allocates dq, dk, dv and delta, nothing more), and
+            # dq/dk/dv come back as views of (B, T, H, D) memory
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = fa.flash_attention_backward(q, k, v, *args, lse, do)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            outs = nbytes(*got) + lse_bytes
+            if not (all(g.transpose(1, 2).is_contiguous() for g in got)
+                    and extra <= outs + 65536):
+                raise AssertionError(
+                    f"flash backward {label}: {extra} B allocated for "
+                    f"{outs} B of outputs, layouts "
+                    f"{[tuple(g.stride()) for g in got]}")
+            say("kernels", f"flash backward {label}: {extra} B allocated for "
+                f"{outs} B of dq, dk, dv and delta (no operand copy); dq, dk, "
+                "dv are views of (B, T, H, D) memory")
         if dead.any():
             # pad query rows: finite, dq 0, and dk/dv bit-identical whether
             # their dO is poisoned or zero

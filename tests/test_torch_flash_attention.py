@@ -362,3 +362,131 @@ def test_bias_operand_layout():
     assert got is row and strides == (15, 0, 0)
     got, _ = tf._bias_operand(odd.to(torch.bfloat16), 3, 2, 15, 15)
     assert got.dtype == torch.float32
+
+
+# the backward kernels' tiles at the shapes the training paths give them:
+# (Tq, Tk, D, bias) -> ((block_q, block_k, stages) of dq, the same of dk/dv)
+BWD_TILE_CHOICES = {
+    "t5 train self T256": ((256, 256, 64, "tile"),
+                           ((128, 64, 4), (64, 64, 2))),
+    "t5 train cross T256": ((256, 256, 64, None),
+                            ((64, 64, 4), (64, 64, 4))),
+    "t5 yaml self T128": ((128, 128, 64, "tile"),
+                          ((64, 64, 2), (64, 64, 2))),
+    "gqa D128 T256": ((256, 256, 128, None), ((128, 64, 4), (64, 64, 4))),
+    "D128 rel bias T256": ((256, 256, 128, "tile"),
+                           ((128, 64, 2), (64, 64, 3))),
+    "ragged 200x333 rel bias": ((200, 333, 64, "tile"),
+                                ((128, 64, 4), (64, 64, 2))),
+    "short Tq 40 row bias": ((40, 300, 64, "row"),
+                             ((64, 64, 5), (64, 64, 2))),
+    # more key tiles than the dq ring holds: sweep 1 reloads through it
+    "long 256x1024 rel bias": ((256, 1024, 64, "tile"),
+                               ((128, 64, 4), (64, 64, 2))),
+    "long causal D128 T640": ((640, 640, 128, None),
+                              ((128, 64, 5), (64, 64, 5))),
+    "short D128 Tq 48 row bias": ((48, 200, 128, "row"),
+                                  ((128, 64, 4), (64, 64, 2))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BWD_TILE_CHOICES))
+def test_backward_tile_choice_is_a_function_of_the_shapes(name):
+    args, want = BWD_TILE_CHOICES[name]
+    tq, tk, d, bias = args
+    got = tf.flash_bwd_tiles(*args)
+    assert got == want
+    for kernel, (block_q, block_k, stages), tiles in (
+            ("dq", got[0], -(-tk // 64)), ("dkv", got[1], -(-tq // 64))):
+        assert (block_q, block_k)[kernel == "dq"] == 64  # the tile
+        assert 2 <= stages <= tf.MAX_STAGES
+        smem = tf.flash_bwd_smem(kernel, d, block_q, block_k, stages, bias)
+        assert smem <= tf.SMEM_LIMIT
+        # dk/dv: always 64 keys a CTA; dq: 64 rows where two CTAs with the
+        # whole key ring share an SM at D = 64 (or Tq <= 64 there), else 128
+        wide = (block_k, block_q)[kernel == "dq"]
+        if kernel == "dkv":
+            assert wide == 64
+        elif d == 128:
+            assert wide == 128
+        elif wide == 128:
+            assert tiles > tf.MAX_STAGES or tf.flash_bwd_smem(
+                kernel, d, 64, 64, max(2, tiles), bias) > tf.TWO_PER_SM
+        # the ring holds every tile of the call, or as many as fit
+        limit = tf.TWO_PER_SM if d == 64 and wide == 64 and (
+            kernel == "dkv" or tq > 64) else tf.SMEM_LIMIT
+        if stages < max(2, tiles):
+            assert tf.flash_bwd_smem(kernel, d, block_q, block_k, stages + 1,
+                                     bias) > limit
+        else:
+            assert stages == max(2, tiles)
+
+
+@pytest.mark.parametrize("d", tf.BACKWARD_HEAD_DIMS)
+@pytest.mark.parametrize("bias", [None, "row", "tile"])
+def test_backward_smem_fits_each_head_dim_and_bias(d, bias):
+    """Every tile choice fits the shared memory of a block, and at the
+    training length (T = 256, D = 64) the dq kernel's ring holds all four
+    key tiles with their bias: sweep 1 reloads nothing."""
+    for tq, tk in ((1, 1), (40, 300), (256, 256), (1000, 77), (2048, 2048)):
+        for kernel, (block_q, block_k, stages) in zip(
+                ("dq", "dkv"), tf.flash_bwd_tiles(tq, tk, d, bias)):
+            assert tf.flash_bwd_smem(kernel, d, block_q, block_k, stages,
+                                     bias) <= tf.SMEM_LIMIT
+    if d == 64:
+        assert tf.flash_bwd_tiles(256, 256, 64, bias)[0][2] == 4
+
+
+def test_backward_operand_checks_raise_before_any_launch():
+    """The backward kernels' operand rules, held on CPU tensors (the checks
+    run before the library is touched): a head dim outside {64, 128} (D =
+    80 has a forward kernel only), q, k, v that are not bf16, segment ids
+    without their pair, a dO or lse of the wrong shape, strides TMA cannot
+    read."""
+    def args(d=64, dtype=torch.bfloat16, q_seg=None, kv_seg=None, do=None,
+             lse=None, q=None):
+        x = torch.zeros((1, 2, 8, d), dtype=dtype)
+        q = x if q is None else q
+        return (q, x, x, None, None, False, 1.0, q_seg, kv_seg,
+                torch.zeros((1, 2, 8)) if lse is None else lse,
+                x if do is None else do)
+
+    for fn in (tf.flash_dq_cuda,
+               lambda *a: tf.flash_dkv_cuda(*a, torch.zeros((1, 2, 8)))):
+        for d in (80, 96):
+            with pytest.raises(ValueError, match="head dim"):
+                fn(*args(d))
+        with pytest.raises(TypeError, match="bf16"):
+            fn(*args(dtype=torch.float32))
+        seg = torch.ones((1, 8), dtype=torch.int32)
+        with pytest.raises(ValueError, match="pairs"):
+            fn(*args(q_seg=seg))
+        with pytest.raises(ValueError, match="dO"):
+            fn(*args(do=torch.zeros((1, 2, 7, 64), dtype=torch.bfloat16)))
+        with pytest.raises(ValueError, match="dO"):
+            fn(*args(lse=torch.zeros((1, 2, 9))))
+        with pytest.raises(ValueError, match="strides"):
+            fn(*args(q=torch.zeros((1, 2, 8, 128),
+                                   dtype=torch.bfloat16)[..., ::2]))
+
+
+def test_backward_operands_take_head_transposed_views_without_a_copy():
+    """q, k, v as head-transposed views of (B, T, 3, H, D) memory and dO as
+    the head-transposed view of a (B, T, H * D) gradient (the T5 layer's
+    layout) go to the kernels as they are; a dO that TMA cannot read is
+    copied once into (B, T, H, D) memory."""
+    b, t, h, d = 2, 8, 2, 64
+    qkv = torch.randn((b, t, 3, h, d)).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn((b, t, h * d)).to(torch.bfloat16).reshape(
+        b, t, h, d).transpose(1, 2)
+    lse = torch.zeros((b, h, t))
+    ops = tf._backward_operands(q, k, v, None, None, None, None, lse, do)
+    assert all(x is y for x, y in zip(ops[:4], (q, k, v, do)))
+    assert ops[4] is lse
+    # dO broadcast along the rows (stride 0): copied, values unchanged
+    wide = torch.randn((b, h, 1, d)).to(torch.bfloat16).expand(b, h, t, d)
+    got = tf._backward_operands(q, k, v, None, None, None, None, lse,
+                                wide)[3]
+    assert got is not wide and torch.equal(got, wide)
+    assert got.transpose(1, 2).is_contiguous()

@@ -313,6 +313,24 @@ BWD_CASES = {
                      segments=True),
     "ragged_causal": dict(b=1, hq=2, hkv=2, tq=77, tk=77, d=64, causal=True),
     "gqa_d128": dict(b=2, hq=8, hkv=2, tq=130, tk=90, d=128, kv_mask=True),
+    # Tq != Tk, neither a multiple of a tile; the causal keys past Tq see no
+    # row (a dk/dv CTA with no q tile writes zeros)
+    "ragged_200x333": dict(b=2, hq=4, hkv=4, tq=200, tk=333, d=64,
+                           causal=True, rel_bias=True, kv_mask=True),
+    # a bias without a query axis ((B, 1, 1, Tk), read once a key)
+    "row_bias_d128": dict(b=2, hq=4, hkv=2, tq=100, tk=150, d=128,
+                          row_bias=True, causal=True),
+    "row_bias_d64": dict(b=2, hq=4, hkv=4, tq=130, tk=70, d=64,
+                         row_bias=True, kv_mask=True),
+    # more key tiles than the dq ring holds (sweep 1 reloads every tile
+    # through the ring), and more q tiles than the dk/dv ring holds
+    "reload_rel_bias_256x1024": dict(b=2, hq=4, hkv=4, tq=256, tk=1024, d=64,
+                                     rel_bias=True, reload=True),
+    "reload_causal_d128": dict(b=2, hq=4, hkv=2, tq=640, tk=640, d=128,
+                               causal=True, kv_mask=True, reload=True),
+    # D = 128 with Tq <= 64: the 128-row dq CTA, its second warpgroup past Tq
+    "short_d128": dict(b=2, hq=4, hkv=4, tq=48, tk=200, d=128, row_bias=True,
+                       kv_mask=True),
 }
 
 
@@ -327,6 +345,8 @@ def _bwd_inputs(cuda, c):
               kv_segment_ids=None)
     if c.get("rel_bias"):
         kw["bias"] = _randn((1, hq, tq, tk), 24, cuda, torch.float32) * 0.5
+    if c.get("row_bias"):
+        kw["bias"] = _randn((b, 1, 1, tk), 25, cuda, torch.float32)
     if c.get("kv_mask"):
         kw["kv_mask"] = (torch.arange(tk, device=cuda)[None]
                          < torch.tensor([[tk], [tk - 31]], device=cuda)[:b]).int()
@@ -349,9 +369,17 @@ def test_flash_backward_kernels_match_plain(cuda, case):
         flash_attention_backward, flash_attention_backward_reference,
         logsumexp_reference)
 
-    q, k, v, do, kw = _bwd_inputs(cuda, BWD_CASES[case])
+    from thinkdiff_torch.ops.flash_attention import flash_bwd_tiles
+
+    c = BWD_CASES[case]
+    q, k, v, do, kw = _bwd_inputs(cuda, c)
     args = [kw[n] for n in ("bias", "kv_mask", "causal", "sm_scale",
                             "q_segment_ids", "kv_segment_ids")]
+    if c.get("reload"):  # the case reaches the ring's reuse in both kernels
+        (_, _, dq_stages), (_, _, dkv_stages) = flash_bwd_tiles(
+            c["tq"], c["tk"], c["d"], "tile" if c.get("rel_bias") else None)
+        assert -(-c["tk"] // 64) > dq_stages
+        assert -(-c["tq"] // 64) > dkv_stages
     qr = q.detach().requires_grad_(True)
     out = flash_attention(qr, k, v, **kw)  # the forward kernel, with lse
     lse = logsumexp_reference(q, k, *args)
@@ -371,6 +399,57 @@ def test_flash_backward_kernels_match_plain(cuda, case):
     out.backward(do)
     assert (qr.grad.float() - want[0].float()).abs().max() <= (
         1.5e-2 * want[0].float().abs().max())
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_flash_backward_takes_the_t5_layout_without_copies(cuda, cross):
+    """q, k, v as the T5 layer hands them (head-transposed views of the
+    fused qkv / q and kv_fused projections) and dO the head-transposed view
+    of a contiguous (B, T, H*D) gradient: the kernels match the plain
+    version, dq, dk, dv come back as views of (B, T, H, D) memory, and the
+    backward allocates its outputs and delta, no copy of an operand."""
+    from thinkdiff_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+        kernel_bias, logsumexp_reference)
+
+    b, h, t, d = 2, 4, 256, 64
+    heads = lambda x: x.reshape(b, t, h, d).transpose(1, 2)
+    seg = (torch.arange(t, device=cuda)[None] // 50 + 1).repeat(b, 1).int()
+    seg[1, -20:] = 0
+    if cross:
+        q = heads(_randn((b, t, h * d), 30, cuda))
+        k, v = (heads(x) for x in _randn((b, t, 2 * h * d), 31, cuda).split(
+            h * d, dim=-1))
+        kenc = (torch.arange(t, device=cuda)[None] // 70 + 1).repeat(b, 1)
+        kenc = kenc.int()
+        kenc[:, -16:] = 0
+        kw = dict(bias=None, kv_mask=(kenc > 0).int(), causal=False,
+                  sm_scale=1.0, q_segment_ids=seg, kv_segment_ids=kenc)
+    else:
+        q, k, v = (heads(x) for x in _randn((b, t, 3 * h * d), 32, cuda).split(
+            h * d, dim=-1))
+        kw = dict(bias=kernel_bias(_randn((1, h, t, t), 33, cuda,
+                                          torch.float32) * 0.5),
+                  kv_mask=None, causal=True, sm_scale=1.0, q_segment_ids=seg,
+                  kv_segment_ids=seg)
+    do = heads(_randn((b, t, h * d), 34, cuda))
+    args = [kw[n] for n in ("bias", "kv_mask", "causal", "sm_scale",
+                            "q_segment_ids", "kv_segment_ids")]
+    lse = logsumexp_reference(q, k, *args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = flash_attention_backward(q, k, v, *args, lse, do)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    outs = sum(g.numel() * g.element_size() for g in got) + lse.numel() * 4
+    assert extra <= outs + 4096, (extra, outs)  # a copy of q is 262144 B
+    want = flash_attention_backward_reference(q, k, v, *args, lse, do)
+    for g, w, n in zip(got, want, "qkv"):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert g.transpose(1, 2).is_contiguous(), (n, g.stride())
+        err = (g.float() - w.float()).abs().max()
+        assert err <= 1.5e-2 * w.float().abs().max(), (n, float(err))
 
 
 def test_flash_backward_pad_rows_add_exactly_nothing(cuda):

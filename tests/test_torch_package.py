@@ -143,7 +143,7 @@ def test_kernel_build_inputs():
                      "s8_gemm_qx.cu"]
     # the int8 tile is one header shared by the GEMMs and the fused sampler,
     # the bf16 mma step one shared by the mma.sync kernels, the Hopper PTX
-    # (TMA, mbarriers, wgmma) the flash forward's; an edit to any names a
+    # (TMA, mbarriers, wgmma) the flash kernels'; an edit to any names a
     # new library
     assert [p.name for p in _build.headers()] == ["bf16_mma.cuh",
                                                   "hopper.cuh",
@@ -151,18 +151,20 @@ def test_kernel_build_inputs():
     for name in ("fused_sample.cu", "s8_gemm.cu", "s8_gemm_bwd.cu",
                  "s8_gemm_qx.cu"):
         assert '#include "s8_tile.cuh"' in (_build.CSRC / name).read_text()
-    for name in ("flash_bwd.cu", "int8_gemv.cu", "int8_wide.cu"):
+    for name in ("int8_gemv.cu", "int8_wide.cu"):
         assert '#include "bf16_mma.cuh"' in (_build.CSRC / name).read_text()
-    fwd = (_build.CSRC / "flash_fwd.cu").read_text()
     hopper = (_build.CSRC / "hopper.cuh").read_text()
-    assert '#include "hopper.cuh"' in fwd
-    # the forward multiplies with wgmma on tiles that TMA copies into an
-    # mbarrier ring
+    # the forward and the backward multiply with wgmma on tiles that TMA
+    # copies into an mbarrier ring
     for op in ("wgmma.mma_async", "cp.async.bulk.tensor",
                "mbarrier.try_wait.parity"):
         assert op in hopper
-    for call in ("wgmma_ss<", "wgmma_rs<", "tma_load_4d(", "mbar_wait("):
-        assert call in fwd
+    for name in ("flash_fwd.cu", "flash_bwd.cu"):
+        src = (_build.CSRC / name).read_text()
+        assert '#include "hopper.cuh"' in src
+        assert '#include "bf16_mma.cuh"' not in src
+        for call in ("wgmma_ss<", "wgmma_rs<", "tma_load_4d(", "mbar_wait("):
+            assert call in src
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     path = _build.library_path()
     assert path.parent == REPO / "build" and path.suffix == ".so"

@@ -55,12 +55,6 @@
 
 namespace {
 
-constexpr float NEG_BIG = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-enum BiasMode { BIAS_NONE = 0, BIAS_ROW = 1, BIAS_TILE = 2 };
-
 struct Params {
   __nv_bfloat16* o;
   long long so0, so1, so2;  // o strides (elements) over batch, head, row
@@ -104,16 +98,6 @@ struct Plan {
   }
 };
 
-// work item w of a persistent CTA: (q tile, batch * head), every head's
-// longest causal q tiles first, so the CTAs striding over the items get
-// equal shares of the causal work
-__device__ __forceinline__ void work_item(int w, int bh_count, int n_qt,
-                                          bool causal, int& qt, int& bh) {
-  bh = w % bh_count;
-  const int rank = w / bh_count;
-  qt = causal ? n_qt - 1 - rank : rank;
-}
-
 // a bias tile with a query axis: BK / 32 boxes of 32 f32 columns x BQ rows,
 // each row 128 B in the 128-byte swizzle; the pair (row, col), (row, col+1)
 // for an even col
@@ -138,18 +122,6 @@ __device__ __forceinline__ float mask_score(float x, int row, int col, int tk,
   if (causal) ok = ok && row >= col;
   x = ok ? x : NEG_BIG * LOG2E;
   return col >= tk ? -INFINITY : x;
-}
-
-// 2^x by the special-function unit (-inf -> +0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int D, int BK, int NWG>
@@ -309,7 +281,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                        wgmma_desc(sk + c * BK * 128 + kin * 32, 16, 1024), ks > 0);
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(sc);
         // the last tile's Q K^T is done: the producer may load the next q
         if (j == n_tiles - 1) mbar_arrive(q_empty);
@@ -381,7 +353,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int kk = 0; kk < BK / 16; ++kk)
           wgmma_rs<D>(o, pa[kk], wgmma_desc(sv + kk * 16 * 128, BK * 128, 1024), 1);
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(o);
         mbar_arrive(&empty[s]);
       }
@@ -418,61 +390,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host ---------------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (the
-// library links only libcudart)
-EncodeTiledFn encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                             cudaEnableDefault, &found);
-#endif
-    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-constexpr int ERR_TENSOR_MAP = 1000;  // + CUresult of a refused tensor map
-
-// A 4-D tiled map: dims innermost first, strides (bytes) of dims 1..3; a
-// dim of size 1 gets the packed stride (its own is never used).
-int map_4d(CUtensorMap* m, CUtensorMapDataType ty, int esize, const void* base,
-           const long long dims[4], const long long strides[3], int box0,
-           int box1, CUtensorMapSwizzle swizzle) {
-  cuuint64_t gdim[4], gstr[3];
-  for (int i = 0; i < 4; ++i) gdim[i] = (cuuint64_t)dims[i];
-  cuuint64_t packed = ((cuuint64_t)dims[0] * esize + 15) / 16 * 16;
-  for (int i = 0; i < 3; ++i) {
-    gstr[i] = dims[i + 1] == 1 ? packed : (cuuint64_t)strides[i] * esize;
-    packed = gstr[i] * gdim[i + 1];
-  }
-  const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1, 1, 1};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
-  CUresult rc = encoder()(m, ty, 4, const_cast<void*>(base), gdim, gstr, box, one,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + (int)rc;
-}
-
 struct Maps {
   CUtensorMap q, k, v, bias;
 };
-
-constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
 
 template <int D, int BK, int NWG>
 int launch(const Maps& maps, const Params& p, cudaStream_t stream) {
@@ -560,25 +480,15 @@ extern "C" int thinkdiff_flash_fwd(
 
   Maps maps;
   const int tk = Tk > 0 ? Tk : 1;  // a map needs a nonzero extent
-  const long long qd[4] = {D, Tq, Hq, B}, kd[4] = {D, tk, Hkv, B};
-  const long long qs[3] = {sq[2], sq[1], sq[0]}, ks[3] = {sk[2], sk[1], sk[0]};
-  const long long vs[3] = {sv[2], sv[1], sv[0]};
   int rc;
-  if ((rc = map_4d(&maps.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, qd, qs, 64,
-                   block_q, CU_TENSOR_MAP_SWIZZLE_128B)) ||
-      (rc = map_4d(&maps.k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, kd, ks, 64,
-                   block_k, CU_TENSOR_MAP_SWIZZLE_128B)) ||
-      (rc = map_4d(&maps.v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, v, kd, vs, 64,
-                   block_k, CU_TENSOR_MAP_SWIZZLE_128B)))
+  if ((rc = map_bf16_4d(&maps.q, q, B, Hq, Tq, D, sq, block_q)) ||
+      (rc = map_bf16_4d(&maps.k, k, B, Hkv, tk, D, sk, block_k)) ||
+      (rc = map_bf16_4d(&maps.v, v, B, Hkv, tk, D, sv, block_k)))
     return rc;
   maps.bias = maps.q;  // unused unless the bias has a query axis
-  if (p.bias_mode == BIAS_TILE) {
-    const long long bd[4] = {tk, Tq, sb[1] ? Hq : 1, sb[0] ? B : 1};
-    const long long bs[3] = {sb[2], sb[1], sb[0]};
-    if ((rc = map_4d(&maps.bias, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bias, bd, bs,
-                     32, block_q, CU_TENSOR_MAP_SWIZZLE_128B)))
-      return rc;
-  }
+  if (p.bias_mode == BIAS_TILE &&
+      (rc = map_bias_4d(&maps.bias, bias, B, Hq, Tq, tk, sb, block_q)))
+    return rc;
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (block_q == 192)  // three consumer warpgroups: the vision tower's D = 80

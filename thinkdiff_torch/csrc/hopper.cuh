@@ -1,7 +1,9 @@
 // Hopper building blocks as raw PTX, for the flash-attention forward
-// (flash_fwd.cu): mbarriers, TMA tile copies into shared memory, and the
-// warpgroup matrix multiply (wgmma) with its shared-memory descriptors.
-// sm_90a only (wgmma and setmaxnreg do not exist on plain sm_90).
+// (flash_fwd.cu) and backward (flash_bwd.cu): mbarriers, TMA tile copies
+// into shared memory, the warpgroup matrix multiply (wgmma) with its
+// shared-memory descriptors, and on the host the 4-D tensor maps that TMA
+// reads through. sm_90a only (wgmma and setmaxnreg do not exist on plain
+// sm_90).
 //
 // Shared-memory operands are tiles of 128-byte rows written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte unit u of row r lies at unit
@@ -21,6 +23,8 @@
 // (m64k16 bf16) is each warp's mma.sync m16n8k16 A fragment.
 #pragma once
 
+#include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,8 +113,11 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed groups of this warpgroup are pending
+// (groups complete in the order they were committed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // keep the compiler from moving accesses of accumulator registers across
@@ -260,6 +267,122 @@ __device__ __forceinline__ void regs_dealloc() {
 template <int REGS>
 __device__ __forceinline__ void regs_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
+// ---- shared by the flash kernels -------------------------------------------
+
+constexpr float NEG_BIG = -1e30f;  // a masked score (natural log domain)
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// BIAS_ROW: a bias without a query axis ((B, 1, 1, Tk) padding); BIAS_TILE:
+// one with it ((1, H, T, T) relative bias), copied in tiles by TMA
+enum BiasMode { BIAS_NONE = 0, BIAS_ROW = 1, BIAS_TILE = 2 };
+
+// 2^x by the special-function unit (-inf -> +0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// work item w of a grid: (tile, batch * head), every head's tile `rank`
+// before any head's tile rank + 1, the ranks in reverse when `reverse` (the
+// longest causal tiles first, so the last wave is short)
+__device__ __forceinline__ void work_item(int w, int bh_count, int n_tiles,
+                                          bool reverse, int& tile, int& bh) {
+  bh = w % bh_count;
+  const int rank = w / bh_count;
+  tile = reverse ? n_tiles - 1 - rank : rank;
+}
+
+// ---- host: tensor maps -----------------------------------------------------
+
+constexpr int SMEM_LIMIT = 232448;     // bytes of shared memory a block may use
+constexpr int ERR_TENSOR_MAP = 1000;   // + CUresult of a refused tensor map
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (the
+// library links only libcudart)
+inline EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                             cudaEnableDefault, &found);
+#endif
+    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D tiled map: dims innermost first, strides (bytes) of dims 1..3; a
+// dim of size 1 gets the packed stride (its own is never used). Elements
+// past a dim's extent read as zero.
+inline int map_4d(CUtensorMap* m, CUtensorMapDataType ty, int esize,
+                  const void* base, const long long dims[4],
+                  const long long strides[3], int box0, int box1,
+                  CUtensorMapSwizzle swizzle) {
+  // the encoder needs the device's context current on this thread, which a
+  // thread that has made no runtime call yet (autograd's backward worker)
+  // lacks: cudaFree(nullptr) makes the primary context current
+  static thread_local bool bound = false;
+  if (!bound) {
+    cudaFree(nullptr);
+    bound = true;
+  }
+  cuuint64_t gdim[4], gstr[3];
+  for (int i = 0; i < 4; ++i) gdim[i] = (cuuint64_t)dims[i];
+  cuuint64_t packed = ((cuuint64_t)dims[0] * esize + 15) / 16 * 16;
+  for (int i = 0; i < 3; ++i) {
+    gstr[i] = dims[i + 1] == 1 ? packed : (cuuint64_t)strides[i] * esize;
+    packed = gstr[i] * gdim[i + 1];
+  }
+  const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1, 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  CUresult rc = encoder()(m, ty, 4, const_cast<void*>(base), gdim, gstr, box, one,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + (int)rc;
+}
+
+// A bf16 (B, H, T, D) operand through its strides (elements, over batch,
+// head and row; the head dim contiguous), in boxes of 64 columns x `rows`
+// rows with the 128-byte swizzle
+inline int map_bf16_4d(CUtensorMap* m, const void* base, int B, int H, int T,
+                       int D, const long long* st, int rows) {
+  const long long dims[4] = {D, T, H, B}, strides[3] = {st[2], st[1], st[0]};
+  return map_4d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims, strides, 64,
+                rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// An f32 bias with a query axis, key axis contiguous, strides `sb` over
+// batch, head and row (0 on a broadcast axis), in boxes of 32 keys x `rows`
+// query rows with the 128-byte swizzle
+inline int map_bias_4d(CUtensorMap* m, const void* bias, int B, int H, int Tq,
+                       int Tk, const long long* sb, int rows) {
+  const long long dims[4] = {Tk, Tq, sb[1] ? H : 1, sb[0] ? B : 1};
+  const long long strides[3] = {sb[2], sb[1], sb[0]};
+  return map_4d(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bias, dims, strides, 32,
+                rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace

@@ -33,12 +33,8 @@ _SIGNATURES = {
     "thinkdiff_s8_gemm_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "thinkdiff_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LP, _LP,
                             _F, _P],
-    "thinkdiff_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
-                               _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                               _I, _P],
-    "thinkdiff_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,
-                                _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _F, _I, _P],
+    "thinkdiff_flash_bwd_dq": [_P] * 11 + [_LP, _LP, _F, _P],
+    "thinkdiff_flash_bwd_dkv": [_P] * 12 + [_LP, _LP, _F, _P],
     "thinkdiff_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _F, _P],
     "thinkdiff_fused_sample": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

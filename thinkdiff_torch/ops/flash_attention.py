@@ -2,9 +2,9 @@
 thinkdiff_tpu/ops/flash_attention.py).
 
 On CUDA tensors ``flash_attention`` launches the hand-written kernels:
-the forward of ``csrc/flash_fwd.cu`` (wgmma on TMA-fed tiles) and, when a
-gradient is needed, the FlashAttention-2 backward of ``csrc/flash_bwd.cu``
-(a dq kernel that also computes delta, then a dk/dv kernel), inside a
+the forward of ``csrc/flash_fwd.cu`` and, when a gradient is needed, the
+FlashAttention-2 backward of ``csrc/flash_bwd.cu`` (a dq kernel that also
+computes delta, then a dk/dv kernel), all wgmma on TMA-fed tiles, inside a
 ``torch.autograd.Function``. On CPU tensors it runs the plain versions they
 are held against: ``mha_reference`` for the forward and
 ``flash_attention_backward_reference`` for the backward.
@@ -13,11 +13,12 @@ Shapes: q (B, Hq, Tq, D); k, v (B, Hkv, Tk, D); Hq % Hkv == 0. The forward
 takes q, k and v through their strides (head-transposed views of (B, T, H,
 D) projections go in without a copy) and returns a (B, Hq, Tq, D) view of
 (B, Tq, Hq, D) memory, so the caller's ``transpose(1, 2).reshape(...)`` is
-free. bias: additive, broadcastable to (B, Hq, Tq, Tk) — the kernels read
-it through strides, so a (B, 1, 1, Tk) padding bias or T5's (1, H, T, T)
-relative bias is never expanded. It gets no gradient: the bias is frozen on
-every training path (T5's relative-position table), and a bias that
-requires grad raises. kv_mask: (B, Tk) int, 1 = valid key.
+free. The backward takes q, k, v and dO the same way and returns dq, dk
+and dv as such views. bias: additive, broadcastable to (B, Hq, Tq, Tk) —
+the kernels read it through strides, so a (B, 1, 1, Tk) padding bias or
+T5's (1, H, T, T) relative bias is never expanded. It gets no gradient:
+the bias is frozen on every training path (T5's relative-position table),
+and a bias that requires grad raises. kv_mask: (B, Tk) int, 1 = valid key.
 q/kv_segment_ids: (B, Tq)/(B, Tk) int; position i attends j only when their
 ids are equal.
 
@@ -158,13 +159,6 @@ def flash_attention_backward_reference(q, k, v, bias, kv_mask, causal,
     return (dq, *flash_dkv_reference(*args, delta))
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned start (the backward kernels'
-    vector loads)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _int_rows(x: Optional[torch.Tensor], b: int, t: int, name: str):
     if x is None:
         return None
@@ -176,36 +170,14 @@ def _int_rows(x: Optional[torch.Tensor], b: int, t: int, name: str):
     return x
 
 
-def _kernel_operands(q, k, v, bias, kv_mask, q_segment_ids, kv_segment_ids,
-                     head_dims):
-    """Checked, aligned operands of the backward kernels: (q, k, v, bias,
-    bias strides, kv_mask, q_seg, kv_seg)."""
-    b, hq, tq, d = q.shape
-    bk, hkv, tk, dk = k.shape
-    if (bk, dk) != (b, d) or v.shape != k.shape or hq % hkv:
-        raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError("flash_attention kernel takes bf16 q, k, v")
-    if d not in head_dims:
-        raise ValueError(f"flash_attention kernel: head dim {d} not in "
-                         f"{head_dims}")
-    if (q_segment_ids is None) != (kv_segment_ids is None):
-        raise ValueError("flash_attention: segment ids come in pairs")
-    strides = (0, 0, 0, 0)
-    if bias is not None:
-        bias = bias.float().expand(b, hq, tq, tk)
-        strides = bias.stride()
-    return (_aligned(q), _aligned(k), _aligned(v), bias, strides,
-            _int_rows(kv_mask, b, tk, "kv_mask"),
-            _int_rows(q_segment_ids, b, tq, "q_segment_ids"),
-            _int_rows(kv_segment_ids, b, tk, "kv_segment_ids"))
-
-
 SMEM_LIMIT = 232448  # bytes of shared memory an H100 block may use
+# the most a block may use for two to share an SM (228 KB, 1 KB reserved
+# a block)
+TWO_PER_SM = 233472 // 2 - 1024
 MAX_STAGES = 8       # the deepest k/v ring the kernel takes
-_SHAPE = ctypes.c_longlong * 10    # the kernel's shape argument
-_STRIDES = ctypes.c_longlong * 15  # and its strides
+_SHAPE = ctypes.c_longlong * 10    # the kernels' shape argument
+_STRIDES = ctypes.c_longlong * 15  # the forward's strides
+_BWD_STRIDES = ctypes.c_longlong * 21  # the backward's
 
 
 def flash_fwd_smem(d: int, block_q: int, block_k: int, stages: int,
@@ -243,18 +215,53 @@ def flash_fwd_tiles(tq: int, d: int, bias: Optional[str] = None,
     return block_q, block_k, stages
 
 
+def _heads_view(b, t, h, d, like):
+    """An uninitialized (B, H, T, D) view of (B, T, H, D) memory, as the
+    caller's ``transpose(1, 2).reshape(B, T, H * D)`` wants it."""
+    return torch.empty((b, t, h, d), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _tma_fits(t: torch.Tensor) -> bool:
+    """Whether the kernels' tensor maps take ``t`` as it is: any strides
+    with the head dim contiguous, the others nonzero (where the axis has
+    more than one index) multiples of 16 bytes, and a 16-byte aligned
+    start."""
+    *outer, sd = t.stride()
+    return sd == 1 and t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 and (st > 0 or n == 1)
+        for st, n in zip(outer, t.shape[:3]))
+
+
 def _tma_operand(t: torch.Tensor, name: str) -> torch.Tensor:
-    """q, k or v as the forward kernel's tensor maps take it: any strides
-    with the head dim contiguous, the others multiples of 16 bytes, and a
-    16-byte aligned start. Raises otherwise; never copies."""
-    sb, sh, st, sd = t.stride()
-    if sd != 1 or sb % 8 or sh % 8 or st % 8 or t.data_ptr() % 16:
+    """q, k or v as the kernels' tensor maps take it (``_tma_fits``).
+    Raises otherwise; never copies."""
+    if not _tma_fits(t):
         raise ValueError(
             f"flash_attention kernel: {name} strides {tuple(t.stride())} at "
             f"offset {t.data_ptr() % 16}: TMA needs the head dim contiguous, "
             "the other strides multiples of 8 elements and a 16-byte "
             "aligned start")
     return t
+
+
+def _check_operands(q, k, v, head_dims, q_segment_ids, kv_segment_ids):
+    """The shape, dtype and layout rules both kernels share; raises before
+    any launch."""
+    b, hq, tq, d = q.shape
+    bk, hkv, tk, dk = k.shape
+    if (bk, dk) != (b, d) or v.shape != k.shape or hq % hkv:
+        raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError("flash_attention kernel takes bf16 q, k, v")
+    if d not in head_dims:
+        raise ValueError(f"flash_attention kernel: head dim {d} not in "
+                         f"{head_dims}")
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("flash_attention: segment ids come in pairs")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _tma_operand(t, name)
 
 
 def kernel_bias(bias: torch.Tensor) -> torch.Tensor:
@@ -293,20 +300,9 @@ def _forward_cuda(q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
     """The forward kernel on q, k, v as they come (strided views too). The
     output is a (B, Hq, Tq, D) view of (B, Tq, Hq, D) memory, so a caller's
     ``transpose(1, 2).reshape(B, Tq, Hq * D)`` is free."""
+    _check_operands(q, k, v, KERNEL_HEAD_DIMS, q_segment_ids, kv_segment_ids)
     b, hq, tq, d = q.shape
-    bk, hkv, tk, dk = k.shape
-    if (bk, dk) != (b, d) or v.shape != k.shape or hq % hkv:
-        raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError("flash_attention kernel takes bf16 q, k, v")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head dim {d} not in "
-                         f"{KERNEL_HEAD_DIMS}")
-    if (q_segment_ids is None) != (kv_segment_ids is None):
-        raise ValueError("flash_attention: segment ids come in pairs")
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _tma_operand(t, name)
+    hkv, tk = k.shape[1:3]
     bias, sb = _bias_operand(bias, b, hq, tq, tk)
     kv_mask = _int_rows(kv_mask, b, tk, "kv_mask")
     q_seg = _int_rows(q_segment_ids, b, tq, "q_segment_ids")
@@ -314,8 +310,7 @@ def _forward_cuda(q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
     block_q, block_k, stages = flash_fwd_tiles(
         tq, d, None if bias is None else "tile" if sb[2] else "row",
         kv_mask is not None, q_seg is not None)
-    out = torch.empty((b, tq, hq, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = _heads_view(b, tq, hq, d, q)
     lse = (torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     shape = _SHAPE(b, hq, hkv, tq, tk, d, block_q, block_k, int(bool(causal)),
@@ -332,93 +327,172 @@ def _forward_cuda(q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
     return out, lse
 
 
+def flash_bwd_smem(kernel: str, d: int, block_q: int, block_k: int,
+                   stages: int, bias: Optional[str]) -> int:
+    """Shared memory of a backward kernel (``DqPlan`` / ``DkvPlan`` in
+    csrc/flash_bwd.cu), rows cut in 64-column chunks of 128 bytes. "dq":
+    q and dO of ``block_q`` rows, then ``stages`` of (k and v tiles of
+    ``block_k`` keys, the bias boxes ("tile": f32, block_k/32 boxes of 32 x
+    block_q) or row ("row"), the key-info row). "dkv": k and v of
+    ``block_k`` keys, then ``stages`` of (q and dO tiles of ``block_q``
+    rows, the bias boxes, the lse, delta and query-info rows). Then the
+    barriers and 1024 bytes of alignment."""
+    nch = d // 64
+    box = block_k // 32 * block_q * 128 if bias == "tile" else 0
+    if kernel == "dq":
+        fixed = 2 * nch * block_q * 128
+        stage = (2 * nch * block_k * 128 + box
+                 + block_k * 4 * (2 if bias == "row" else 1))
+    else:
+        fixed = 2 * nch * block_k * 128
+        stage = 2 * nch * block_q * 128 + box + block_q * 4 * 3
+    return fixed + stages * stage + (1 + 2 * stages) * 8 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def flash_bwd_tiles(tq: int, tk: int, d: int,
+                    bias: Optional[str] = None) -> tuple:
+    """((block_q, block_k, stages) of the dq kernel, the same of the dk/dv
+    kernel) for a call, from its shapes alone. A CTA of 64 rows (dq) or
+    keys (dk/dv) is one consumer warpgroup, and at D = 64 two such CTAs
+    share an SM where their plans fit in half its shared memory, so one
+    CTA's loads and stores overlap the other's products (measured faster
+    on an H100, see PERF.md). dq: key tiles of 64, the ring as deep as the
+    call has key tiles (sweep 1 then reloads nothing), a 64-row CTA only
+    at D = 64 where that ring fits twice in an SM (or Tq <= 64), else 128
+    rows (two warpgroups). dk/dv: 64 keys a CTA, q tiles of 64, the ring as
+    deep as the call has q tiles, or as fits (at D = 64 in half an SM,
+    which two stages always do). ``bias`` is None, "row" (no query axis)
+    or "tile"."""
+    n_k, n_q = -(-tk // 64), -(-tq // 64)
+
+    def stages(kernel, bq, tiles, limit):
+        fit = [s for s in range(3, MAX_STAGES + 1)
+               if flash_bwd_smem(kernel, d, bq, 64, s, bias) <= limit]
+        return min(max([2] + fit), max(2, tiles))
+
+    if d == 64 and n_k <= MAX_STAGES and flash_bwd_smem(
+            "dq", d, 64, 64, max(2, n_k), bias) <= TWO_PER_SM:
+        dq = (64, 64, max(2, n_k))
+    else:
+        bq = 64 if d == 64 and tq <= 64 else 128
+        dq = (bq, 64, stages("dq", bq, n_k, SMEM_LIMIT))
+    dkv = (64, 64, stages("dkv", 64, n_q, TWO_PER_SM if d == 64
+                          else SMEM_LIMIT))
+    return dq, dkv
+
+
 def _backward_operands(q, k, v, bias, kv_mask, q_segment_ids,
                        kv_segment_ids, lse, do):
-    """Checked, aligned operands of both backward kernels: (ops, dO, lse),
-    ops as ``_kernel_operands`` gives them."""
-    ops = _kernel_operands(q, k, v, bias, kv_mask, q_segment_ids,
-                           kv_segment_ids, BACKWARD_HEAD_DIMS)
-    q = ops[0]
+    """Checked operands of both backward kernels, as they come: q, k, v
+    (the forward's own inputs, so their strides fit TMA) and dO through
+    their strides; dO is copied once only when autograd hands over a layout
+    TMA cannot read (on the T5 path it never does). Returns (q, k, v, dO,
+    lse, bias, bias strides, kv_mask, q_seg, kv_seg)."""
+    _check_operands(q, k, v, BACKWARD_HEAD_DIMS, q_segment_ids,
+                    kv_segment_ids)
+    b, hq, tq, d = q.shape
+    tk = k.shape[2]
     if do.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(f"flash_attention backward: dO {tuple(do.shape)}, "
                          f"lse {tuple(lse.shape)} for q {tuple(q.shape)}")
-    return ops, _aligned(do.to(torch.bfloat16)), lse.float().contiguous()
+    do = do.to(torch.bfloat16)
+    if not _tma_fits(do):
+        do = _heads_view(b, tq, hq, d, do).copy_(do)
+    bias, sb = _bias_operand(bias, b, hq, tq, tk)
+    return (q, k, v, do, lse.float().contiguous(), bias, sb,
+            _int_rows(kv_mask, b, tk, "kv_mask"),
+            _int_rows(q_segment_ids, b, tq, "q_segment_ids"),
+            _int_rows(kv_segment_ids, b, tk, "kv_segment_ids"))
 
 
-def _common(ops, causal, sm_scale):
-    q, k, _, bias, strides, kv_mask, q_seg, kv_seg = ops
+def _launch_bwd(kernel, ops, delta, outs, causal, sm_scale):
+    """One backward kernel: "dq" writes delta and outs = (dq,), "dkv" reads
+    delta and writes outs = (dk, dv), each through its strides."""
+    q, k, v, do, lse, bias, sb, kv_mask, q_seg, kv_seg = ops
     b, hq, tq, d = q.shape
-    return (kernels.ptr(bias), *strides, kernels.ptr(kv_mask),
-            kernels.ptr(q_seg), kernels.ptr(kv_seg), b, hq, k.shape[1], tq,
-            k.shape[2], d, float(sm_scale), int(bool(causal)),
+    hkv, tk = k.shape[1:3]
+    dq_tiles, dkv_tiles = flash_bwd_tiles(
+        tq, tk, d, None if bias is None else "tile" if sb[2] else "row")
+    block_q, block_k, stages = dq_tiles if kernel == "dq" else dkv_tiles
+    shape = _SHAPE(b, hq, hkv, tq, tk, d, block_q, block_k, int(bool(causal)),
+                   stages)
+    out_strides = [x.stride()[:3] for x in outs] + [(0, 0, 0)]
+    strides = _BWD_STRIDES(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                           *do.stride()[:3], *out_strides[0], *out_strides[1],
+                           *sb)
+    fn = (kernels.library().thinkdiff_flash_bwd_dq if kernel == "dq"
+          else kernels.library().thinkdiff_flash_bwd_dkv)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
+            kernels.ptr(bias), kernels.ptr(kv_mask), kernels.ptr(q_seg),
+            kernels.ptr(kv_seg), shape, strides, float(sm_scale),
             kernels.stream_of(q))
+    name = f"flash_attention_{kernel}"
+    kernels.check_launch(rc, name)
+    kernels.count_launch(name)
 
 
-def _launch_dq(ops, do, lse, causal, sm_scale):
-    q, k, v = ops[:3]
+def _launch_dq(ops, causal, sm_scale):
+    q, lse = ops[0], ops[4]
+    b, hq, tq, d = q.shape
     delta = torch.empty_like(lse)
-    dq = torch.empty_like(q)
-    rc = kernels.library().thinkdiff_flash_bwd_dq(
-        kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(do),
-        kernels.ptr(lse), kernels.ptr(delta), kernels.ptr(dq),
-        *_common(ops, causal, sm_scale))
-    kernels.check_launch(rc, "flash_attention_dq")
-    kernels.count_launch("flash_attention_dq")
+    dq = _heads_view(b, tq, hq, d, q)
+    _launch_bwd("dq", ops, delta, (dq,), causal, sm_scale)
     return dq, delta
 
 
-def _launch_dkv(ops, do, lse, delta, causal, sm_scale):
-    q, k, v = ops[:3]
+def _launch_dkv(ops, delta, causal, sm_scale):
+    q, k = ops[:2]
     b, hq, _, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
-    dk = torch.empty((b, hq, tk, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    rc = kernels.library().thinkdiff_flash_bwd_dkv(
-        kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(do),
-        kernels.ptr(lse), kernels.ptr(delta.float().contiguous()),
-        kernels.ptr(dk), kernels.ptr(dv), *_common(ops, causal, sm_scale))
-    kernels.check_launch(rc, "flash_attention_dkv")
-    kernels.count_launch("flash_attention_dkv")
+    hkv, tk = k.shape[1:3]
+    if delta.shape != ops[4].shape:
+        raise ValueError(f"flash_attention backward: delta "
+                         f"{tuple(delta.shape)} for lse "
+                         f"{tuple(ops[4].shape)}")
+    dk, dv = (_heads_view(b, tk, hq, d, k) for _ in range(2))
+    _launch_bwd("dkv", ops, delta.float().contiguous(), (dk, dv), causal,
+                sm_scale)
     if hkv != hq:
-        dk = dk.float().reshape(b, hkv, hq // hkv, tk, d).sum(2).to(k.dtype)
-        dv = dv.float().reshape(b, hkv, hq // hkv, tk, d).sum(2).to(v.dtype)
+        g = hq // hkv
+        dk, dv = (x.float().reshape(b, hkv, g, tk, d).sum(2).to(k.dtype)
+                  for x in (dk, dv))
     return dk, dv
 
 
 def flash_dq_cuda(q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
                   kv_segment_ids, lse, do):
     """The dq kernel (#5) alone: (dq, delta)."""
-    ops, do, lse = _backward_operands(q, k, v, bias, kv_mask, q_segment_ids,
-                                      kv_segment_ids, lse, do)
-    return _launch_dq(ops, do, lse, causal, sm_scale)
+    ops = _backward_operands(q, k, v, bias, kv_mask, q_segment_ids,
+                             kv_segment_ids, lse, do)
+    return _launch_dq(ops, causal, sm_scale)
 
 
 def flash_dkv_cuda(q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
                    kv_segment_ids, lse, do, delta):
     """The dk/dv kernel (#6) alone, from the dq kernel's delta: (dk, dv), a
     GQA group's per-query-head outputs summed in f32."""
-    ops, do, lse = _backward_operands(q, k, v, bias, kv_mask, q_segment_ids,
-                                      kv_segment_ids, lse, do)
-    return _launch_dkv(ops, do, lse, delta, causal, sm_scale)
+    ops = _backward_operands(q, k, v, bias, kv_mask, q_segment_ids,
+                             kv_segment_ids, lse, do)
+    return _launch_dkv(ops, delta, causal, sm_scale)
 
 
 def flash_attention_backward(q, k, v, bias, kv_mask, causal, sm_scale,
                              q_segment_ids, kv_segment_ids, lse, do):
     """(dq, dk, dv) of ``flash_attention``: the dq kernel, then the dk/dv
-    kernel, on CUDA tensors (D in BACKWARD_HEAD_DIMS); the plain version on
-    CPU tensors."""
+    kernel, on CUDA tensors (D in BACKWARD_HEAD_DIMS), q, k, v and dO
+    through their strides and dq, dk, dv as (B, H, T, D) views of (B, T,
+    H, D) memory; the plain version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(
             q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
             kv_segment_ids, lse, do)
     if not q.is_cuda:
         raise NotImplementedError(f"flash_attention: no kernel for {q.device}")
-    # one checked, contiguous set of operands (autograd saves the
-    # head-transposed views) serves both kernels
-    ops, do, lse = _backward_operands(q, k, v, bias, kv_mask, q_segment_ids,
-                                      kv_segment_ids, lse, do)
-    dq, delta = _launch_dq(ops, do, lse, causal, sm_scale)
-    return (dq, *_launch_dkv(ops, do, lse, delta, causal, sm_scale))
+    ops = _backward_operands(q, k, v, bias, kv_mask, q_segment_ids,
+                             kv_segment_ids, lse, do)
+    dq, delta = _launch_dq(ops, causal, sm_scale)
+    return (dq, *_launch_dkv(ops, delta, causal, sm_scale))
 
 
 def _forward(q, k, v, bias, kv_mask, causal, sm_scale, q_segment_ids,
