@@ -208,19 +208,24 @@ def device_ms(fn, runs: int = 20) -> float:
     """Device milliseconds of ``fn`` per run: the kernels it launches, summed
     by torch.profiler over ``runs`` back-to-back runs. Unlike ``time_ms``
     this leaves out the host's time to enqueue them, which is longer than
-    the kernel for the small ones."""
+    the kernel for the small ones. A trace that caught no kernel at all
+    (seen now and then on an H100: 0.0000 ms) is taken again, up to three
+    times."""
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+    for _ in range(3):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            break
     return us / runs / 1e3
 
 
@@ -280,11 +285,12 @@ def phase_build():
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and entry:
             name = re.search(r"(flash_fwd_kernelILi\d+ELi\d+ELi\d|"
-                             r"rmsnorm_\w{1,48}|s8_gemm_kernel|"
+                             r"rmsnorm_\w{1,48}|s8_wgmma_kernelILi\d+ELi\d+E|"
+                             r"s8_split_sum|"
                              r"paged_decode_kernel|fused_sample_tiles|"
                              r"fused_sample_reduce|"
                              r"flash_bwd_d\w+?_kernelILi\d+E(?:Li\d)?|"
-                             r"s8_gemm_bwd_kernel|int8_gemv_kernelILi\d+ELb\d+ELb\d|"
+                             r"int8_gemv_kernelILi\d+ELb\d+ELb\d|"
                              r"int8_wide_\w+?_kernelILb\d|"
                              r"s8_gemm_qx_kernelILb\dELb\d)", entry)
             say("build", f"{name.group(1) if name else entry}: {m.group(1)} "
@@ -588,22 +594,43 @@ def flash_bwd_tile_sweep():
                 f"device {dev:.4f} ms, max|err| {err:.3g} of max|ref|")
 
 
-def kernel_ab(root: str = "."):
-    """Device and event ms of the flash forward (#1), RMSNorm (#3) and the
+def kernel_ab(root: str = ".",
+              parts=("flash", "rmsnorm", "flash_bwd", "s8")):
+    """Device and event ms of the flash forward (#1), RMSNorm (#3), the
     flash backward (#5 and #6 each, and ``flash_attention_backward``, both
-    at the training shapes, contiguous and in the T5 layout) at the kernel
-    table's shapes, through the package of the checkout at ``root``,
+    at the training shapes, contiguous and in the T5 layout) and the w8a8
+    GEMMs (#2, #7 at every ``s8_table_shapes`` shape, with the host time a
+    call, ``host_us``) at the kernel table's shapes, through the package of
+    the checkout at ``root``,
     so that two commits' kernels can be held against each other on one
     machine: unpack the other commit (``git archive``) into a git-ignored
     directory and alternate the two processes, e.g.
     ``python3 -c "import chip_smoke as c; c.phase_device(); c.kernel_ab('build/parent')"``
-    then ``c.kernel_ab('.')``, then again in the reverse order."""
+    then ``c.kernel_ab('.')``, then again in the reverse order. ``parts``
+    picks the kernels."""
     sys.path.insert(0, str(Path(root).resolve()))
     import thinkdiff_torch
-    from thinkdiff_torch.ops.flash_attention import flash_attention
-    from thinkdiff_torch.ops.norms import rmsnorm
 
     where = Path(thinkdiff_torch.__file__).resolve().parent.parent
+    if "s8" in parts:
+        for label, r, c, o, bwd in s8_table_shapes():
+            run = s8_case(r, c, o, bwd)[0]
+            say("ab", f"{where.name} {'s8_matmul_bwd' if bwd else 's8_matmul'}"
+                f" {label}: device {device_ms(run, runs=50):.4f} ms, event "
+                f"{time_ms(run):.4f} ms, host {host_us(run):.1f} us a call")
+            del run
+        torch.cuda.empty_cache()
+    if "flash" in parts:
+        kernel_ab_flash(where)
+    if "rmsnorm" in parts:
+        kernel_ab_rmsnorm(where)
+    if "flash_bwd" in parts:
+        kernel_ab_flash_bwd(where)
+
+
+def kernel_ab_flash(where):
+    from thinkdiff_torch.ops.flash_attention import flash_attention
+
     dec, enc = packed_segments()
     heads = lambda x, t: x.reshape(x.shape[0], t, -1, 64).transpose(1, 2)
     cases = []
@@ -649,13 +676,20 @@ def kernel_ab(root: str = "."):
         run = lambda: flash_attention(q, k, v, **kw)
         say("ab", f"{where.name} flash {label}: device "
             f"{device_ms(run, runs=50):.4f} ms, event {time_ms(run):.4f} ms")
-    del cases, q, k, v, qkv, kv
+
+
+def kernel_ab_rmsnorm(where):
+    from thinkdiff_torch.ops.norms import rmsnorm
+
     for r, d in ((256, 1536), (4096, 1536), (16, 3584), (2048, 3584),
                  (1024, 4096)):
         x, scale = randn((r, d), 9) * 3.0, randn((d,), 10)
         run = lambda: rmsnorm(x, scale, 1e-6)
         say("ab", f"{where.name} rmsnorm R{r} D{d}: device "
             f"{device_ms(run, runs=50):.4f} ms, event {time_ms(run):.4f} ms")
+
+
+def kernel_ab_flash_bwd(where):
     from thinkdiff_torch.ops import flash_attention as fa
 
     names = ("bias", "kv_mask", "causal", "sm_scale", "q_segment_ids",
@@ -674,35 +708,121 @@ def kernel_ab(root: str = "."):
                 f"{time_ms(run):.4f} ms")
 
 
-def kernels_s8(results):
-    from thinkdiff_torch.ops.int8_matmul import s8_matmul, s8_matmul_reference
+# the w8a8 projections of the 2B LM (serving) and of the 7B LM (lvlm-text):
+# (K, N, name)
+S8_2B = ((1536, 2048, "qkv"), (1536, 1536, "o"), (1536, 17920, "gate_up"),
+         (8960, 1536, "down"))
+S8_7B = ((3584, 4608, "qkv"), (3584, 3584, "o"), (3584, 37888, "gate_up"),
+         (18944, 3584, "down"))
+
+
+def s8_table_shapes():
+    """(label, rows, contraction, output columns, input gradient) of every
+    w8a8 call in PERF.md's table: the training projections forward and
+    backward, the 2B serving projections at R8, R256 and R4096, the 7B
+    decode at R16."""
+    shapes = []
+    for r, kk, n, proj in TRAIN_PROJECTIONS:
+        shapes.append((f"train {proj} R{r} K{kk} N{n}", r, kk, n, False))
+        shapes.append((f"train {proj} dx R{r} K{kk} N{n}", r, n, kk, True))
+    for r in (8, 256, 4096):
+        shapes += [(f"2B {proj} R{r} K{kk} N{n}", r, kk, n, False)
+                   for kk, n, proj in S8_2B]
+    shapes += [(f"7B {proj} R16 K{kk} N{n}", 16, kk, n, False)
+               for kk, n, proj in S8_7B]
+    return shapes
+
+
+def s8_case(r, c, o, bwd, seed=40):
+    """Seeded operands of a w8a8 call with an (r, o) output over a
+    contraction of c: (kernel, plain version, ``torch._int_mm`` + scales,
+    (bytes, operations, "int8")). Forward: xq (r, c), the weight (c, o) in
+    QDense's load-time layout. Input gradient: gq (r, c), the weight's (o,
+    c) row-major training copy."""
+    from thinkdiff_torch.ops.int8_matmul import (
+        s8_matmul, s8_matmul_bwd, s8_matmul_bwd_reference,
+        s8_matmul_reference)
     from thinkdiff_torch.ops.quant import _absmax_quant_rows, quantize_weight
 
+    aq, sa = _absmax_quant_rows(randn((r, c), seed + 1, torch.float32))
+    out = torch.empty((r, o), dtype=torch.bfloat16, device="cuda")
+    if bwd:
+        w = quantize_weight(randn((o, c), seed, torch.float32) * 0.02)["q"]
+        w_t = w.t().contiguous()
+        return (lambda: s8_matmul_bwd(aq, sa, w),
+                lambda: s8_matmul_bwd_reference(aq, sa, w),
+                lambda: (torch._int_mm(aq, w_t).float()
+                         * sa[:, None]).to(torch.bfloat16),
+                (nbytes(aq, sa, w, out), 2 * r * c * o, "int8"))
+    qw = quantize_weight(randn((c, o), seed, torch.float32) * 0.02)
+    w_rm, scale = qw["q"], qw["scale"]
+    w = w_rm.t().contiguous().t()  # QDense's load-time layout
+    return (lambda: s8_matmul(aq, sa, w, scale),
+            lambda: s8_matmul_reference(aq, sa, w, scale),
+            lambda: (torch._int_mm(aq, w_rm).float() * sa[:, None]
+                     * scale[None]).to(torch.bfloat16),
+            (nbytes(aq, sa, w, scale, out), 2 * r * c * o, "int8"))
+
+
+def s8_gemm_sweep(labels=None):
+    """The w8a8 kernel's plans (``s8_gemm_plan``) at ``s8_table_shapes``
+    (those whose label contains one of ``labels``, or all): device ms
+    (torch.profiler) of both tile widths at every split of the contraction
+    that leaves none empty, up to 16, at the deepest ring and at 3 stages,
+    each output checked identical to the plan's own, beside
+    ``torch._int_mm`` + scales. Run alone:
+    ``python3 -c "import chip_smoke as c; c.phase_device(); c.s8_gemm_sweep()"``."""
+    from unittest import mock
+
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, r, c, o, bwd in s8_table_shapes():
+        if labels and not any(x in label for x in labels):
+            continue
+        run, _, library, work = s8_case(r, c, o, bwd)
+        want = run()
+        chosen = im.s8_gemm_plan(r, c, o, sms)
+        steps = -(-c // im.S8_BLOCK_K)
+        say("sweep", f"s8 {label}: plan {chosen}, bound "
+            f"{bound_ms(*work)[0]:.4f} ms, _int_mm + scales device "
+            f"{device_ms(library) if r >= 32 else float('nan'):.4f} ms")
+        splits = sorted({-(-steps // -(-steps // z))
+                         for z in range(1, min(steps, 16) + 1)})
+        for bn in (128, 256):
+            deepest = max(st for st in range(2, im.S8_MAX_STAGES + 1)
+                          if im.s8_gemm_smem(chosen[0], bn, st)
+                          <= im.SMEM_LIMIT)
+            for stages in sorted({deepest, 3}):
+                for split in splits:
+                    cfg = (chosen[0], bn, stages, split)
+                    with mock.patch.object(im, "s8_gemm_plan",
+                                           lambda *a, c=cfg: c):
+                        same = torch.equal(run(), want)
+                        dev = device_ms(run)
+                    say("sweep", f"s8 {label} block_n {bn} stages {stages} "
+                        f"split {split}{' (plan)' if cfg == chosen else ''}: "
+                        f"device {dev:.4f} ms, "
+                        f"{'identical' if same else 'DIFFERS'}")
+        del run, library
+        torch.cuda.empty_cache()
+
+
+def kernels_s8(results):
     # every w8a8 projection of the 2B LM at the dense slice's decode (R=8),
-    # the paged slice's decode (R=256) and a 32 x 128 prefill chunk (R=4096)
-    for r in (8, 256, 4096):
-        for kk, n, proj in ((1536, 2048, "qkv"), (1536, 1536, "o"),
-                            (1536, 17920, "gate_up"), (8960, 1536, "down")):
-            xq, sx = _absmax_quant_rows(randn((r, kk), 7, torch.float32))
-            qw = quantize_weight(randn((kk, n), 8, torch.float32) * 0.02)
-            wq = qw["q"].t().contiguous().t()  # QDense's load-time layout
-            wq_rm = qw["q"].contiguous()
-            scale = qw["scale"]
-
-            def library(xq=xq, sx=sx, wq_rm=wq_rm, scale=scale):
-                acc = torch._int_mm(xq, wq_rm)
-                return (acc.float() * sx[:, None] * scale[None]).to(
-                    torch.bfloat16)
-
-            y = torch.empty((r, n), dtype=torch.bfloat16, device="cuda")
-            results.append(check(
-                "s8_matmul", f"{proj} R{r} K{kk} N{n}",
-                lambda xq=xq, sx=sx, wq=wq, s=scale: s8_matmul(xq, sx, wq, s),
-                lambda xq=xq, sx=sx, wq=wq, s=scale: s8_matmul_reference(
-                    xq, sx, wq, s),
-                lambda e, ref: e <= bf16_ulp(ref), "1 bf16 ulp",
-                (nbytes(xq, sx, wq, scale, y), 2 * r * kk * n, "int8"),
-                library=library if r >= 32 else None))
+    # the paged slice's decode (R=256) and a 32 x 128 prefill chunk
+    # (R=4096), and of the 7B LM at lvlm-text's decode (R=16) and prefill
+    # (R=2048)
+    for model, rows, projs in (("2B", (8, 256, 4096), S8_2B),
+                               ("7B", (16, 2048), S8_7B)):
+        for r in rows:
+            for kk, n, proj in projs:
+                run, plain, library, work = s8_case(r, kk, n, False, seed=7)
+                results.append(check(
+                    "s8_matmul", f"{model} {proj} R{r} K{kk} N{n}", run, plain,
+                    lambda e, ref: e <= bf16_ulp(ref), "1 bf16 ulp", work,
+                    library=library if r >= 32 else None))
+                del run, plain, library
 
 
 def kernels_rmsnorm(results):
@@ -971,42 +1091,22 @@ TRAIN_PROJECTIONS = ((1024, 4096, 12288, "qkv"),
 
 
 def kernels_s8_train(results):
-    from thinkdiff_torch.ops.int8_matmul import (
-        s8_matmul, s8_matmul_bwd, s8_matmul_bwd_reference,
-        s8_matmul_reference)
-    from thinkdiff_torch.ops.quant import _absmax_quant_rows, quantize_weight
-
     # every w8a8 projection of the xxl decoder at the packed batch's 1024
     # rows, the lm_head at a CE chunk's 512 rows: forward (#2) and input
-    # gradient (#7), each identical to its float64 plain version
+    # gradient (#7, identical to its float64 plain version)
     for r, kk, n, proj in TRAIN_PROJECTIONS:
-        qw = quantize_weight(randn((kk, n), 40, torch.float32) * 0.02)
-        w_kn = qw["q"]                              # (K, N) row-major
-        w_view = w_kn.t().contiguous().t()          # QDense's forward layout
-        w_nk = w_kn.t().contiguous()
-        scale = qw["scale"]
-        xq, sx = _absmax_quant_rows(randn((r, kk), 41, torch.float32))
-        gq, sg = _absmax_quant_rows(randn((r, n), 42, torch.float32))
-        y = torch.empty((r, n), dtype=torch.bfloat16, device="cuda")
-        dx = torch.empty((r, kk), dtype=torch.bfloat16, device="cuda")
         main = proj == "wi_fused"
+        run, plain, library, work = s8_case(r, kk, n, False)
         results["s8_matmul"].append(check(
-            "s8_matmul", f"train {proj} R{r} K{kk} N{n}",
-            lambda: s8_matmul(xq, sx, w_view, scale),
-            lambda: s8_matmul_reference(xq, sx, w_view, scale),
-            lambda e, ref: e <= bf16_ulp(ref), "1 bf16 ulp",
-            (nbytes(xq, sx, w_kn, scale, y), 2 * r * kk * n, "int8"),
-            library=lambda: (torch._int_mm(xq, w_kn).float() * sx[:, None]
-                             * scale[None]).to(torch.bfloat16), main=main))
+            "s8_matmul", f"train {proj} R{r} K{kk} N{n}", run, plain,
+            lambda e, ref: e <= bf16_ulp(ref), "1 bf16 ulp", work,
+            library=library, main=main))
+        run, plain, library, work = s8_case(r, n, kk, True)
         results["s8_matmul_bwd"].append(check(
-            "s8_matmul_bwd", f"{proj} R{r} K{kk} N{n}",
-            lambda: s8_matmul_bwd(gq, sg, w_kn),
-            lambda: s8_matmul_bwd_reference(gq, sg, w_kn),
-            lambda e, ref: e == 0, "identical",
-            (nbytes(gq, sg, w_kn, dx), 2 * r * kk * n, "int8"),
-            library=lambda: (torch._int_mm(gq, w_nk).float()
-                             * sg[:, None]).to(torch.bfloat16), main=main))
-        del w_kn, w_view, w_nk, qw
+            "s8_matmul_bwd", f"{proj} R{r} K{kk} N{n}", run, plain,
+            lambda e, ref: e == 0, "identical", work, library=library,
+            main=main))
+        del run, plain, library
 
 
 def kernels_rmsnorm_train(results):

@@ -171,20 +171,66 @@ def test_flash_attention_kernel_rejects_what_tma_cannot_take(cuda):
         flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize("r,k,n", [(1, 64, 16), (8, 1536, 2048),
-                                   (300, 8960, 1536), (130, 1536, 17920)])
+# (R, K, N) of the w8a8 forward: ragged R (1, 17, 65, 333), K and N that
+# are not multiples of the 128-byte K slice or of the tile (4112, 9872,
+# 32128), every shape whose plan splits the contraction (the serving R256
+# and dense R8 down, the 7B R16 down) and the 7B R16 qkv
+S8_FWD_SHAPES = [(1, 64, 16), (8, 1536, 2048), (300, 8960, 1536),
+                 (130, 1536, 17920), (1, 4096, 4096), (17, 4112, 1536),
+                 (65, 4096, 9872), (333, 4112, 4096), (512, 4096, 32128),
+                 (256, 8960, 1536), (16, 18944, 3584), (8, 8960, 1536),
+                 (16, 3584, 4608)]
+
+
+@pytest.mark.parametrize("r,k,n", S8_FWD_SHAPES)
 def test_s8_matmul_kernel_exact(cuda, r, k, n):
     """Exact int32 sums and the same f32 epilogue: within 1 bf16 ulp (in
-    practice equal) of the float64 plain version."""
+    practice equal) of the float64 plain version, in one launch whatever
+    the plan's split."""
     x = _randn((r, k), 4, cuda, torch.float32)
     w = _randn((k, n), 5, cuda, torch.float32) * 0.02
     xq, sx = _absmax_quant_rows(x)
     qw = quantize_weight(w)
+    before = kernels.launch_counts()["s8_matmul"]
     out = s8_matmul(xq, sx, qw["q"], qw["scale"])
     torch.cuda.synchronize()
+    assert kernels.launch_counts()["s8_matmul"] == before + 1
     ref = s8_matmul_reference(xq, sx, qw["q"], qw["scale"])
     err = (out.float() - ref.float()).abs()
     assert (err <= _bf16_ulp(ref)).all(), float(err.max())
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("r,k,n", [(256, 8960, 1536), (16, 18944, 3584),
+                                   (65, 4112, 9872)])
+def test_s8_split_gives_the_bits_of_no_split(cuda, monkeypatch, bwd, r, k, n):
+    """Every split of the contraction (the plan's, none, and others, ring
+    depths 2 and the deepest) and both tile widths give the same bits."""
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    xq, sx = _absmax_quant_rows(_randn((r, k), 6, cuda, torch.float32))
+    w = quantize_weight(_randn((k, n), 7, cuda, torch.float32))
+    plan = im.s8_gemm_plan
+    if bwd:  # contraction over k: gq (R, k), the weight (n, k) row-major
+        w_nk = w["q"].t().contiguous()
+        run = lambda: im.s8_matmul_bwd(xq, sx, w_nk)
+    else:
+        run = lambda: im.s8_matmul(xq, sx, w["q"], w["scale"])
+    bm, _, _, chosen = plan(r, k, n)  # (rows, contraction, columns) both ways
+    ref = run()
+    outs = []
+    for bn in (128, 256):
+        for split in sorted({1, 2, 5, chosen}):
+            for stages in (2, max(s for s in range(2, 9)
+                                  if im.s8_gemm_smem(bm, bn, s)
+                                  <= im.SMEM_LIMIT)):
+                monkeypatch.setattr(im, "s8_gemm_plan", lambda *a, c=(
+                    bm, bn, stages, split): c)
+                outs.append(run())
+    monkeypatch.setattr(im, "s8_gemm_plan", plan)
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out, ref)
 
 
 def test_s8_matmul_kernel_rejects_unaligned_k(cuda):
@@ -484,12 +530,16 @@ def test_flash_backward_pad_rows_add_exactly_nothing(cuda):
     assert err.max() <= 3e-5, float(err.max())
 
 
-@pytest.mark.parametrize("r,k,n", [(1, 64, 16), (333, 4096, 4096),
-                                   (130, 4096, 16 * 617), (512, 4096, 32128)])
+@pytest.mark.parametrize("r,k,n", [
+    (1, 64, 16), (333, 4096, 4096), (130, 4096, 16 * 617), (512, 4096, 32128),
+    (17, 4104, 1536), (65, 4112, 4096), (1, 4096, 20480), (1024, 4096, 20480),
+    (256, 1536, 8960), (16, 3584, 18944)])
 def test_s8_matmul_bwd_kernel_identical(cuda, r, k, n):
     """Exact int32 sums and the same f32 epilogue, rounded to bf16 once:
-    identical to the float64 plain version (odd R; N = 9872 and 32128 are
-    not multiples of 128)."""
+    identical to the float64 plain version, in one launch (ragged R; K =
+    4104, 4112 and N = 9872, 32128 not multiples of the tile; the
+    contraction of the lm_head chunk and wi_fused; the split shapes N 8960
+    at R256 and N 18944 at R16)."""
     from thinkdiff_torch.ops.int8_matmul import (
         s8_matmul_bwd, s8_matmul_bwd_reference)
 

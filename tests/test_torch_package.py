@@ -141,24 +141,37 @@ def test_kernel_build_inputs():
                      "int8_gemv.cu", "int8_wide.cu", "paged_decode.cu",
                      "rmsnorm.cu", "s8_gemm.cu", "s8_gemm_bwd.cu",
                      "s8_gemm_qx.cu"]
-    # the int8 tile is one header shared by the GEMMs and the fused sampler,
-    # the bf16 mma step one shared by the mma.sync kernels, the Hopper PTX
-    # (TMA, mbarriers, wgmma) the flash kernels'; an edit to any names a
-    # new library
+    # the mma.sync int8 tile is one header shared by the fused sampler and
+    # the quantize-in-kernel GEMM, the bf16 mma step one shared by the
+    # mma.sync kernels, the Hopper PTX (TMA, mbarriers, wgmma) the flash
+    # kernels' and the w8a8 GEMMs', whose one kernel is s8_wgmma.cuh; an
+    # edit to any names a new library
     assert [p.name for p in _build.headers()] == ["bf16_mma.cuh",
                                                   "hopper.cuh",
-                                                  "s8_tile.cuh"]
-    for name in ("fused_sample.cu", "s8_gemm.cu", "s8_gemm_bwd.cu",
-                 "s8_gemm_qx.cu"):
+                                                  "s8_tile.cuh",
+                                                  "s8_wgmma.cuh"]
+    for name in ("fused_sample.cu", "s8_gemm_qx.cu"):
         assert '#include "s8_tile.cuh"' in (_build.CSRC / name).read_text()
     for name in ("int8_gemv.cu", "int8_wide.cu"):
         assert '#include "bf16_mma.cuh"' in (_build.CSRC / name).read_text()
     hopper = (_build.CSRC / "hopper.cuh").read_text()
-    # the forward and the backward multiply with wgmma on tiles that TMA
-    # copies into an mbarrier ring
-    for op in ("wgmma.mma_async", "cp.async.bulk.tensor",
-               "mbarrier.try_wait.parity"):
+    # the flash forward and backward and the w8a8 GEMMs multiply with wgmma
+    # (bf16 -> f32, s8 -> s32) on tiles that TMA copies into an mbarrier
+    # ring
+    for op in ("wgmma.mma_async", ".s32.s8.s8", "cp.async.bulk.tensor",
+               "mbarrier.try_wait.parity", "CU_TENSOR_MAP_DATA_TYPE_UINT8"):
         assert op in hopper
+    # #2 and #7: the s8 wgmma on a TMA ring, no mma.sync tile
+    s8 = (_build.CSRC / "s8_wgmma.cuh").read_text()
+    assert '#include "hopper.cuh"' in s8 and "mma.sync" not in s8
+    for call in ("wgmma_s8<", "tma_load_4d(", "mbar_wait(", "map_s8_2d("):
+        assert call in s8
+    for name in ("s8_gemm.cu", "s8_gemm_bwd.cu"):
+        src = (_build.CSRC / name).read_text()
+        assert '#include "hopper.cuh"' in src
+        assert '#include "s8_wgmma.cuh"' in src
+        assert "s8_tile.cuh" not in src and "mma.sync" not in src
+        assert "s8_wgmma(" in src
     for name in ("flash_fwd.cu", "flash_bwd.cu"):
         src = (_build.CSRC / name).read_text()
         assert '#include "hopper.cuh"' in src

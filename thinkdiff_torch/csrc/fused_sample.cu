@@ -13,7 +13,7 @@
 // bytes, 236 MB for the 2B pack: ~70 us at 3.35 TB/s) and the int8 products
 // (2 B D Vp = 121 G ops: ~61 us at 1,979 TOP/s) are near the limit; the
 // (B, Vp) logits never leave registers.
-// Design: pass 1 is the int8 tile of s8_tile.cuh, shared with s8_gemm.cu
+// Design: pass 1 is the int8 tile of s8_tile.cuh, shared with s8_gemm_qx.cu
 // (128 x 128 tiles, 8 warps of mma.sync m16n8k32 s8 x s8 -> s32, W read
 // K-contiguous from the pack's (Vp, D) storage) with an argmax epilogue:
 // each element gets the

@@ -1,6 +1,7 @@
 // Hopper building blocks as raw PTX, for the flash-attention forward
-// (flash_fwd.cu) and backward (flash_bwd.cu): mbarriers, TMA tile copies
-// into shared memory, the warpgroup matrix multiply (wgmma) with its
+// (flash_fwd.cu) and backward (flash_bwd.cu) and the w8a8 GEMMs
+// (s8_wgmma.cuh): mbarriers, TMA tile copies into shared memory, the
+// warpgroup matrix multiply (wgmma, bf16 -> f32 and s8 -> s32) with its
 // shared-memory descriptors, and on the host the 4-D tensor maps that TMA
 // reads through. sm_90a only (wgmma and setmaxnreg do not exist on plain
 // sm_90).
@@ -90,6 +91,42 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap,
 __device__ __forceinline__ void tma_prefetch_desc(const void* tmap) {
   asm volatile("prefetch.tensormap [%0];\n"
                :: "l"(reinterpret_cast<uint64_t>(tmap)) : "memory");
+}
+
+// shared -> global tile copy, in the bulk group of the issuing thread
+__device__ __forceinline__ void tma_store_4d(const void* tmap, const void* src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N bulk groups of this thread still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// wait until at most N bulk groups of this thread are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// make this thread's shared-memory writes visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // ---- wgmma ----------------------------------------------------------------
@@ -257,6 +294,93 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else wgmma_rs_m64n128(d, a, desc_b, scale_d);
 }
 
+// ---- int8 wgmma (the w8a8 GEMMs, s8_wgmma.cuh) ----------------------------
+
+// keep the compiler from moving accesses of int32 accumulator registers
+// across the asynchronous multiply that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// D += A B (A and B int8 from shared memory, both K-major, 128B swizzle):
+// m64nNk32, s8 x s8 -> s32, exact; scale_d = 0 overwrites D. A k32 step is
+// +32 B within the 128-byte row, as a bf16 k16 step. The accumulator
+// layout is the f32 one above.
+__device__ __forceinline__ void wgmma_s8_m64n128(int (&d)[64], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n256(int (&d)[128], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, %128, %129, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 128 || N == 256, "wgmma_s8: N in {128, 256}");
+  if constexpr (N == 128) wgmma_s8_m64n128(d, desc_a, desc_b, scale_d);
+  else wgmma_s8_m64n256(d, desc_a, desc_b, scale_d);
+}
+
 // hand registers from the producer warpgroup to the consumers (all four
 // warps of a warpgroup execute it together)
 template <int REGS>
@@ -383,6 +507,16 @@ inline int map_bias_4d(CUtensorMap* m, const void* bias, int B, int H, int Tq,
   const long long strides[3] = {sb[2], sb[1], sb[0]};
   return map_4d(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bias, dims, strides, 32,
                 rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// An int8 (rows, cols) row-major matrix (cols a multiple of 16), in boxes
+// of 128 columns (bytes) x `box_rows` rows with the 128-byte swizzle. TMA
+// has no signed 8-bit type: UINT8 copies the bytes as they are.
+inline int map_s8_2d(CUtensorMap* m, const void* base, int rows, int cols,
+                     int box_rows) {
+  const long long dims[4] = {cols, rows, 1, 1}, strides[3] = {cols, 0, 0};
+  return map_4d(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, dims, strides, 128,
+                box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace

@@ -1,14 +1,15 @@
-// The int8 tensor-core tile shared by the w8a8 GEMMs (s8_gemm.cu,
-// s8_gemm_bwd.cu, s8_gemm_qx.cu) and the fused lm_head sampler
-// (fused_sample.cu): a 128 x 128 int32 block of A @ B^T for int8 A (rows, K)
-// and B (cols, K), both K-contiguous, so each kernel keeps only its own
-// epilogue (and, for s8_gemm_qx.cu, its own A loader).
+// The int8 tensor-core tile of the fused lm_head sampler (fused_sample.cu,
+// #8) and the quantize-in-kernel w8a8 GEMM (s8_gemm_qx.cu, #12): a 128 x
+// 128 int32 block of A @ B^T for int8 A (rows, K) and B (cols, K), both
+// K-contiguous, so each kernel keeps only its own epilogue (and, for
+// s8_gemm_qx.cu, its own A loader). The w8a8 GEMMs #2 and #7 moved to
+// wgmma on a TMA ring (s8_wgmma.cuh).
 //
 // 8 warps of mma.sync m16n8k32 s8 x s8 -> s32, so the products run on the
 // tensor cores and the int32 sum is exact (no f32 rounding of partial sums:
 // K=8960 x 127^2 exceeds f32's 2^24). A 16-byte vector load fills a smem
-// row and each mma fragment is one 32-bit smem read. Later work: cp.async/TMA
-// double buffering and wgmma for the prefill rate.
+// row and each mma fragment is one 32-bit smem read. Later work: the
+// s8_wgmma.cuh design for these two as well.
 #pragma once
 
 #include <stdint.h>

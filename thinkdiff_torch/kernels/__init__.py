@@ -29,8 +29,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "thinkdiff_s8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "thinkdiff_s8_gemm_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "thinkdiff_s8_gemm": [_P] * 6 + [_I] * 7 + [_P],
+    "thinkdiff_s8_gemm_bwd": [_P] * 5 + [_I] * 7 + [_P],
     "thinkdiff_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LP, _LP,
                             _F, _P],
     "thinkdiff_flash_bwd_dq": [_P] * 11 + [_LP, _LP, _F, _P],

@@ -9,6 +9,9 @@ which holds every int32 sum exactly, so the kernels equal them on the card):
                      (``_s8_matmul_fused_bwd``, csrc/s8_gemm_bwd.cu)
   ``s8_matmul_qx``   s8_matmul with x quantized per row inside the kernel
                      (``_s8_matmul_fused_qx``, csrc/s8_gemm_qx.cu)
+``s8_matmul`` and ``s8_matmul_bwd`` run one kernel (csrc/s8_wgmma.cuh: s8
+wgmma on a TMA ring), whose tiles and split of the contraction
+``s8_gemm_plan`` picks from the shapes.
 weight-only int8 (x float, f32 accumulation):
   ``int8_matmul``       y = out(f32(x) @ f32(w_q) * scale), R <= 32 rows a
                         launch (``int8_matmul``, csrc/int8_gemv.cu)
@@ -28,6 +31,7 @@ import functools
 import torch
 
 from thinkdiff_torch import kernels
+from thinkdiff_torch.ops.flash_attention import SMEM_LIMIT
 
 # the weight-only GEMV takes R <= GEMV_ROWS rows a launch (two m16 tiles)
 GEMV_ROWS = 32
@@ -60,6 +64,69 @@ def _aligned(name, *named):
             raise ValueError(f"{name} kernel: {label} is not 16-byte aligned")
 
 
+# the w8a8 kernel's plan (csrc/s8_wgmma.cuh)
+S8_BLOCK_K = 128     # bytes of the contraction a ring stage holds
+S8_MAX_STAGES = 8
+S8_MAX_SPLIT = 16
+# fixed costs in the plan's unit, the time of one K slice of a 128-column
+# tile (~0.28 us on an H100): a work unit's (ring fill, epilogue), and a
+# split's: the int32 workspace's round trip and the second kernel on the
+# card (~3 us), the workspace's allocation and the second launch on the
+# host (~15 us), which counts because every split shape of the repository
+# sits on a decode path that waits on the host (PERF.md)
+S8_UNIT_COST = 2
+S8_SPLIT_COST = 48
+
+
+def s8_gemm_smem(block_m: int, block_n: int, stages: int) -> int:
+    """Shared memory of the kernel: ``stages`` (A, B) stages of 128-byte K
+    slices, the bf16 output tile, the stages' full and empty barriers, 1024
+    bytes of alignment."""
+    return (stages * (block_m + block_n) * S8_BLOCK_K + block_m * block_n * 2
+            + 2 * stages * 8 + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def s8_gemm_plan(r: int, k: int, n: int, sms: int = 132) -> tuple:
+    """(block_m, block_n, stages, split) of the w8a8 kernel for an (r, n)
+    output over a contraction of k, from the shapes alone: 64 rows a tile
+    (one consumer warpgroup) at r <= 64, else 128 (two); 128 or 256
+    columns; the contraction cut into ``split`` ranges of K slices (none
+    empty) only where the tiles alone are short of a wave of ``sms`` SMs.
+    Of those, the one whose busiest SM takes the least time, counted as
+    waves x (K slices a unit + S8_UNIT_COST) x block_n / 128, plus
+    S8_SPLIT_COST with a split; ties go to fewer splits, then the wider
+    tile. As deep a ring as fits in shared memory (2-8)."""
+    bm = 64 if r <= 64 else 128
+    steps = -(-k // S8_BLOCK_K)
+    best = None
+    for bn in (256, 128):
+        units = -(-r // bm) * -(-n // bn)
+        for split in (range(1, min(steps, S8_MAX_SPLIT) + 1) if units < sms
+                      else (1,)):
+            per = -(-steps // split)
+            split = -(-steps // per)  # no empty split
+            cost = (-(-units * split // sms) * (per + S8_UNIT_COST) * bn
+                    // 128 + (S8_SPLIT_COST if split > 1 else 0))
+            if best is None or (cost, split, -bn) < best[0]:
+                best = ((cost, split, -bn), bn, split)
+    _, bn, split = best
+    stages = max(s for s in range(2, S8_MAX_STAGES + 1)
+                 if s8_gemm_smem(bm, bn, s) <= SMEM_LIMIT)
+    return bm, bn, stages, split
+
+
+def _s8_outputs(a, rows, k, cols):
+    """The plan of a w8a8 kernel call with an (rows, cols) output over a
+    contraction of k, its bf16 output, and its split's int32 workspace
+    (None without a split)."""
+    plan = s8_gemm_plan(rows, k, cols, _sm_count(a.device.index or 0))
+    out = torch.empty((rows, cols), dtype=torch.bfloat16, device=a.device)
+    ws = (torch.empty((plan[3], rows, cols), dtype=torch.int32,
+                      device=a.device) if plan[3] > 1 else None)
+    return plan, out, ws
+
+
 def _s8_matmul_cuda(xq, sx, w_q, scale, out_dtype):
     r, k = xq.shape
     k2, n = w_q.shape
@@ -79,10 +146,11 @@ def _s8_matmul_cuda(xq, sx, w_q, scale, out_dtype):
     sx = sx.float().contiguous()
     scale = scale.float().contiguous()
     _aligned("s8_matmul", ("xq", xq), ("w_q", wt))
-    y = torch.empty((r, n), dtype=torch.bfloat16, device=xq.device)
+    plan, y, ws = _s8_outputs(xq, r, k, n)
     rc = kernels.library().thinkdiff_s8_gemm(
         kernels.ptr(xq), kernels.ptr(sx), kernels.ptr(wt), kernels.ptr(scale),
-        kernels.ptr(y), r, k, n, kernels.stream_of(xq))
+        kernels.ptr(y), kernels.ptr(ws), r, k, n, *plan,
+        kernels.stream_of(xq))
     kernels.check_launch(rc, "s8_matmul")
     kernels.count_launch("s8_matmul")
     return y
@@ -107,9 +175,10 @@ def _s8_matmul_bwd_cuda(gq, sg, w_q, out_dtype):
         raise TypeError("s8_matmul_bwd kernel takes int8 gq and w_q")
     if out_dtype != torch.bfloat16:
         raise TypeError("s8_matmul_bwd kernel writes bf16")
-    if n % 16 or k % 2:
+    if n % 16 or k % 8:
+        # K % 8: dx's rows start 16-byte aligned, as TMA stores them
         raise ValueError(f"s8_matmul_bwd kernel: N={n} must be a multiple of "
-                         f"16 and K={k} even")
+                         f"16 and K={k} of 8")
     if not w_q.is_contiguous():
         # copying the whole weight on every backward would hide a missing
         # training layout: the caller keeps the copy, made once at load
@@ -118,10 +187,10 @@ def _s8_matmul_bwd_cuda(gq, sg, w_q, out_dtype):
     gq, w = gq.contiguous(), w_q
     sg = sg.float().contiguous()
     _aligned("s8_matmul_bwd", ("gq", gq), ("w_q", w))
-    dx = torch.empty((r, k), dtype=torch.bfloat16, device=gq.device)
+    plan, dx, ws = _s8_outputs(gq, r, n, k)
     rc = kernels.library().thinkdiff_s8_gemm_bwd(
         kernels.ptr(gq), kernels.ptr(sg), kernels.ptr(w), kernels.ptr(dx),
-        r, k, n, kernels.stream_of(gq))
+        kernels.ptr(ws), r, k, n, *plan, kernels.stream_of(gq))
     kernels.check_launch(rc, "s8_matmul_bwd")
     kernels.count_launch("s8_matmul_bwd")
     return dx
