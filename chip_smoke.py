@@ -25,8 +25,10 @@ non-zero:
                 GQA D=128 case, with the forward's lse; the s8 input
                 gradient on every projection; the weight-only GEMV on every
                 flan-t5-xxl layer shape at 1, 8 and 32 rows; the wide
-                weight-only GEMM and its input gradient, and the
-                quantize-in-kernel s8 GEMM, at 1024 rows;
+                weight-only GEMM and its input gradient at the flan-t5-xxl
+                FFN's 1024 rows, at lvlm-text's kv_fused shape (411 rows,
+                beside the port's bf16-copy route there), in f32 and at 33
+                rows; the quantize-in-kernel s8 GEMM at 1024 rows;
   4. train-w8a8 — the LVLM aligner's training step: configs/
                 train_thinkdiff_lvlm_ccsbu.yaml's model and run sections with
                 bench.py's overrides (w8a8 frozen flan-t5-xxl decoder at full
@@ -291,7 +293,7 @@ def phase_build():
                              r"fused_sample_reduce|"
                              r"flash_bwd_d\w+?_kernelILi\d+E(?:Li\d)?|"
                              r"int8_gemv_kernelILi\d+ELb\d+ELb\d|"
-                             r"int8_wide_\w+?_kernelILb\d|"
+                             r"int8_wide_kernelILi\d+ELi\dELb\dELb\dELb\d|"
                              r"s8_gemm_qx_kernelILb\dELb\d)", entry)
             say("build", f"{name.group(1) if name else entry}: {m.group(1)} "
                 f"registers, {m.group(2) or 0} B static smem, {stack} B "
@@ -595,12 +597,14 @@ def flash_bwd_tile_sweep():
 
 
 def kernel_ab(root: str = ".",
-              parts=("flash", "rmsnorm", "flash_bwd", "s8")):
+              parts=("flash", "rmsnorm", "flash_bwd", "s8", "wide")):
     """Device and event ms of the flash forward (#1), RMSNorm (#3), the
     flash backward (#5 and #6 each, and ``flash_attention_backward``, both
     at the training shapes, contiguous and in the T5 layout) and the w8a8
     GEMMs (#2, #7 at every ``s8_table_shapes`` shape, with the host time a
-    call, ``host_us``) at the kernel table's shapes, through the package of
+    call, ``host_us``) and the weight-only wide GEMMs (#10, #11 at every
+    ``WIDE_TABLE`` shape, beside the one-call library route) at the kernel
+    table's shapes, through the package of
     the checkout at ``root``,
     so that two commits' kernels can be held against each other on one
     machine: unpack the other commit (``git archive``) into a git-ignored
@@ -619,6 +623,16 @@ def kernel_ab(root: str = ".",
                 f" {label}: device {device_ms(run, runs=50):.4f} ms, event "
                 f"{time_ms(run):.4f} ms, host {host_us(run):.1f} us a call")
             del run
+        torch.cuda.empty_cache()
+    if "wide" in parts:
+        for label, r, kk, n, bwd in WIDE_TABLE:
+            run, _, library, _ = wide_case(r, kk, n, bwd)
+            op = "int8_matmul_wide_bwd" if bwd else "int8_matmul_wide_fwd"
+            say("ab", f"{where.name} {op} {label}: device "
+                f"{device_ms(run, runs=50):.4f} ms, event {time_ms(run):.4f} "
+                f"ms; library device {device_ms(library, runs=50):.4f} ms, "
+                f"event {time_ms(library):.4f} ms")
+            del run, library
         torch.cuda.empty_cache()
     if "flash" in parts:
         kernel_ab_flash(where)
@@ -1165,34 +1179,98 @@ def kernels_int8_gemv(results):
         del w
 
 
-def kernels_int8_wide(results):
+# the wide weight-only GEMM's shapes: (label, rows, K, N, input gradient,
+# dtype). The flan-t5-xxl FFN at bench.py's 1024 training rows, forward
+# and input gradient; lvlm-text's cross-attention kv_fused over the 411
+# conditioning rows, the forward a weight-only QDense above 32 rows could
+# route to #10 (today a bf16 copy of the weight and torch.matmul)
+WIDE_TABLE = (("wi R1024 K4096 N10240", 1024, 4096, 10240, False),
+              ("wo R1024 K10240 N4096", 1024, 10240, 4096, False),
+              ("wi dx R1024 K4096 N10240", 1024, 4096, 10240, True),
+              ("wo dx R1024 K10240 N4096", 1024, 10240, 4096, True),
+              ("kv_fused R411 K4096 N8192", 411, 4096, 8192, False))
+
+
+def wide_case(r, kk, n, bwd, dtype=torch.bfloat16, seed=62):
+    """Seeded operands of a wide weight-only call (the weight in QDense's
+    layout): (kernel, plain version, one PyTorch call of the same function
+    (the port's current route above 32 rows for the forward: a bf16 copy
+    of the weight, torch.matmul, the scale), (bytes, operations, "bf16"))."""
     from thinkdiff_torch.ops import int8_matmul as im
 
-    # the flan-t5-xxl FFN at bench.py's 1024 training rows: forward and
-    # input gradient; the plain versions round x and g * scale to bf16 as
-    # the kernels do. Tolerance 2e-2 of max|ref|, the JAX test's
-    tol = "2e-2 max|ref| (the JAX test's)"
-    for kk, n, proj in ((4096, 10240, "wi"), (10240, 4096, "wo")):
-        w, s = int8_weight(kk, n, 62)
-        x, g = randn((1024, kk), 63), randn((1024, n), 64)
-        main = proj == "wi"
-        results["int8_matmul_wide_fwd"].append(check(
-            "int8_matmul_wide_fwd", f"{proj} R1024 K{kk} N{n}",
-            lambda: im.int8_matmul_wide_fwd(x, w, s),
+    w, s = int8_weight(kk, n, seed)
+    if bwd:
+        g = randn((r, n), seed + 2, dtype)
+        return (lambda: im.int8_matmul_wide_bwd(g, w, s, dtype),
+                lambda: im.int8_matmul_wide_bwd_reference(g, w, s, dtype),
+                lambda: torch.matmul((g.float() * s).to(torch.bfloat16),
+                                     w.to(torch.bfloat16).t()).to(dtype),
+                (kk * n + nbytes(g, s) + r * kk * g.element_size(),
+                 2 * r * kk * n, "bf16"))
+    x = randn((r, kk), seed + 1, dtype)
+    return (lambda: im.int8_matmul_wide_fwd(x, w, s),
             lambda: im.int8_matmul_wide_fwd_reference(x, w, s),
-            lambda e, ref: e <= 2e-2 * ref.abs().max(), tol,
-            (kk * n + nbytes(x, s) + 1024 * n * 2, 2 * 1024 * kk * n, "bf16"),
-            library=lambda: torch.matmul(x, w.to(torch.bfloat16)) * s.to(
-                torch.bfloat16), main=main))
-        results["int8_matmul_wide_bwd"].append(check(
-            "int8_matmul_wide_bwd", f"{proj} R1024 K{kk} N{n}: dx over N",
-            lambda: im.int8_matmul_wide_bwd(g, w, s, torch.bfloat16),
-            lambda: im.int8_matmul_wide_bwd_reference(g, w, s, torch.bfloat16),
-            lambda e, ref: e <= 2e-2 * ref.abs().max(), tol,
-            (kk * n + nbytes(g, s) + 1024 * kk * 2, 2 * 1024 * kk * n, "bf16"),
-            library=lambda: torch.matmul((g.float() * s).to(torch.bfloat16),
-                                         w.to(torch.bfloat16).t()), main=main))
-        del w
+            lambda: (torch.matmul(x.to(torch.bfloat16), w.to(torch.bfloat16))
+                     * s.to(torch.bfloat16)).to(dtype),
+            (kk * n + nbytes(x, s) + r * n * x.element_size(),
+             2 * r * kk * n, "bf16"))
+
+
+def kernels_int8_wide(results):
+    # the plain versions round x and g * scale to bf16 as the kernels do.
+    # Tolerance 2e-2 of max|ref|, the JAX test's. Beside the table: f32 in
+    # and out, and a ragged row count
+    tol = "2e-2 max|ref| (the JAX test's)"
+    cases = [(label, r, kk, n, bwd, torch.bfloat16)
+             for label, r, kk, n, bwd in WIDE_TABLE]
+    cases += [("f32 R256 K4096 N4096", 256, 4096, 4096, False, torch.float32),
+              ("f32 dx R256 K4096 N4096", 256, 4096, 4096, True, torch.float32),
+              ("R33 K4096 N10240", 33, 4096, 10240, False, torch.bfloat16),
+              ("dx R33 K4096 N10240", 33, 4096, 10240, True, torch.bfloat16)]
+    for label, r, kk, n, bwd, dtype in cases:
+        run, plain, library, work = wide_case(r, kk, n, bwd, dtype)
+        name = "int8_matmul_wide_bwd" if bwd else "int8_matmul_wide_fwd"
+        results[name].append(check(
+            name, label, run, plain,
+            lambda e, ref: e <= 2e-2 * ref.abs().max(), tol, work,
+            library=library, main=label.startswith("wi ")
+            or label.startswith("wi dx")))
+        del run, plain, library
+    torch.cuda.empty_cache()
+
+
+def wide_sweep():
+    """The wide kernel's plans at ``WIDE_TABLE``'s shapes: device ms
+    (torch.profiler) of both tile widths at every ring depth that fits,
+    each output checked identical to the plan's own, beside the bound and
+    the one-call library route. Run alone:
+    ``python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build(); c.wide_sweep()"``."""
+    from unittest import mock
+
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, r, kk, n, bwd in WIDE_TABLE:
+        run, _, library, work = wide_case(r, kk, n, bwd)
+        want = run()
+        c, o = (n, kk) if bwd else (kk, n)
+        chosen = im.wide_plan(r, c, o, sms, False, bwd)
+        say("sweep", f"wide {label}: plan {chosen}, bound "
+            f"{bound_ms(*work)[0]:.4f} ms, library device "
+            f"{device_ms(library):.4f} ms")
+        for bn in (128, 256):
+            for stages in range(2, im.WIDE_MAX_STAGES + 1):
+                if im.wide_smem(bn, stages, bwd) > im.SMEM_LIMIT:
+                    continue
+                cfg = (bn, stages)
+                with mock.patch.object(im, "wide_plan", lambda *a, c=cfg: c):
+                    same = torch.equal(run(), want)
+                    dev = device_ms(run)
+                say("sweep", f"wide {label} block_n {bn} stages {stages}"
+                    f"{' (plan)' if cfg == chosen else ''}: device "
+                    f"{dev:.4f} ms, {'identical' if same else 'DIFFERS'}")
+        del run, library
+        torch.cuda.empty_cache()
 
 
 def kernels_s8_qx(results):

@@ -701,6 +701,96 @@ def test_int8_matmul_wide_kernels_match_plain(cuda, r, k, n, dtype):
     assert torch.equal(out, y) and torch.equal(xr.grad, dx)
 
 
+def _wide_operands(r, k, n, dtype, cuda):
+    x = _randn((r, k), 53, cuda, dtype)
+    g = _randn((r, n), 54, cuda, dtype)
+    w, s = _int8_weight(k, n, 55, cuda)
+    return x, g, w, s
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r,k,n", [(1, 4096, 4112), (33, 1552, 4096),
+                                   (411, 4096, 8192), (1000, 4112, 1552),
+                                   (1000, 1552, 10240)])
+def test_int8_matmul_wide_ragged_shapes(cuda, r, k, n, dtype):
+    """#10 and #11 at ragged row counts and at K and N that are multiples of
+    16 but not of the tile (the TMA copies read zeros past the edges, the
+    TMA stores clip), in bf16 and f32, against the plain versions (2e-2 of
+    the largest element, the JAX test's tolerance), one launch each and the
+    same bits on a second call."""
+    from thinkdiff_torch.ops.int8_matmul import (
+        int8_matmul_wide_bwd, int8_matmul_wide_bwd_reference,
+        int8_matmul_wide_fwd, int8_matmul_wide_fwd_reference)
+
+    x, g, w, s = _wide_operands(r, k, n, dtype, cuda)
+    before = kernels.launch_counts()
+    y = int8_matmul_wide_fwd(x, w, s)
+    dx = int8_matmul_wide_bwd(g, w, s, dtype)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["int8_matmul_wide_fwd"] == before["int8_matmul_wide_fwd"] + 1
+    assert after["int8_matmul_wide_bwd"] == before["int8_matmul_wide_bwd"] + 1
+    for got, want in ((y, int8_matmul_wide_fwd_reference(x, w, s)),
+                      (dx, int8_matmul_wide_bwd_reference(g, w, s, dtype))):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 2e-2 * want.float().abs().max(), float(err)
+    assert torch.equal(int8_matmul_wide_fwd(x, w, s), y)
+    assert torch.equal(int8_matmul_wide_bwd(g, w, s, dtype), dx)
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("r,k,n,dtype", [(411, 4096, 8192, torch.bfloat16),
+                                         (1000, 1552, 4112, torch.bfloat16),
+                                         (33, 4096, 1552, torch.float32)])
+def test_int8_wide_every_plan_gives_the_same_bits(cuda, monkeypatch, bwd, r,
+                                                  k, n, dtype):
+    """Both tile widths at ring depths 2 and the deepest that fits (the plan
+    picks among these by shape) give the plan's own bits: each output's sum
+    runs over the contraction in one order, with no split or atomics."""
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    x, g, w, s = _wide_operands(r, k, n, dtype, cuda)
+    f32_g = bwd and dtype == torch.float32
+    if bwd:
+        run = lambda: im.int8_matmul_wide_bwd(g, w, s, dtype)
+    else:
+        run = lambda: im.int8_matmul_wide_fwd(x, w, s)
+    ref = run()
+    plan = im.wide_plan
+    outs = []
+    for bn in (128, 256):
+        fits = [st for st in range(2, im.WIDE_MAX_STAGES + 1)
+                if im.wide_smem(bn, st, bwd, f32_g) <= im.SMEM_LIMIT]
+        for stages in sorted({fits[0], fits[-1]}) if fits else ():
+            monkeypatch.setattr(im, "wide_plan", lambda *a, c=(bn, stages): c)
+            outs.append(run())
+    monkeypatch.setattr(im, "wide_plan", plan)
+    torch.cuda.synchronize()
+    assert outs  # f32 g fits one unit and a two-stage ring only
+    for out in outs:
+        assert torch.equal(out, ref)
+
+
+def test_int8_matmul_wide_autograd_launches_once_each(cuda):
+    """Through autograd at lvlm-text's kv_fused shape: one forward and one
+    input-gradient launch, and the gradient the direct call gives."""
+    from thinkdiff_torch.ops.int8_matmul import (
+        int8_matmul_wide, int8_matmul_wide_bwd)
+
+    x, g, w, s = _wide_operands(411, 4096, 8192, torch.bfloat16, cuda)
+    xr = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    int8_matmul_wide(xr, w, s).backward(g)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "int8_matmul_wide_fwd": 1, "int8_matmul_wide_bwd": 1}
+    assert torch.equal(xr.grad, int8_matmul_wide_bwd(g, w, s, torch.bfloat16))
+
+
 @pytest.mark.parametrize("r,k,n,dtype", [(33, 128, 128, torch.float32),
                                          (300, 4096, 1552, torch.bfloat16),
                                          (1024, 4096, 4096, torch.bfloat16)])

@@ -113,6 +113,77 @@ def test_gemv_k_split():
     assert ti.gemv_k_split(512, 16, 132) == 512
 
 
+# the wide kernels' table: (rows, contraction, output columns, input
+# gradient): the flan-t5-xxl FFN at bench.py's 1024 training rows, both
+# halves, and lvlm-text's cross-attention kv_fused over 411 rows; then
+# ragged row counts
+WIDE_SMS = 132  # an H100's SMs
+WIDE_TABLE = [(1024, 4096, 10240, False), (1024, 10240, 4096, False),
+              (1024, 10240, 4096, True), (1024, 4096, 10240, True),
+              (411, 4096, 8192, False)]
+WIDE_RAGGED = [(1, 4096, 10240, False), (33, 4096, 10240, False),
+               (1, 10240, 4096, True), (33, 10240, 4096, True),
+               (1000, 1552, 4112, False), (1000, 4112, 1552, True)]
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("r,k,n,bwd", WIDE_TABLE + WIDE_RAGGED)
+def test_wide_plan_fits_with_the_deepest_ring(r, k, n, bwd, f32):
+    """A 128 or 256 block whose ring fits the block's shared memory, as
+    deep as fits (2-8); the input gradient of f32 g takes 128 (its 256
+    units leave no room for two stages). f32 x is rounded to bf16 before
+    the forward, which then plans as bf16."""
+    g32 = f32 and bwd
+    block, stages = ti.wide_plan(r, k, n, WIDE_SMS, g32, bwd)
+    assert block in (128, 256)
+    assert 2 <= stages <= ti.WIDE_MAX_STAGES
+    assert ti.wide_smem(block, stages, bwd, g32) <= ti.SMEM_LIMIT
+    assert (stages == ti.WIDE_MAX_STAGES
+            or ti.wide_smem(block, stages + 1, bwd, g32) > ti.SMEM_LIMIT)
+    if g32:
+        assert block == 128
+        assert ti.wide_smem(256, 2, True, True) > ti.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("r,k,n,bwd,plan,units", [
+    (1024, 4096, 10240, False, (256, 4), 320),
+    (1024, 10240, 4096, False, (256, 4), 128),
+    (1024, 4096, 10240, True, (128, 3), 320),
+    (1024, 10240, 4096, True, (128, 3), 128),
+    (411, 4096, 8192, False, (256, 4), 128),
+    (1, 4096, 10240, False, (128, 8), 80),
+    (33, 4096, 10240, False, (128, 8), 80),
+    (1024, 1024, 1552, False, (128, 8), 104)])
+def test_wide_plan_at_the_table_shapes(r, k, n, bwd, plan, units):
+    """256-row units where 128-row ones would take more waves: at R1024
+    (320 units, 2.4 waves of 132 SMs, against 640 in 4.8; or 128, 97% of
+    one) and at R411 (128 units against 256 in two waves); 128-row units
+    where both take one wave (R1, R33, and R1024 over N 1552: 52 or 104
+    units), which costs half the products at more than half the time. The
+    input gradient's unit is 128 rows x 256 columns at every shape."""
+    assert ti.wide_plan(r, k, n, WIDE_SMS, False, bwd) == plan
+    block = plan[0]
+    assert -(-r // block) * -(-n // (256 if bwd else 128)) == units
+
+
+def test_wide_smem_is_the_kernel_layout():
+    """WideTile::smem: forward 256 rows, 4 stages of x (32 KB) and the int8
+    weight tile (8 KB), two 32 KB staging tiles; input gradient 128 rows x
+    256 columns, 3 stages of g (16 KB, f32 32 KB), two weight tiles and a
+    1 KB slot of scales, three converted g tiles (16 KB), two 32 KB staging
+    tiles; the full and empty barriers of the stages and the converted
+    tiles' empty ones; 1024 B of alignment. f32 g fits two stages."""
+    assert ti.wide_smem(256, 4) == 4 * (32768 + 8192) + 2 * 32768 + 8 * 8 + 1024
+    assert ti.wide_smem(128, 3, True) == (3 * (16384 + 16384 + 1024)
+                                          + 3 * 16384 + 2 * 32768
+                                          + 9 * 8 + 1024)
+    assert ti.wide_smem(128, 2, True, True) == (2 * (32768 + 16384 + 1024)
+                                                + 3 * 16384 + 2 * 32768
+                                                + 7 * 8 + 1024)
+    assert ti.wide_smem(128, 3, True, True) > ti.SMEM_LIMIT
+    assert ti.wide_smem(128, 4, True) > ti.SMEM_LIMIT
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_int8_matmul_wide_forward_and_grad_match_pallas(dtype):
     """Forward and x's gradient through autograd against the JAX custom_vjp

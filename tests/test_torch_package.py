@@ -142,29 +142,31 @@ def test_kernel_build_inputs():
                      "rmsnorm.cu", "s8_gemm.cu", "s8_gemm_bwd.cu",
                      "s8_gemm_qx.cu"]
     # the mma.sync int8 tile is one header shared by the fused sampler and
-    # the quantize-in-kernel GEMM, the bf16 mma step one shared by the
-    # mma.sync kernels, the Hopper PTX (TMA, mbarriers, wgmma) the flash
-    # kernels' and the w8a8 GEMMs', whose one kernel is s8_wgmma.cuh; an
-    # edit to any names a new library
+    # the quantize-in-kernel GEMM, the bf16 mma step the GEMV's, the Hopper
+    # PTX (TMA, mbarriers, wgmma, cached tensor maps) the flash kernels',
+    # the w8a8 GEMMs' (whose one kernel is s8_wgmma.cuh) and the weight-only
+    # wide GEMMs'; an edit to any names a new library
     assert [p.name for p in _build.headers()] == ["bf16_mma.cuh",
                                                   "hopper.cuh",
                                                   "s8_tile.cuh",
                                                   "s8_wgmma.cuh"]
     for name in ("fused_sample.cu", "s8_gemm_qx.cu"):
         assert '#include "s8_tile.cuh"' in (_build.CSRC / name).read_text()
-    for name in ("int8_gemv.cu", "int8_wide.cu"):
-        assert '#include "bf16_mma.cuh"' in (_build.CSRC / name).read_text()
+    assert '#include "bf16_mma.cuh"' in (_build.CSRC / "int8_gemv.cu").read_text()
     hopper = (_build.CSRC / "hopper.cuh").read_text()
-    # the flash forward and backward and the w8a8 GEMMs multiply with wgmma
-    # (bf16 -> f32, s8 -> s32) on tiles that TMA copies into an mbarrier
-    # ring
+    # the flash forward and backward and the w8a8 and wide GEMMs multiply
+    # with wgmma (bf16 -> f32, A from shared memory or registers, and s8 ->
+    # s32) on tiles that TMA copies into an mbarrier ring
     for op in ("wgmma.mma_async", ".s32.s8.s8", "cp.async.bulk.tensor",
-               "mbarrier.try_wait.parity", "CU_TENSOR_MAP_DATA_TYPE_UINT8"):
+               "mbarrier.try_wait.parity", "cached_map_2d("):
         assert op in hopper
-    # #2 and #7: the s8 wgmma on a TMA ring, no mma.sync tile
+    assert "m64n256k16.f32.bf16.bf16" in hopper
+    # #2 and #7: the s8 wgmma on a TMA ring, no mma.sync tile; int8 tiles
+    # through UINT8 maps (TMA has no signed 8-bit type)
     s8 = (_build.CSRC / "s8_wgmma.cuh").read_text()
     assert '#include "hopper.cuh"' in s8 and "mma.sync" not in s8
-    for call in ("wgmma_s8<", "tma_load_4d(", "mbar_wait(", "map_s8_2d("):
+    for call in ("wgmma_s8<", "tma_load_4d(", "mbar_wait(", "cached_map_2d(",
+                 "CU_TENSOR_MAP_DATA_TYPE_UINT8"):
         assert call in s8
     for name in ("s8_gemm.cu", "s8_gemm_bwd.cu"):
         src = (_build.CSRC / name).read_text()
@@ -172,6 +174,19 @@ def test_kernel_build_inputs():
         assert '#include "s8_wgmma.cuh"' in src
         assert "s8_tile.cuh" not in src and "mma.sync" not in src
         assert "s8_wgmma(" in src
+    # #10 and #11: bf16 wgmma with the weight as A, converted from int8 in
+    # registers (16-bit loads, or ldmatrix .trans on byte pairs for the
+    # input gradient), on a TMA ring of activations and UINT8 weight tiles,
+    # and a TMA-store epilogue; no mma.sync route is left
+    wide = (_build.CSRC / "int8_wide.cu").read_text()
+    assert '#include "hopper.cuh"' in wide
+    assert "bf16_mma.cuh" not in wide and "mma.sync" not in wide
+    assert "mma_bf16(" not in wide
+    for call in ("wgmma_rs_kb<BR>(", "tma_load_4d(", "mbar_wait(",
+                 "tma_store_4d(", "regs_alloc<", "CU_TENSOR_MAP_DATA_TYPE_UINT8",
+                 "ldmatrix.sync.aligned.m8n8.x4.trans", "stmatrix.sync",
+                 "s8sel_to_bf16("):
+        assert call in wide
     for name in ("flash_fwd.cu", "flash_bwd.cu"):
         src = (_build.CSRC / name).read_text()
         assert '#include "hopper.cuh"' in src

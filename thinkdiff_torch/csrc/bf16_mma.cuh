@@ -1,6 +1,6 @@
-// The bf16 tensor-core step shared by the weight-only int8 kernels
-// (int8_gemv.cu, int8_wide.cu): mma.sync m16n8k16 bf16 x bf16 -> f32 and
-// the packing of two values into one 32-bit fragment register.
+// The bf16 tensor-core step of the weight-only int8 GEMV (int8_gemv.cu):
+// mma.sync m16n8k16 bf16 x bf16 -> f32 and the packing of two values into
+// one 32-bit fragment register.
 //
 // Fragment layout (g = lane / 4, t = lane % 4): A (16 x 16, row-major)
 // a0 = (row g, cols 2t, 2t+1), a1 = (row g+8, same cols), a2 = (row g,

@@ -44,9 +44,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
-#include <unordered_map>
-
 #include "hopper.cuh"
 
 namespace {
@@ -276,46 +273,17 @@ s8_split_sum(const int* __restrict__ ws, const float* __restrict__ srow,
 
 // ---- host ---------------------------------------------------------------
 
-// The tensor map of an int8 operand (s8) or of the bf16 output (rows,
-// cols) row-major, in boxes of `box_rows` rows, encoded once per (type,
-// address, rows, cols, box rows): a map holds nothing else, so a cached one
-// stays right where the memory later holds another tensor of the same
-// shape. Locked: the backward runs on autograd's thread.
+// The tensor map of an int8 operand (s8: boxes of 128 columns, bytes) or
+// of the bf16 output (boxes of 64 columns) (rows, cols) row-major, in
+// boxes of `box_rows` rows with the 128-byte swizzle, cached
+// (hopper.cuh's cached_map_2d). TMA has no signed 8-bit type: UINT8
+// copies the bytes as they are.
 inline int cached_map(CUtensorMap* m, bool s8, const void* base, int rows,
                       int cols, int box_rows) {
-  struct Key {
-    const void* base;
-    int rows, cols, box;
-    bool s8;
-    bool operator==(const Key& o) const {
-      return base == o.base && rows == o.rows && cols == o.cols &&
-             box == o.box && s8 == o.s8;
-    }
-  };
-  struct Hash {
-    size_t operator()(const Key& k) const {
-      size_t h = std::hash<const void*>()(k.base);
-      h ^= std::hash<long long>()(((long long)k.rows << 32) ^ k.cols) + (h << 6);
-      return h ^ ((size_t)k.box << 1 | k.s8);
-    }
-  };
-  static std::mutex mu;
-  static std::unordered_map<Key, CUtensorMap, Hash> cache;
-  const Key key{base, rows, cols, box_rows, s8};
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = cache.find(key);
-  if (it != cache.end()) {
-    *m = it->second;
-    return 0;
-  }
-  const long long strides[3] = {0, 0, cols};
-  const int rc = s8 ? map_s8_2d(m, base, rows, cols, box_rows)
-                    : map_bf16_4d(m, base, 1, 1, rows, cols, strides, box_rows);
-  if (rc == 0) {
-    if (cache.size() >= 4096) cache.clear();
-    cache.emplace(key, *m);
-  }
-  return rc;
+  return s8 ? cached_map_2d(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows,
+                            cols, 128, box_rows, CU_TENSOR_MAP_SWIZZLE_128B)
+            : cached_map_2d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows,
+                            cols, 64, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int BM, int BN>

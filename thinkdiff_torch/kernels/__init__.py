@@ -40,8 +40,8 @@ _SIGNATURES = {
     "thinkdiff_fused_sample": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _F, _I, _P],
     "thinkdiff_int8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "thinkdiff_int8_wide_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "thinkdiff_int8_wide_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "thinkdiff_int8_wide_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    "thinkdiff_int8_wide_bwd": [_P] * 4 + [_I] * 6 + [_P],
     "thinkdiff_s8_gemm_qx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "thinkdiff_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
 }

@@ -16,7 +16,10 @@ weight-only int8 (x float, f32 accumulation):
   ``int8_matmul``       y = out(f32(x) @ f32(w_q) * scale), R <= 32 rows a
                         launch (``int8_matmul``, csrc/int8_gemv.cu)
   ``int8_matmul_wide``  the same at any R with bf16 products, and its input
-                        gradient (``int8_matmul_wide``, csrc/int8_wide.cu)
+                        gradient (``int8_matmul_wide``, csrc/int8_wide.cu:
+                        bf16 wgmma on a TMA ring, the int8 weight tile
+                        converted to bf16 in the CTA), whose tile width and
+                        ring depth ``wide_plan`` picks from the shapes
 
 Every kernel reads the int8 weight as its (N, K) row-major storage: QDense
 keeps its (K, N) kernel as the transpose view of such a copy, made once at
@@ -305,6 +308,60 @@ def int8_matmul_wide_bwd_reference(g, w_q, scale, out_dtype):
     return (gs @ w_q.float().t()).to(out_dtype)
 
 
+# the weight-only wide kernels' plan (csrc/int8_wide.cu): a work unit is
+# `block` output rows (128 or 256) x 128 output columns in the forward,
+# and 128 rows x 256 columns in the input gradient (which converts g half
+# as often a product, and a stage ahead, in three buffers)
+WIDE_BLOCK_K = 64    # contraction a ring stage
+WIDE_MAX_STAGES = 8
+# relative time of one contraction stage of a forward unit by its block: a
+# 128-row unit does half the products of a 256 one but takes more than
+# half as long (measured 0.0808 against 0.0556 ms at twice the units,
+# R411 K4096 N8192, NVIDIA H100 80GB HBM3 700 W, ``chip_smoke.wide_sweep``)
+WIDE_STAGE_COST = {256: 8, 128: 5}
+WIDE_UNIT_COST = 2   # a unit's ring fill and epilogue, in stages
+
+
+def wide_smem(block: int, stages: int, backward: bool = False,
+              f32: bool = False) -> int:
+    """Shared memory of a wide kernel (``WideTile::smem``): ``stages`` ring
+    stages of the activation (block rows of 64, bf16, or f32 g in the input
+    gradient) and the int8 weight (8 KB; the gradient's 256-column units
+    16 KB) and, in the gradient, a 1 KB slot of the stage's scales; for
+    the input gradient three converted tiles of block rows x 64 bf16; a
+    staging tile of bf16 outputs for each of the two consumer warpgroups;
+    the barriers; 1024 bytes of alignment."""
+    cols = 256 if backward else 128
+    raw = block * WIDE_BLOCK_K * (4 if backward and f32 else 2) + cols * 64
+    cvt = 3 if backward else 0
+    if backward:
+        raw += 1024  # the stage's column scales
+    return (stages * raw + cvt * block * 128 + 2 * block * cols
+            + (2 * stages + cvt) * 8 + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(r: int, k: int, n: int, sms: int = 132, f32: bool = False,
+              backward: bool = False) -> tuple:
+    """(block, stages) of a wide kernel for an (r, n) output over a
+    contraction of k. Forward: units of block rows (128 or 256) x 128
+    columns, the block whose busiest SM takes the least time, counted as
+    waves x (stages a unit + WIDE_UNIT_COST) x WIDE_STAGE_COST[block], ties
+    to 256. Input gradient: 128 rows x 256 columns. Then as deep a ring as
+    fits in shared memory (2-8)."""
+    steps = -(-k // WIDE_BLOCK_K)
+    best = None
+    for block in ((128,) if backward else (256, 128)):
+        fits = [st for st in range(2, WIDE_MAX_STAGES + 1)
+                if wide_smem(block, st, backward, f32) <= SMEM_LIMIT]
+        units = -(-r // block) * -(-n // (256 if backward else 128))
+        cost = (-(-units // sms) * (steps + WIDE_UNIT_COST)
+                * WIDE_STAGE_COST[block])
+        if best is None or cost < best[0]:
+            best = (cost, block, max(fits))
+    return best[1], best[2]
+
+
 def _int8_wide_cuda(name, a, w_q, scale, out_dtype, backward):
     k, n = w_q.shape
     _check_int8_operands(name, k, w_q, scale)
@@ -315,19 +372,27 @@ def _int8_wide_cuda(name, a, w_q, scale, out_dtype, backward):
     if a2.shape[1] != (n if backward else k):
         raise ValueError(f"{name}: input {tuple(a.shape)} for w_q "
                          f"{tuple(w_q.shape)}")
+    f32 = a.dtype == torch.float32
+    if f32 and not backward:
+        # the forward's product operand is bf16(x): rounding here gives the
+        # kernel's bits (the input gradient scales f32 g before its rounding,
+        # so it takes f32 as it is)
+        a2 = a2.to(torch.bfloat16)
     wt = _transposed_storage(w_q)
     scale = scale.float().contiguous()
     _aligned(name, ("input", a2), ("w_q", wt), ("scale", scale))
-    out = torch.empty((a2.shape[0], k if backward else n), dtype=out_dtype,
-                      device=a.device)
+    rows, cols = a2.shape[0], (k if backward else n)
+    plan = wide_plan(rows, a2.shape[1], cols, _sm_count(a.device.index or 0),
+                     f32 and backward, backward)
+    out = torch.empty((rows, cols), dtype=out_dtype, device=a.device)
     fn = (kernels.library().thinkdiff_int8_wide_bwd if backward
           else kernels.library().thinkdiff_int8_wide_fwd)
     rc = fn(kernels.ptr(a2), kernels.ptr(wt), kernels.ptr(scale),
-            kernels.ptr(out), a2.shape[0], k, n,
-            int(a.dtype == torch.float32), kernels.stream_of(a))
+            kernels.ptr(out), rows, k, n, int(f32), *plan,
+            kernels.stream_of(a))
     kernels.check_launch(rc, name)
     kernels.count_launch(name)
-    return out.reshape(*a.shape[:-1], out.shape[1])
+    return out.reshape(*a.shape[:-1], cols)
 
 
 def int8_matmul_wide_fwd(x, w_q, scale):
