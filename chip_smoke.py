@@ -24,7 +24,12 @@ non-zero:
                 operand copy, dq/dk/dv views of (B, T, H, D) memory), and a
                 GQA D=128 case, with the forward's lse; the s8 input
                 gradient on every projection; the weight-only GEMV on every
-                flan-t5-xxl layer shape at 1, 8 and 32 rows; the wide
+                flan-t5-xxl layer shape at 1, 8, 16, 17 and 32 rows and
+                every plan its planner picks at q and wi, and the paged
+                decode at 256 and 64 slots, a long-context skew and the
+                7B's 7 heads a kv head, both also with a cold L2
+                (cold_ms) and checked to be one device launch a call
+                (torch.profiler); the wide
                 weight-only GEMM and its input gradient at the flan-t5-xxl
                 FFN's 1024 rows, at lvlm-text's kv_fused shape (411 rows,
                 beside the port's bf16-copy route there), in f32 and at 33
@@ -210,9 +215,9 @@ def device_ms(fn, runs: int = 20) -> float:
     """Device milliseconds of ``fn`` per run: the kernels it launches, summed
     by torch.profiler over ``runs`` back-to-back runs. Unlike ``time_ms``
     this leaves out the host's time to enqueue them, which is longer than
-    the kernel for the small ones. A trace that caught no kernel at all
-    (seen now and then on an H100: 0.0000 ms) is taken again, up to three
-    times."""
+    the kernel for the small ones. A trace that caught no kernel, or a
+    number of kernels that is not a multiple of ``runs`` (seen now and then
+    on an H100: some events lost), is taken again, up to three times."""
     from torch.autograd import DeviceType
 
     fn()
@@ -224,11 +229,70 @@ def device_ms(fn, runs: int = 20) -> float:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if times and len(times) % runs == 0:
             break
-    return us / runs / 1e3
+    return sum(times) / runs / 1e3
+
+
+# bytes read between two timed calls to evict the 50 MB L2, as the decode
+# path finds its weights and pages: streamed from HBM, with the L2 holding
+# the clean lines of other weights (a written buffer would leave 50 MB of
+# dirty lines, whose write-back the timed kernel would pay for)
+FLUSH_BYTES = 128 << 20
+
+
+def cold_ms(fn, kernel: str, runs: int = 20) -> float:
+    """Device milliseconds of the kernels named ``kernel`` that ``fn``
+    launches, with the L2 cache flushed before every call (a bf16
+    matrix-vector product reads FLUSH_BYTES and writes 16 KB), summed by
+    torch.profiler over ``runs`` calls."""
+    from torch.autograd import DeviceType
+
+    flush_w = torch.ones((FLUSH_BYTES // 2 // 8192, 8192), dtype=torch.bfloat16,
+                         device="cuda")
+    flush_v = torch.ones((8192,), dtype=torch.bfloat16, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace that lost some of the kernels is taken again
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                torch.mv(flush_w, flush_v)
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if times and len(times) % runs == 0:
+            break
+    del flush_w, flush_v
+    if not times:
+        raise RuntimeError(f"cold_ms: no {kernel} launch in the trace")
+    # a trace that kept losing events: the mean of the launches it kept
+    per_call = max(1, round(len(times) / runs))
+    return sum(times) / len(times) * per_call / 1e3
+
+
+def expect_one_launch(phase: str, label: str, fn, kernel: str) -> None:
+    """Fail unless one call of ``fn`` (after a warm call) puts exactly one
+    operation on the card, torch.profiler's count: the kernel named
+    ``kernel`` (no copy, fill, second pass or allocation's memset)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if len(names) != 1 or kernel not in names[0]:
+        raise AssertionError(f"{label}: {len(names)} device operations a "
+                             f"call, expected one {kernel}: {names}")
+    say(phase, f"{label}: one device launch a call ({names[0][:60]})")
 
 
 def bound_ms(nbytes: float, ops: float, kind: str):
@@ -289,7 +353,7 @@ def phase_build():
             name = re.search(r"(flash_fwd_kernelILi\d+ELi\d+ELi\d|"
                              r"rmsnorm_\w{1,48}|s8_wgmma_kernelILi\d+ELi\d+E|"
                              r"s8_split_sum|"
-                             r"paged_decode_kernel|fused_sample_tiles|"
+                             r"paged_decode_kernelILb\dE|fused_sample_tiles|"
                              r"fused_sample_reduce|"
                              r"flash_bwd_d\w+?_kernelILi\d+E(?:Li\d)?|"
                              r"int8_gemv_kernelILi\d+ELb\d+ELb\d|"
@@ -301,10 +365,11 @@ def phase_build():
 
 
 def check(name, shape, run, plain, ok, tol_text, work, library=None,
-          main=False):
+          main=False, cold=None):
     """Kernel vs plain on the same inputs, then the three timings; ``work``
-    is (bytes, operations, operand type) of the function. Returns the
-    shape's record."""
+    is (bytes, operations, operand type) of the function; ``cold`` names
+    the kernel whose device time is also taken with a cold L2
+    (``cold_ms``). Returns the shape's record."""
     outs, refs = run(), plain()
     torch.cuda.synchronize()
     if not isinstance(outs, tuple):
@@ -325,15 +390,20 @@ def check(name, shape, run, plain, ok, tol_text, work, library=None,
     lib_ms = time_ms(library) if library is not None else None
     lib_dev = device_ms(library) if library is not None else None
     b_ms, b_by = bound_ms(*work)
+    cold_dev = cold_ms(run, cold) if cold else None
     say("kernels", f"{name} {shape}: max|err| {max_err:.3g} ({max_rel:.3g} "
         f"of max|ref|) within {tol_text}; kernel {ms:.4f} ms (device "
-        f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+        f"{dev_ms:.4f} ms"
+        + (f", cold L2 {cold_dev:.4f} ms = {b_ms / cold_dev:.0%} of the "
+           "bound" if cold else "")
+        + f"), plain {plain_ms:.4f} ms, library "
         + (f"{lib_ms:.4f} ms (device {lib_dev:.4f} ms)" if lib_ms is not None
            else "none")
         + f", bound {b_ms:.4f} ms ({b_by}: {work[0] / 1e6:.1f} MB, "
         f"{work[1] / 1e9:.2f} G {work[2]} ops)")
     return {"shape": shape, "max_abs_err": max_err, "ms": ms,
-            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "device_ms": dev_ms, "cold_device_ms": cold_dev,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
             "library_device_ms": lib_dev, "bound_ms": b_ms, "bound_by": b_by,
             "main": main}
 
@@ -597,13 +667,17 @@ def flash_bwd_tile_sweep():
 
 
 def kernel_ab(root: str = ".",
-              parts=("flash", "rmsnorm", "flash_bwd", "s8", "wide")):
+              parts=("flash", "rmsnorm", "flash_bwd", "s8", "wide", "gemv",
+                     "paged")):
     """Device and event ms of the flash forward (#1), RMSNorm (#3), the
     flash backward (#5 and #6 each, and ``flash_attention_backward``, both
     at the training shapes, contiguous and in the T5 layout) and the w8a8
     GEMMs (#2, #7 at every ``s8_table_shapes`` shape, with the host time a
     call, ``host_us``) and the weight-only wide GEMMs (#10, #11 at every
-    ``WIDE_TABLE`` shape, beside the one-call library route) at the kernel
+    ``WIDE_TABLE`` shape, beside the one-call library route), the GEMV (#9
+    at every ``T5_GEMV_SHAPES`` shape x R 1, 8, 16, 32) and the paged
+    decode (#4 at every ``paged_shapes`` case), these two also with a cold
+    L2 (``cold_ms``) and the host time a call, at the kernel
     table's shapes, through the package of
     the checkout at ``root``,
     so that two commits' kernels can be held against each other on one
@@ -634,12 +708,69 @@ def kernel_ab(root: str = ".",
                 f"event {time_ms(library):.4f} ms")
             del run, library
         torch.cuda.empty_cache()
+    if "gemv" in parts:
+        for kk, n, proj in T5_GEMV_SHAPES:
+            for r in (1, 8, 16, 32):
+                run, _, _, work = gemv_case(r, kk, n)
+                ab_bandwidth(where, f"int8_matmul {proj} R{r} K{kk} N{n}",
+                             run, "int8_gemv", work)
+                del run
+        torch.cuda.empty_cache()
+        for r in (8, 16, 32):
+            dev, ev = gemv_t5_step(r)
+            say("ab", f"{where.name} int8_matmul T5 step at R{r} (the 217 "
+                f"GEMV calls of a greedy step back to back, 5.57 GB of "
+                f"weights): device {dev:.3f} ms, event {ev:.3f} ms")
+        torch.cuda.empty_cache()
+    if "paged" in parts:
+        from thinkdiff_torch.ops.paged_attention import paged_attention
+
+        for label, slots, h, hkv, lengths in paged_shapes()[:3]:
+            *ops, work = paged_case(slots, h, hkv, lengths)
+            ab_bandwidth(where, f"paged_attention {label}",
+                         lambda: paged_attention(*ops), "paged_decode", work)
+            del ops
+        torch.cuda.empty_cache()
     if "flash" in parts:
         kernel_ab_flash(where)
     if "rmsnorm" in parts:
         kernel_ab_rmsnorm(where)
     if "flash_bwd" in parts:
         kernel_ab_flash_bwd(where)
+
+
+def gemv_t5_step(r: int, seed: int = 70):
+    """(device ms, event ms) of one greedy flan-t5-xxl step's weight-only
+    products at r decoder rows, back to back as the decode issues them: 24
+    layers x (q, k, v, o, cross q, cross o, wi_0, wi_1, wo) + lm_head, 217
+    calls over 5.57 GB of seeded int8 weights (no weight stays in the L2
+    from one step to the next). Device time from torch.profiler (the GEMV
+    kernels only run), event time around the whole sequence."""
+    from thinkdiff_torch.ops.int8_matmul import int8_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = ([(4096, 4096)] * 6 + [(4096, 10240)] * 2 + [(10240, 4096)]) * 24
+    layers = []
+    for kk, n in shapes + [(4096, 32128)]:
+        w = torch.randint(-127, 128, (n, kk), dtype=torch.int8, device="cuda",
+                          generator=g).t()  # QDense's layout
+        layers.append((kk, w, torch.rand(n, device="cuda", generator=g) / 512))
+    xs = {kk: randn((r, kk), seed + kk) for kk in (4096, 10240)}
+    run = lambda: [int8_matmul(xs[kk], w, s) for kk, w, s in layers]
+    out = device_ms(run, runs=3), time_ms(run, warmup=1, runs=5)
+    del layers
+    return out
+
+
+def ab_bandwidth(where, label, run, kernel, work):
+    """One ``kernel_ab`` line of a bandwidth kernel: device ms with a cold
+    L2 and its share of the bound, warm device ms, event ms, host us."""
+    cold = cold_ms(run, kernel)
+    b_ms = bound_ms(*work)[0]
+    say("ab", f"{where.name} {label}: cold device {cold:.4f} ms "
+        f"({b_ms / cold:.0%} of the {b_ms:.4f} ms bound), warm device "
+        f"{device_ms(run, runs=50):.4f} ms, event {time_ms(run):.4f} ms, "
+        f"host {host_us(run):.1f} us a call")
 
 
 def kernel_ab_flash(where):
@@ -858,16 +989,14 @@ def kernels_rmsnorm(results):
             library=lambda x=x, s=scale, d=d: F.rms_norm(x, (d,), s, 1e-6)))
 
 
-def kernels_paged(results):
-    from thinkdiff_torch.ops.paged_attention import (
-        paged_attention, paged_attention_reference)
-
-    # the 2B decode step at 256 slots: H12 / Hkv2 / D128, 64-token pages,
-    # ragged lengths 1..600, pages from a shuffled free list, garbage in the
-    # trash page and past every slot's length
-    slots, h, hkv, d, page = 256, 12, 2, 128, 64
-    rs = np.random.RandomState(SEED)
-    lengths = np.concatenate([[1, 64, 65, 600], rs.randint(1, 601, slots - 4)])
+def paged_case(slots, h, hkv, lengths, seed=11, page=64):
+    """Seeded operands of a paged decode step: bf16 pools with each slot's
+    pages from a shuffled free list, garbage in the trash page and past
+    every slot's length; (q, k, v, table, lengths, (bytes, operations,
+    "bf16")): each live token's K and V read once, q read, out written."""
+    d = 128
+    rs = np.random.RandomState(seed)
+    lengths = np.asarray(lengths)
     npages = -(-lengths // page)
     mp = int(npages.max())
     ids = rs.permutation(np.arange(1, 1 + npages.sum() + 8))
@@ -877,27 +1006,62 @@ def kernels_paged(results):
         table[s, :n] = ids[o:o + n]
         o += n
     pool = len(ids) + 1
-    k, v = randn((pool, hkv, page, d), 11), randn((pool, hkv, page, d), 12)
+    k, v = (randn((pool, hkv, page, d), seed),
+            randn((pool, hkv, page, d), seed + 1))
     k[0], v[0] = 3e3, -3e3
     for s, n in enumerate(lengths):
         if n % page:
             last = int(table[s, npages[s] - 1])
             k[last, :, n % page:], v[last, :, n % page:] = 1e3, -1e3
-    q = randn((slots, h, d), 13)
+    q = randn((slots, h, d), seed + 2)
     table_t = torch.from_numpy(table).cuda()
     lens = torch.from_numpy(lengths.astype(np.int32)).cuda()
     tokens = int(lengths.sum())
     work = (tokens * hkv * d * 2 * 2 + nbytes(q, q, table_t, lens),
             4 * h * d * tokens, "bf16")
-    results.append(check(
-        "paged_attention", f"S{slots} H{h} Hkv{hkv} D{d} page{page} "
-        f"lengths 1..600 ({tokens} tokens, {int(npages.sum())} pages)",
-        lambda: paged_attention(q, k, v, table_t, lens),
-        lambda: paged_attention_reference(q, k, v, table_t, lens),
-        lambda e, ref: e <= 4e-3 + 1e-2 * ref.abs(),
-        "4e-3 + 1e-2*|ref| (kernel and plain each round to bf16: up to one "
-        "ulp apart, 2^-8 at |ref| < 1; f32 softmax summed in another order)",
-        work, main=True))
+    return q, k, v, table_t, lens, work
+
+
+def paged_shapes():
+    """(label, slots, heads, kv heads, lengths) of the paged decode's table:
+    the 2B step at 256 slots (ragged 1..600), at the gumbel slice's 64, a
+    long-context skew (4 of 64 slots at MP x 64 = 2048 tokens, the rest
+    1..128), the 7B's geometry (28 heads over 4 kv heads: G 7)."""
+    rs = np.random.RandomState(SEED)
+    s256 = np.concatenate([[1, 64, 65, 600], rs.randint(1, 601, 252)])
+    s64 = rs.randint(1, 601, 64)
+    skew = np.concatenate([[2048] * 4, rs.randint(1, 129, 60)])
+    g7 = rs.randint(1, 601, 64)
+    return (("S256 H12 Hkv2 lengths 1..600", 256, 12, 2, s256),
+            ("S64 H12 Hkv2 lengths 1..600", 64, 12, 2, s64),
+            ("S64 H12 Hkv2 skew: 4 x 2048, 60 x 1..128", 64, 12, 2, skew),
+            ("S64 H28 Hkv4 (G 7) lengths 1..600", 64, 28, 4, g7))
+
+
+def kernels_paged(results):
+    from thinkdiff_torch.ops.paged_attention import (
+        paged_attention, paged_attention_reference)
+
+    # tolerance: kernel and plain each round to bf16 (up to one ulp apart,
+    # 2^-8 at |ref| < 1); the f32 softmax summed in another order
+    for i, (label, slots, h, hkv, lengths) in enumerate(paged_shapes()):
+        q, k, v, table, lens, work = paged_case(slots, h, hkv, lengths)
+        results.append(check(
+            "paged_attention", f"{label} ({int(lengths.sum())} tokens)",
+            lambda: paged_attention(q, k, v, table, lens),
+            lambda: paged_attention_reference(q, k, v, table, lens),
+            lambda e, ref: e <= 4e-3 + 1e-2 * ref.abs(),
+            "4e-3 + 1e-2*|ref| (kernel and plain each round to bf16: up to "
+            "one ulp apart, 2^-8 at |ref| < 1; f32 softmax summed in another "
+            "order)", work, main=i == 0, cold="paged_decode"))
+        if i == 0:
+            # as the model calls it: int64 lengths (cache_len + 1)
+            lens64 = lens.long()
+            expect_one_launch("kernels", f"paged_attention {label}",
+                              lambda: paged_attention(q, k, v, table, lens64),
+                              "paged_decode_kernel")
+        del q, k, v
+    torch.cuda.empty_cache()
 
 
 def kernels_fused_sample(results):
@@ -1142,6 +1306,11 @@ def kernels_rmsnorm_train(results):
 # cross q/o, wi_0/wi_1, wo, and the untied lm_head (32128 = 128 * 251)
 T5_GEMV_SHAPES = ((4096, 4096, "q, k, v, o"), (4096, 10240, "wi_0, wi_1"),
                   (10240, 4096, "wo"), (4096, 32128, "lm_head"))
+# the weight-only layers of the Qwen2-VL-2B LM that the dense-int8 slice's
+# decode step runs at R8 (fused projections): qkv, o, gate_up, and the down
+# projection, whose plan splits K (two ranges of 32-column units)
+DENSE_GEMV_SHAPES = ((1536, 2048, "2B qkv"), (1536, 1536, "2B o"),
+                     (1536, 17920, "2B gate_up"), (8960, 1536, "2B down"))
 
 
 def int8_weight(kk, n, seed):
@@ -1153,30 +1322,211 @@ def int8_weight(kk, n, seed):
     return qw["q"].t().contiguous().t(), qw["scale"]
 
 
-def kernels_int8_gemv(results):
+def gemv_case(r, kk, n, seed=61):
+    """Seeded operands of a GEMV call at r rows (bf16 x and y, the weight in
+    QDense's layout): (kernel, plain version, one PyTorch call (bf16 copy
+    of the weight, ``matmul``, the scale), (bytes, operations, "bf16"))."""
     from thinkdiff_torch.ops.int8_matmul import (
         int8_matmul, int8_matmul_reference)
+
+    w, s = int8_weight(kk, n, seed - 1)
+    x = randn((r, kk), seed)
+    y = torch.empty((r, n), dtype=torch.bfloat16, device="cuda")
+    return (lambda: int8_matmul(x, w, s),
+            lambda: int8_matmul_reference(x, w, s),
+            lambda: torch.matmul(x, w.to(torch.bfloat16)) * s.to(torch.bfloat16),
+            (kk * n + nbytes(x, s, y), 2 * r * kk * n, "bf16"))
+
+
+def gemv_sweep(rows=(1, 8, 16, 17, 32)):
+    """The GEMV's unit widths and splits of K at ``T5_GEMV_SHAPES``: device
+    ms with a cold L2 (``cold_ms``) of every width and split the plan weighs
+    ("width x K ranges"), against ``gemv_plan``'s choice ("*") and the
+    bound. Run alone:
+    ``python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build(); c.gemv_sweep()"``."""
+    from unittest import mock
+
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kk, n, proj in T5_GEMV_SHAPES:
+        for r in rows:
+            run, _, _, work = gemv_case(r, kk, n)
+            chosen = im.gemv_plan(r, kk, n, sms)
+            line = []
+            for block_n in im.GEMV_BLOCKS:
+                steps = -(-kk // (im.GEMV_STAGE_BYTES // block_n))
+                tiles = -(-n // block_n)
+                stages = max(st for st in range(2, im.GEMV_MAX_STAGES + 1)
+                             if im.gemv_smem(r, False, st, block_n)
+                             <= im.SMEM_LIMIT)
+                for splits in (1, 2, 3, 4, 6, 8):
+                    per = -(-steps // splits)
+                    if -(-steps // per) != splits:
+                        continue
+                    units = tiles * splits
+                    plan = (block_n, per, stages, min(units, sms))
+                    with mock.patch.object(im, "gemv_plan",
+                                           lambda *a, c=plan: c):
+                        ms = cold_ms(run, "int8_gemv")
+                    line.append(f"{block_n}x{splits}"
+                                f"{'*' if plan == chosen else ''} {ms:.4f}")
+            say("sweep", f"gemv {proj} R{r}: bound {bound_ms(*work)[0]:.4f} "
+                "ms; cold ms " + ", ".join(line))
+            del run
+        torch.cuda.empty_cache()
+
+
+def gemv_split_stress(root=".", calls=50):
+    """The GEMV's split plans where CTAs share SMs: lm_head at two CTAs an
+    SM with 2-4 K ranges, and the q/k/v/o and 2B down shapes at more CTAs
+    than SMs, rings of 2 and 3 stages, R8 and R16; each plan ``calls``
+    times alone, then ``calls`` times on each of two streams at once
+    (their kernels co-resident). Counts the calls outside 1 bf16 ulp of
+    the plain version and those whose bits differ from the plan's first
+    call, through the package of the checkout at ``root`` (as
+    ``kernel_ab``). Run alone:
+    ``python3 -c "import chip_smoke as c; c.phase_device(); c.gemv_split_stress()"``."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    from unittest import mock
+
+    import thinkdiff_torch
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    where = Path(thinkdiff_torch.__file__).resolve().parent.parent
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = [(4096, 32128, (128, per, st, 2 * sms))
+             for per in (16, 11, 8) for st in (2, 3)]
+    plans += [(kk, n, (bn, per, st, ctas)) for st in (2, 3)
+              for kk, n, bn, per, ctas in (
+                  (4096, 4096, 32, 3, 300), (4096, 4096, 64, 4, 256),
+                  (4096, 4096, 128, 2, 256), (8960, 1536, 32, 9, 96),
+                  (8960, 1536, 32, 3, 2 * sms))]
+    bad_total = 0
+    for r in (8, 16):
+        for kk, n, plan in plans:
+            w, s = int8_weight(kk, n, 71)
+            x = randn((r, kk), 72)
+            ref = im.int8_matmul_reference(x, w, s).float()
+            tol = bf16_ulp(ref) + 1e-5 * ref.abs().max()
+            with mock.patch.object(im, "gemv_plan", lambda *a, c=plan: c):
+                first = im.int8_matmul(x, w, s)
+                outs = [im.int8_matmul(x, w, s) for _ in range(calls)]
+                streams = [torch.cuda.Stream() for _ in range(2)]
+                for st in streams:
+                    st.wait_stream(torch.cuda.current_stream())
+                for _ in range(calls):
+                    for st in streams:
+                        with torch.cuda.stream(st):
+                            outs.append(im.int8_matmul(x, w, s))
+                torch.cuda.synchronize()
+            bad = sum(not bool(((o.float() - ref).abs() <= tol).all())
+                      for o in [first] + outs)
+            other = sum(not torch.equal(o, first) for o in outs)
+            bad_total += bad
+            say("stress", f"{where.name} int8_matmul R{r} K{kk} N{n} plan "
+                f"{plan}: {bad} of {len(outs) + 1} calls outside 1 bf16 ulp, "
+                f"{other} with other bits than the first")
+            del w, s, x, outs
+    say("stress", f"{where.name} int8_matmul split plans: {bad_total} calls "
+        "outside 1 bf16 ulp in all")
+    torch.cuda.empty_cache()
+    return bad_total
+
+
+def paged_sweep():
+    """The paged decode's unit sizes at ``paged_shapes``: device ms with a
+    cold L2 of every whole number of pages a unit, against ``paged_plan``'s
+    choice ("*") and the bound. Run alone:
+    ``python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build(); c.paged_sweep()"``."""
+    from unittest import mock
+
+    from thinkdiff_torch.ops import paged_attention as pa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, slots, h, hkv, lengths in paged_shapes():
+        q, k, v, table, lens, work = paged_case(slots, h, hkv, lengths)
+        mp = table.shape[1]
+        chosen = pa.paged_plan(slots, hkv, mp, 64, sms)
+        run = lambda: pa.paged_attention(q, k, v, table, lens)
+        line = []
+        for ppu in sorted({1, 2, 3, 4, 5, 6, 8, 10, 16, mp}
+                          & set(range(1, mp + 1))):
+            with mock.patch.object(pa, "paged_plan", lambda *a, c=ppu: c):
+                ms = cold_ms(run, "paged_decode")
+            line.append(f"{ppu}{'*' if ppu == chosen else ''} {ms:.4f}")
+        say("sweep", f"paged {label}: bound {bound_ms(*work)[0]:.4f} ms; "
+            "pages a unit: cold ms " + ", ".join(line))
+        del q, k, v
+    torch.cuda.empty_cache()
+
+
+def kernels_int8_gemv(results):
+    from unittest import mock
+
+    from thinkdiff_torch.ops import int8_matmul as im
 
     # a greedy T5 step at R = t decoder rows (1..32); bf16 in and out. The
     # products are exact, so kernel and plain differ by f32 summation order
     # and one bf16 rounding each: 1 bf16 ulp, plus 1e-5 of the largest
     # output where an output near zero has a smaller ulp than that order
+    ok = lambda e, ref: e <= bf16_ulp(ref) + 1e-5 * ref.abs().max()
+    tol = "1 bf16 ulp (+1e-5 max|ref| near 0)"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for kk, n, proj in T5_GEMV_SHAPES:
-        w, s = int8_weight(kk, n, 60)
-        for r in (1, 8, 32):
-            x = randn((r, kk), 61)
-            y = torch.empty((r, n), dtype=torch.bfloat16, device="cuda")
+        for r in (1, 8, 16, 17, 32):
+            run, plain, library, work = gemv_case(r, kk, n)
             results.append(check(
-                "int8_matmul", f"{proj} R{r} K{kk} N{n}",
-                lambda x=x, w=w, s=s: int8_matmul(x, w, s),
-                lambda x=x, w=w, s=s: int8_matmul_reference(x, w, s),
-                lambda e, ref: e <= bf16_ulp(ref) + 1e-5 * ref.abs().max(),
-                "1 bf16 ulp (+1e-5 max|ref| near 0)",
-                (kk * n + nbytes(x, s, y), 2 * r * kk * n, "bf16"),
-                library=lambda x=x, w=w, s=s: torch.matmul(
-                    x, w.to(torch.bfloat16)) * s.to(torch.bfloat16),
-                main=proj == "wi_0, wi_1" and r == 8))
-        del w
+                "int8_matmul", f"{proj} R{r} K{kk} N{n}", run, plain, ok, tol,
+                work, library=library, main=proj == "wi_0, wi_1" and r == 8,
+                cold="int8_gemv"))
+            if r == 8 and proj in ("q, k, v, o", "lm_head"):
+                expect_one_launch("kernels", f"int8_matmul {proj} R8 (plan "
+                                  f"{im.gemv_plan(8, kk, n, sms)})", run,
+                                  "int8_gemv_kernel")
+            del run, plain, library
+    for kk, n, proj in DENSE_GEMV_SHAPES:
+        run, plain, library, work = gemv_case(8, kk, n)
+        results.append(check(
+            "int8_matmul", f"{proj} R8 K{kk} N{n}", run, plain, ok, tol, work,
+            library=library, cold="int8_gemv"))
+        plan = im.gemv_plan(8, kk, n, sms)
+        if plan[1] < -(-kk // (im.GEMV_STAGE_BYTES // plan[0])):
+            expect_one_launch("kernels", f"int8_matmul {proj} R8 (plan {plan}, "
+                              "split K)", run, "int8_gemv_kernel")
+        del run, plain, library
+    for kk, n, proj in T5_GEMV_SHAPES + DENSE_GEMV_SHAPES:
+        if proj not in ("q, k, v, o", "wi_0, wi_1", "lm_head", "2B down"):
+            continue
+        # every plan the shape can get over R 1..32, at the R it is chosen;
+        # at lm_head, a split at two CTAs an SM (a 3-stage ring of 128
+        # columns fits twice), the co-residence the planner never picks
+        plans = {}
+        if proj == "lm_head":
+            plans[(128, 16, 3, 2 * sms)] = 8
+        else:
+            for r in range(1, im.GEMV_ROWS + 1):
+                plans.setdefault(im.gemv_plan(r, kk, n, sms), r)
+        for plan, r in plans.items():
+            run, plain, _, _ = gemv_case(r, kk, n, seed=63)
+            ref = plain()
+            chosen = plan == im.gemv_plan(r, kk, n, sms)
+            reps = 1 if chosen else 20  # a race shows now and then
+            with mock.patch.object(im, "gemv_plan", lambda *a, c=plan: c):
+                outs = [run() for _ in range(reps)]
+            torch.cuda.synchronize()
+            err = (outs[0].float() - ref.float()).abs()
+            if not bool(ok(err, ref.float()).all()) or not all(
+                    torch.equal(o, outs[0]) for o in outs):
+                raise AssertionError(f"int8_matmul {proj} R{r} plan {plan}: "
+                                     f"max |err| {float(err.max())}, or "
+                                     f"{reps} calls' bits differ")
+            say("kernels", f"int8_matmul {proj} plan ({plan[0]} columns, "
+                f"{plan[1]} stages a unit, ring {plan[2]}, {plan[3]} CTAs), "
+                + (f"chosen at R{r}" if chosen else f"R{r}, {reps} calls")
+                + f": max|err| {float(err.max()):.3g} within {tol}")
+            del run, plain, outs
+    torch.cuda.empty_cache()
 
 
 # the wide weight-only GEMM's shapes: (label, rows, K, N, input gradient,
@@ -1946,6 +2296,14 @@ def profile_t5_step(model, hid, ids):
            else "not measured (no device events in the trace)"))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         say("profile", f"  {us / 1e3:.3f} ms/step  {name[:100]}")
+    say_total(by_name, "int8_gemv", "the GEMV (#9), every instantiation", 1)
+
+
+def say_total(by_name, kernel, what, steps):
+    """The profile's device time of every kernel named ``kernel``."""
+    us = sum(v for k, v in by_name.items() if kernel in k)
+    n = sum(1 for k in by_name if kernel in k)
+    say("profile", f"  {us / 1e3 / steps:.3f} ms/step  {what} ({n} names)")
 
 
 def phase_lvlm_text():
@@ -2220,6 +2578,7 @@ def phase_profile(engine, n_slots=256, steps=8):
            if by_name else "not measured (no device events in the trace)"))
     for name, us in top:
         say("profile", f"  {us / 1e3 / steps:.3f} ms/step  {name[:100]}")
+    say_total(by_name, "paged_decode", "the paged decode (#4)", steps)
     del pools
 
 
@@ -2265,6 +2624,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "device_ms": main_row["device_ms"],
+            "cold_device_ms": main_row["cold_device_ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],

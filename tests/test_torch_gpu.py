@@ -295,6 +295,9 @@ def _paged_inputs(cuda, slots, h, hkv, page, lengths, seed=0):
     (6, 12, 2, 64, [1, 64, 65, 130, 600, 7]),
     (4, 8, 2, 16, [1, 16, 17, 100]),
     (3, 4, 4, 64, [200, 3, 129]),
+    (5, 28, 4, 64, [1, 64, 65, 640, 333]),      # G 7, the 7B's geometry
+    (4, 16, 2, 32, [31, 32, 33, 320]),          # G 8, page 32
+    (3, 12, 2, 16, [1, 1024, 16]),              # a slot of MP x page
 ])
 def test_paged_attention_kernel_matches_plain(cuda, slots, h, hkv, page,
                                               lengths):
@@ -310,6 +313,66 @@ def test_paged_attention_kernel_matches_plain(cuda, slots, h, hkv, page,
     err = (out.float() - ref.float()).abs()
     assert torch.isfinite(out.float()).all()
     assert (err <= 4e-3 + 1e-2 * ref.float().abs()).all(), float(err.max())
+
+
+def _paged_check(out, ref, live):
+    err = (out.float() - ref.float()).abs()[live]
+    assert torch.isfinite(out.float()).all()
+    assert (err <= 4e-3 + 1e-2 * ref.float().abs()[live]).all(), float(err.max())
+
+
+@pytest.mark.parametrize("page", [16, 64])
+def test_paged_attention_every_plan_matches_plain(cuda, monkeypatch, page):
+    """Every unit size the plan can pick (1 stage .. all of MP), with the
+    units of a slot combined in the same launch, agrees with the plain
+    version; a slot of length 0, whose output is not defined, reads no page
+    and gets zeros, never NaN (the gather formulation averages its masked
+    positions instead); the trash page is poisoned."""
+    from thinkdiff_torch.ops import paged_attention as pa
+
+    lengths = [0, 1, 64, 65, 7 * page + 3, 9 * page, 300, 2]
+    q, k, v, table, lens = _paged_inputs(cuda, 8, 12, 2, page, lengths)
+    ref = pa.paged_attention_reference(q, k, v, table, lens)
+    live = lens > 0
+    mp, pps = table.shape[1], 64 // page
+    for ppu in range(pps, mp + pps, pps):
+        monkeypatch.setattr(pa, "paged_plan", lambda *a, c=ppu: c)
+        out = pa.paged_attention(q, k, v, table, lens.long())
+        torch.cuda.synchronize()
+        _paged_check(out, ref, live)
+        assert (out[~live] == 0).all()
+
+
+def test_paged_attention_repeats_and_graph_replays_give_the_same_bits(cuda):
+    """Two calls give the same bits, the second allocates no workspace, and
+    a launch captured in a CUDA graph and replayed on new queries and
+    lengths gives the eager call's bits: the split's counters are back at 0
+    after every launch."""
+    from thinkdiff_torch.ops import paged_attention as pa
+
+    lengths = [640, 1, 65, 300, 600, 2, 129, 640] * 4
+    q, k, v, table, lens = _paged_inputs(cuda, 32, 12, 2, 64, lengths)
+    assert -(-table.shape[1] // pa.paged_plan(32, 2, table.shape[1], 64,
+                                             132)) > 1  # split
+    first = pa.paged_attention(q, k, v, table, lens)
+    held = dict(pa._WORKSPACE)
+    assert torch.equal(first, pa.paged_attention(q, k, v, table, lens))
+    assert pa._WORKSPACE == held  # no allocation after the first call
+    qs, ls = q.clone(), lens.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention(qs, k, v, table, ls)  # the stream's workspace
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = pa.paged_attention(qs, k, v, table, ls)
+    for seed in (5, 6):
+        qs.copy_(_randn(tuple(q.shape), seed, cuda))
+        ls.copy_(torch.flip(lens, (0,)) if seed == 6 else lens)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, pa.paged_attention(qs, k, v, table, ls))
 
 
 def _sample_case(cuda, b, d, v, seed=0):
@@ -624,7 +687,9 @@ def _int8_weight(k, n, seed, cuda):
 @pytest.mark.parametrize("r,k,n", [(1, 4096, 32128), (32, 4096, 32128),
                                    (8, 4096, 4096), (17, 10240, 4096),
                                    (3, 64, 48), (32, 4096, 10240),
-                                   (70, 256, 96)])
+                                   (70, 256, 96), (15, 4096, 4096),
+                                   (16, 4096, 10240), (31, 10240, 4096),
+                                   (1, 512, 16), (16, 1040, 4112)])
 def test_int8_matmul_kernel_within_one_ulp(cuda, r, k, n):
     from thinkdiff_torch.ops.int8_matmul import (
         int8_matmul, int8_matmul_reference)
@@ -655,6 +720,121 @@ def test_int8_matmul_kernel_f32(cuda):
     ref = int8_matmul_reference(x, w, s)
     assert out.dtype == torch.float32
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("xt,yt", [(torch.float32, torch.float32),
+                                   (torch.float32, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("r,k,n", [(1, 4096, 4096), (17, 4096, 10240),
+                                   (32, 1040, 16)])
+def test_int8_matmul_kernel_f32_in_and_out(cuda, xt, yt, r, k, n):
+    """f32 x (three bf16 terms, exact products) and f32 y, split and not:
+    within 1e-5 of the largest output of the plain f32 product, and one
+    bf16 ulp more where y is bf16."""
+    from thinkdiff_torch.ops.int8_matmul import (
+        int8_matmul, int8_matmul_reference)
+
+    x = _randn((r, k), 45, cuda, xt) * 3.0
+    w, s = _int8_weight(k, n, 46, cuda)
+    out = int8_matmul(x, w, s, yt)
+    ref = int8_matmul_reference(x, w, s, torch.float32)
+    assert out.dtype == yt
+    tol = 1e-5 * ref.abs().max() + (_bf16_ulp(ref) if yt == torch.bfloat16
+                                    else 0.0)
+    assert ((out.float() - ref).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("r,k,n", [(8, 4096, 4096), (32, 4096, 10240),
+                                   (1, 10240, 4096), (16, 4096, 32128)])
+def test_int8_gemv_every_plan_matches_plain(cuda, monkeypatch, r, k, n):
+    """Every unit width, splits of K from none to one stage a range, CTAs
+    from one to a unit each (two an SM among them, which a 3-stage ring
+    lets co-reside), and ring depths 3 and the deepest that fits all agree
+    with the plain version to its tolerance."""
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    x = _randn((r, k), 47, cuda)
+    w, s = _int8_weight(k, n, 48, cuda)
+    ref = im.int8_matmul_reference(x, w, s)
+    tol = _bf16_ulp(ref) + 1e-5 * ref.float().abs().max()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for block_n in im.GEMV_BLOCKS:
+        steps = -(-k // (im.GEMV_STAGE_BYTES // block_n))
+        tiles = -(-n // block_n)
+        deepest = max(st for st in range(2, im.GEMV_MAX_STAGES + 1)
+                      if im.gemv_smem(r, False, st, block_n) <= im.SMEM_LIMIT)
+        for per in sorted({1, 2, 3, steps // 2 or 1, steps}):
+            units = tiles * -(-steps // per)
+            for ctas in sorted({1, units // 3 + 1, min(units, sms),
+                                min(units, 2 * sms)}):
+                for stages in sorted({3, deepest}):
+                    plan = (block_n, per, stages, ctas)
+                    monkeypatch.setattr(im, "gemv_plan", lambda *a, c=plan: c)
+                    out = im.int8_matmul(x, w, s)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref.float()).abs()
+                    assert (err <= tol).all(), (plan, float(err.max()))
+
+
+def test_int8_gemv_split_co_resident_on_two_streams(cuda, monkeypatch):
+    """A split plan at two CTAs an SM with a 3-stage ring (two kernels'
+    CTAs share the SMs), launched on two streams at once, each stream with
+    its own workspace: every launch gives the bits of one call alone."""
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    w, s = _int8_weight(4096, 32128, 53, cuda)
+    xs = [_randn((8, 4096), seed, cuda) for seed in (54, 55)]
+    plan = (128, 16, 3, 2 * sms)  # 251 tiles x 2 K ranges
+    monkeypatch.setattr(im, "gemv_plan", lambda *a: plan)
+    alone = [im.int8_matmul(x, w, s) for x in xs]
+    for a, x in zip(alone, xs):
+        ref = im.int8_matmul_reference(x, w, s).float()
+        tol = _bf16_ulp(ref) + 1e-5 * ref.abs().max()
+        assert ((a.float() - ref).abs() <= tol).all()
+    streams = [torch.cuda.Stream() for _ in xs]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(10):
+        for i, (st, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(st):
+                outs[i].append(im.int8_matmul(x, w, s))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for out in outs[i]:
+            assert torch.equal(out, alone[i])
+
+
+def test_int8_gemv_repeats_and_graph_replays_give_the_same_bits(cuda):
+    """Two calls give the same bits, the second allocates no workspace, and
+    a launch captured in a CUDA graph and replayed on new inputs gives the
+    eager call's bits: the split's counters are back at 0 after every
+    launch."""
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    w, s = _int8_weight(10240, 1024, 49, cuda)
+    x = _randn((32, 10240), 50, cuda)
+    block_n, per = im.gemv_plan(32, 10240, 1024, 132)[:2]
+    assert -(-(10240 // (im.GEMV_STAGE_BYTES // block_n)) // per) > 1  # split
+    first = im.int8_matmul(x, w, s)
+    held = dict(im._GEMV_WORKSPACE)
+    assert torch.equal(first, im.int8_matmul(x, w, s))
+    assert im._GEMV_WORKSPACE == held
+    xs = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        im.int8_matmul(xs, w, s)  # the stream's workspace
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = im.int8_matmul(xs, w, s)
+    for seed in (51, 52):
+        xs.copy_(_randn((32, 10240), seed, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, im.int8_matmul(xs, w, s))
 
 
 def test_int8_matmul_kernel_rejects_unaligned_k(cuda):

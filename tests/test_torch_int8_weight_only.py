@@ -101,16 +101,77 @@ def test_weight_only_kernels_refuse_unaligned_shapes(k, n):
             (128, 48), dtype=torch.int16), torch.ones(48))
 
 
-def test_gemv_k_split():
-    """Column strips alone when they fill every SM twice; K slices of a
-    multiple of 64 (at least 512) otherwise."""
-    assert ti.gemv_k_split(4096, 32128, 132) == 4096
-    assert ti.gemv_k_split(4096, 10240, 132) == 4096
-    ks = ti.gemv_k_split(4096, 4096, 132)
-    assert ks % 64 == 0 and -(-4096 // ks) == 3
-    ks = ti.gemv_k_split(10240, 4096, 132)
-    assert ks % 64 == 0 and -(-10240 // ks) == 3
-    assert ti.gemv_k_split(512, 16, 132) == 512
+# the GEMV's plan at the flan-t5-xxl decoder's shapes (q/k/v/o and cross
+# q/o, wi_0/wi_1, wo, lm_head), ragged N and K, and tiny shapes; an H100's
+# 132 SMs, an H100 PCIe's 114, a smaller card's 78
+GEMV_SHAPES = [(4096, 4096), (4096, 10240), (10240, 4096), (4096, 32128),
+               (64, 48), (512, 16), (1040, 4112)]
+
+
+def _gemv_units(k, n, block_n, per, ctas):
+    """The work of each CTA under a GEMV plan, as the kernel walks it
+    (csrc/int8_gemv.cu: units K range by K range, column tile fastest, CTA
+    c taking [c U / C, (c + 1) U / C)): a list per CTA of (column tile,
+    first stage, end stage) units."""
+    steps = -(-k // (ti.GEMV_STAGE_BYTES // block_n))
+    tiles = -(-n // block_n)
+    units = tiles * -(-steps // per)
+    return [[(u % tiles, (u // tiles) * per, min(steps, (u // tiles + 1) * per))
+             for u in range(c * units // ctas, (c + 1) * units // ctas)]
+            for c in range(ctas)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("k,n", GEMV_SHAPES)
+@pytest.mark.parametrize("r", [1, 16, 17, 32])
+def test_gemv_plan_covers_k_once_and_balances_the_sms(r, k, n, sms):
+    """Every stage of K of every column tile is in exactly one unit, no
+    unit or launched CTA is empty, and the busiest SM streams no more than
+    the mean over the SMs plus one unit."""
+    block_n, per, stages, ctas = ti.gemv_plan(r, k, n, sms)
+    assert block_n in ti.GEMV_BLOCKS
+    steps = -(-k // (ti.GEMV_STAGE_BYTES // block_n))
+    tiles = -(-n // block_n)
+    work = _gemv_units(k, n, block_n, per, ctas)
+    assert 1 <= ctas <= sms and len(work) == ctas
+    covered = np.zeros((tiles, steps), np.int64)
+    for units in work:
+        assert units
+        for tile, k0, k1 in units:
+            assert k0 < k1 <= steps and k1 - k0 <= per
+            covered[tile, k0:k1] += 1
+    assert (covered == 1).all()
+    busiest = max(sum(k1 - k0 for _, k0, k1 in units) for units in work)
+    assert busiest <= tiles * steps / sms + per
+    assert ti.gemv_smem(r, False, stages, block_n) <= ti.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("r", [1, 16, 17, 32])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 32128)])
+def test_gemv_plan_fits_with_the_deepest_ring(k, n, r, f32):
+    """The ring is as deep as shared memory allows, and at least 3 stages:
+    the 32 KB of weight in flight an SM needs."""
+    block_n, _, stages, _ = ti.gemv_plan(r, k, n, 132, f32)
+    assert ti.gemv_smem(r, f32, stages, block_n) <= ti.SMEM_LIMIT
+    assert (stages == ti.GEMV_MAX_STAGES
+            or ti.gemv_smem(r, f32, stages + 1, block_n) > ti.SMEM_LIMIT)
+    assert (stages - 1) * ti.GEMV_STAGE_BYTES >= 32 * 1024
+
+
+@pytest.mark.parametrize("r,k,n,block_n,splits,ctas", [
+    (8, 4096, 4096, 32, 1, 128),     # q/k/v/o: 128 narrow tiles, no split
+    (32, 4096, 4096, 32, 1, 128),
+    (8, 10240, 4096, 32, 1, 128),    # wo
+    (8, 4096, 32128, 128, 1, 132),   # lm_head: 251 wide tiles fill the SMs
+    (1, 4096, 10240, 32, 1, 132),    # wi: 320 narrow tiles, 3 or 2 a CTA
+    (32, 4096, 10240, 32, 1, 132),
+    (8, 10240, 1024, 32, 4, 128),    # 32 tiles: K split to fill the SMs
+])
+def test_gemv_plan_at_the_t5_shapes(r, k, n, block_n, splits, ctas):
+    got_bn, per, _, got_ctas = ti.gemv_plan(r, k, n, 132)
+    steps = -(-k // (ti.GEMV_STAGE_BYTES // got_bn))
+    assert (got_bn, -(-steps // per), got_ctas) == (block_n, splits, ctas)
 
 
 # the wide kernels' table: (rows, contraction, output columns, input

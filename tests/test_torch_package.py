@@ -142,17 +142,27 @@ def test_kernel_build_inputs():
                      "rmsnorm.cu", "s8_gemm.cu", "s8_gemm_bwd.cu",
                      "s8_gemm_qx.cu"]
     # the mma.sync int8 tile is one header shared by the fused sampler and
-    # the quantize-in-kernel GEMM, the bf16 mma step the GEMV's, the Hopper
-    # PTX (TMA, mbarriers, wgmma, cached tensor maps) the flash kernels',
-    # the w8a8 GEMMs' (whose one kernel is s8_wgmma.cuh) and the weight-only
-    # wide GEMMs'; an edit to any names a new library
+    # the quantize-in-kernel GEMM, the bf16 mma step (and ldmatrix) the
+    # GEMV's and the paged decode's, the Hopper PTX (TMA, mbarriers, wgmma,
+    # cached tensor maps) the flash kernels', the w8a8 GEMMs' (whose one
+    # kernel is s8_wgmma.cuh), the weight-only GEMMs' and the paged
+    # decode's; an edit to any names a new library
     assert [p.name for p in _build.headers()] == ["bf16_mma.cuh",
                                                   "hopper.cuh",
                                                   "s8_tile.cuh",
                                                   "s8_wgmma.cuh"]
     for name in ("fused_sample.cu", "s8_gemm_qx.cu"):
         assert '#include "s8_tile.cuh"' in (_build.CSRC / name).read_text()
-    assert '#include "bf16_mma.cuh"' in (_build.CSRC / "int8_gemv.cu").read_text()
+    # #9 and #4: bandwidth kernels on a TMA ring (mma.sync products), the
+    # split reduced in the same launch through a counter: no second kernel
+    for name in ("int8_gemv.cu", "paged_decode.cu"):
+        src = (_build.CSRC / name).read_text()
+        assert '#include "bf16_mma.cuh"' in src and '#include "hopper.cuh"' in src
+        for call in ("tma_load_4d(", "mbar_wait(", "cached_map_2d(",
+                     "mma_bf16(", "atomicAdd(", "__threadfence()"):
+            assert call in src
+        assert src.count("__global__") == 1
+    assert "ldsm_x4_t(" in (_build.CSRC / "paged_decode.cu").read_text()
     hopper = (_build.CSRC / "hopper.cuh").read_text()
     # the flash forward and backward and the w8a8 and wide GEMMs multiply
     # with wgmma (bf16 -> f32, A from shared memory or registers, and s8 ->

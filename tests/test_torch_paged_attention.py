@@ -200,3 +200,70 @@ def test_model_paged_decode_matches_dense_decode():
             np.testing.assert_allclose(hd_paged.numpy(), hd_dense.numpy(),
                                        **TOL)
             tok, cl = tok + 1, cl + 1
+
+
+# the kernel's plan: (slots, kv heads, MP, page) of the serving slices (2B at
+# 256 and 64 slots, 7B's 4 kv heads), long-context skews, small batches
+# and the smaller pages; an H100's 132 SMs, an H100 PCIe's 114, 78
+PLAN_SHAPES = [(256, 2, 10, 64), (64, 2, 10, 64), (64, 2, 32, 64),
+               (16, 4, 10, 64), (8, 4, 40, 64), (6, 2, 10, 64),
+               (4, 2, 7, 16), (3, 4, 3, 32), (1, 2, 1, 64), (512, 2, 5, 16)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("s,hkv,mp,page", PLAN_SHAPES)
+def test_paged_plan_covers_every_page_once(s, hkv, mp, page, sms):
+    """A slot's MP pages fall in exactly one unit each, no unit is empty, a
+    unit is a whole number of 64-token stages, and the units of every
+    (slot, kv head) hold the same pages to within one unit (only the last
+    is shorter). A unit holds at most PAGED_UNIT_STAGES stages; where the
+    pairs so cut fill half the SMs there is no further split, and where
+    they do not, the split fills the SMs."""
+    ppu = tpa.paged_plan(s, hkv, mp, page, sms)
+    pps = tpa.PAGED_TOKENS // page
+    assert ppu % pps == 0
+    splits = -(-mp // ppu)
+    covered = np.zeros(mp, np.int64)
+    for sp in range(splits):
+        lo, hi = sp * ppu, min(mp, (sp + 1) * ppu)
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    total = -(-mp // pps)  # stages of MP pages
+    assert ppu // pps <= tpa.PAGED_UNIT_STAGES
+    capped = -(-total // tpa.PAGED_UNIT_STAGES)
+    if s * hkv * capped >= sms // 2:
+        assert splits == capped
+    else:
+        assert s * hkv * splits >= min(sms, s * hkv * total)
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def test_launch_plan_reads_no_lengths():
+    """The wrapper plans its launch from shapes alone: on tensors without
+    data (the meta device) it still returns the plan, so it reads nothing
+    back from the card (no sync; a CUDA graph can capture the launch)."""
+    args = (_meta(256, 12, 128), _meta(3000, 2, 64, 128),
+            _meta(3000, 2, 64, 128), _meta(256, 10, dtype=torch.int32))
+    for dtype in (torch.int32, torch.int64):
+        assert tpa._paged_args(*args, _meta(256, dtype=dtype), 132) == (10, 1)
+    assert tpa._paged_args(_meta(64, 28, 128), _meta(900, 4, 64, 128),
+                           _meta(900, 4, 64, 128),
+                           _meta(64, 10, dtype=torch.int32),
+                           _meta(64, dtype=torch.int64), 132) == (10, 1)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(page=8), "pages of"), (dict(d=64), "D=128"),
+    (dict(h=36), "query heads"), (dict(lens=torch.float32), "lengths"),
+    (dict(pool=torch.float32), "bf16"), (dict(table_rows=3), "bad shapes")])
+def test_launch_plan_refuses_what_the_kernel_cannot_take(bad, match):
+    page, d, h = bad.get("page", 64), bad.get("d", 128), bad.get("h", 12)
+    pool = _meta(100, 2, page, d, dtype=bad.get("pool", torch.bfloat16))
+    with pytest.raises((ValueError, TypeError), match=match):
+        tpa._paged_args(_meta(4, h, d), pool, pool,
+                        _meta(bad.get("table_rows", 4), 3, dtype=torch.int32),
+                        _meta(4, dtype=bad.get("lens", torch.int32)), 132)

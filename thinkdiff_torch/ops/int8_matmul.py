@@ -14,7 +14,10 @@ wgmma on a TMA ring), whose tiles and split of the contraction
 ``s8_gemm_plan`` picks from the shapes.
 weight-only int8 (x float, f32 accumulation):
   ``int8_matmul``       y = out(f32(x) @ f32(w_q) * scale), R <= 32 rows a
-                        launch (``int8_matmul``, csrc/int8_gemv.cu)
+                        launch (``int8_matmul``, csrc/int8_gemv.cu: a
+                        bandwidth kernel, persistent CTAs on a TMA ring,
+                        split K reduced in the same launch), whose unit
+                        width and split ``gemv_plan`` picks from the shapes
   ``int8_matmul_wide``  the same at any R with bf16 products, and its input
                         gradient (``int8_matmul_wide``, csrc/int8_wide.cu:
                         bf16 wgmma on a TMA ring, the int8 weight tile
@@ -38,7 +41,6 @@ from thinkdiff_torch.ops.flash_attention import SMEM_LIMIT
 
 # the weight-only GEMV takes R <= GEMV_ROWS rows a launch (two m16 tiles)
 GEMV_ROWS = 32
-_GEMV_COLS = 32     # output columns per block of the GEMV kernel
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -239,15 +241,96 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def gemv_k_split(k: int, n: int, sms: int) -> int:
-    """K per block of the GEMV: all of K while the 32-column strips give
-    every SM two blocks; otherwise K cut into slices (multiples of 64, at
-    least 512 each) until they do."""
-    strips = -(-n // _GEMV_COLS)
-    slices = min(-(-2 * sms // strips), max(1, k // 512))
-    if slices <= 1:
-        return k
-    return -(-k // (slices * 64)) * 64
+# the GEMV's plan (csrc/int8_gemv.cu): a work unit is GEMV_BLOCKS columns
+# (32, 64 or 128) x a K range of whole stages; a stage holds GEMV_STAGE_BYTES
+# of the weight (block_n columns x GEMV_STAGE_BYTES / block_n bytes of k);
+# persistent CTAs, one an SM at most, each a contiguous run of the units
+# (K range by K range, column tile fastest)
+GEMV_BLOCKS = (128, 64, 32)
+GEMV_STAGE_BYTES = 16384
+GEMV_MAX_STAGES = 8
+# the plan's costs, in stages of one SM (~0.8 us each on an H100, the
+# consumers' rate; ``chip_smoke.gemv_sweep``, NVIDIA H100 80GB HBM3, 700
+# W): a stage by unit width (narrow units copy more, smaller TMA boxes a
+# stage) and above 16 rows (two m16 tiles); a unit's epilogue; a split's
+# partial sums, fence, counters and closing reads (measured +3-4 us at 2
+# ranges, +8 us at 4)
+GEMV_STAGE_COST = {128: 1.0, 64: 1.06, 32: 1.15}
+GEMV_MT2_COST = 1.22
+GEMV_UNIT_COST = 0.5
+GEMV_SPLIT_FIXED = 5.0
+GEMV_SPLIT_RANGE = 1.0
+
+
+def gemv_smem(r: int, f32: bool, stages: int, block_n: int) -> int:
+    """Shared memory of the GEMV (``GemvTile::smem``): ``stages`` ring
+    stages of the 16 KB weight tile and the stage's x (16 or 32 rows of
+    16384 / block_n k, bf16 or f32), the eight warps' sums, the barriers,
+    1024 bytes of alignment."""
+    mt = 1 if r <= 16 else 2
+    cg = block_n // 32
+    slices = 8 // cg
+    sk = 64 * slices
+    stage = GEMV_STAGE_BYTES + sk * (4 if f32 else 2) * 16 * mt
+    return stages * stage + 8 * mt * 16 * 32 * 4 + 2 * stages * 8 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(r: int, k: int, n: int, sms: int = 132,
+              f32: bool = False) -> tuple:
+    """(block_n, per, stages, ctas) of the GEMV for r <= 32 rows of an (r,
+    k) @ (k, n) product, from the shapes alone. Units are block_n columns x
+    K ranges of ``per`` stages (none empty), and ctas = min(units, sms)
+    persistent CTAs take them in contiguous runs. Of every width and cut,
+    the one whose busiest SM takes the least time, counted in stages: its
+    units' stages (GEMV_STAGE_COST by width, GEMV_MT2_COST above 16 rows)
+    and GEMV_UNIT_COST a unit, plus a split's GEMV_SPLIT_FIXED and
+    GEMV_SPLIT_RANGE a K range; ties go to fewer ranges, then wider units;
+    a width whose ring would hold fewer than 3 stages (f32 x at 32
+    columns) is not taken. Then as deep a ring as fits in shared memory
+    (3-8)."""
+    mt_cost = GEMV_MT2_COST if r > 16 else 1.0
+    best = None
+    for block_n in GEMV_BLOCKS:
+        if gemv_smem(r, f32, 3, block_n) > SMEM_LIMIT:
+            continue  # under 32 KB of weight in flight
+        steps = -(-k // (GEMV_STAGE_BYTES // block_n))
+        tiles = -(-n // block_n)
+        stage = mt_cost * GEMV_STAGE_COST[block_n]
+        for splits in range(1, steps + 1):
+            per = -(-steps // splits)
+            if -(-steps // per) != splits:
+                continue  # the same cut as fewer ranges
+            units = tiles * splits
+            waves = -(-units // min(units, sms))
+            cost = waves * (per * stage + GEMV_UNIT_COST) + (
+                GEMV_SPLIT_FIXED + GEMV_SPLIT_RANGE * splits if splits > 1
+                else 0)
+            key = (cost, splits, -block_n)
+            if best is None or key < best[0]:
+                best = (key, block_n, per, min(units, sms))
+    _, block_n, per, ctas = best
+    stages = max(s for s in range(2, GEMV_MAX_STAGES + 1)
+                 if gemv_smem(r, f32, s, block_n) <= SMEM_LIMIT)
+    return block_n, per, stages, ctas
+
+
+# a split GEMV's f32 partial sums (splits, GEMV_ROWS, N) and its counters
+# (one int a 32-column tile, the narrowest, left at 0 by every launch), per
+# device, stream, N and split: allocated at the first call of a shape,
+# never per call
+_GEMV_WORKSPACE: dict = {}
+
+
+def _gemv_workspace(device, stream: int, n: int, splits: int):
+    key = (device.index, stream, n, splits)
+    got = _GEMV_WORKSPACE.get(key)
+    if got is None:
+        got = _GEMV_WORKSPACE[key] = (
+            torch.empty((splits, GEMV_ROWS, n), dtype=torch.float32,
+                        device=device),
+            torch.zeros((-(-n // 32),), dtype=torch.int32, device=device))
+    return got
 
 
 def _int8_matmul_cuda(x, w_q, scale, out_dtype):
@@ -264,18 +347,22 @@ def _int8_matmul_cuda(x, w_q, scale, out_dtype):
     _aligned("int8_matmul", ("x", x2), ("w_q", wt))
     r = x2.shape[0]
     y = torch.empty((r, n), dtype=out_dtype, device=x.device)
-    k_split = gemv_k_split(k, n, _sm_count(x.device.index or 0))
-    slices = -(-k // k_split)
-    part = (torch.empty((slices, min(r, GEMV_ROWS), n), dtype=torch.float32,
-                        device=x.device) if slices > 1 else None)
+    f32 = x.dtype == torch.float32
+    sms = _sm_count(x.device.index or 0)
+    stream = kernels.stream_of(x)
     lib = kernels.library()
     for r0 in range(0, r, GEMV_ROWS):
         xs, ys = x2[r0:r0 + GEMV_ROWS], y[r0:r0 + GEMV_ROWS]
+        rows = xs.shape[0]
+        block_n, per, stages, ctas = gemv_plan(rows, k, n, sms, f32)
+        splits = -(-(-(-k // (GEMV_STAGE_BYTES // block_n))) // per)
+        ws, cnt = (_gemv_workspace(x.device, stream, n, splits)
+                   if splits > 1 else (None, None))
         rc = lib.thinkdiff_int8_gemv(
             kernels.ptr(xs), kernels.ptr(wt), kernels.ptr(scale),
-            kernels.ptr(ys), kernels.ptr(part), xs.shape[0], k, n, k_split,
-            int(x.dtype == torch.float32), int(out_dtype == torch.float32),
-            kernels.stream_of(x))
+            kernels.ptr(ys), kernels.ptr(ws), kernels.ptr(cnt), rows, k, n,
+            block_n, per, stages, ctas, int(f32),
+            int(out_dtype == torch.float32), stream)
         kernels.check_launch(rc, "int8_matmul")
         kernels.count_launch("int8_matmul")
     return y.reshape(*lead, n)
