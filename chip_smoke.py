@@ -33,7 +33,10 @@ non-zero:
                 weight-only GEMM and its input gradient at the flan-t5-xxl
                 FFN's 1024 rows, at lvlm-text's kv_fused shape (411 rows,
                 beside the port's bf16-copy route there), in f32 and at 33
-                rows; the quantize-in-kernel s8 GEMM at 1024 rows;
+                rows; the fused sampler at the 2B tied pack's 8, 64 and 256
+                rows and the 7B untied pack's 16, noise off and on, also
+                with a cold L2; the quantize-in-kernel s8 GEMM at 1024
+                rows; both checked to be one device launch a call;
   4. train-w8a8 — the LVLM aligner's training step: configs/
                 train_thinkdiff_lvlm_ccsbu.yaml's model and run sections with
                 bench.py's overrides (w8a8 frozen flan-t5-xxl decoder at full
@@ -353,12 +356,12 @@ def phase_build():
             name = re.search(r"(flash_fwd_kernelILi\d+ELi\d+ELi\d|"
                              r"rmsnorm_\w{1,48}|s8_wgmma_kernelILi\d+ELi\d+E|"
                              r"s8_split_sum|"
-                             r"paged_decode_kernelILb\dE|fused_sample_tiles|"
-                             r"fused_sample_reduce|"
+                             r"paged_decode_kernelILb\dE|"
+                             r"fused_sample_kernelILi\d+ELb\dE|"
                              r"flash_bwd_d\w+?_kernelILi\d+E(?:Li\d)?|"
                              r"int8_gemv_kernelILi\d+ELb\d+ELb\d|"
                              r"int8_wide_kernelILi\d+ELi\dELb\dELb\dELb\d|"
-                             r"s8_gemm_qx_kernelILb\dELb\d)", entry)
+                             r"s8_gemm_qx_kernelILi\d+ELi\d+ELb\dELb\d)", entry)
             say("build", f"{name.group(1) if name else entry}: {m.group(1)} "
                 f"registers, {m.group(2) or 0} B static smem, {stack} B "
                 f"stack frame, {spill} B spill stores")
@@ -668,7 +671,7 @@ def flash_bwd_tile_sweep():
 
 def kernel_ab(root: str = ".",
               parts=("flash", "rmsnorm", "flash_bwd", "s8", "wide", "gemv",
-                     "paged")):
+                     "paged", "sample", "qx")):
     """Device and event ms of the flash forward (#1), RMSNorm (#3), the
     flash backward (#5 and #6 each, and ``flash_attention_backward``, both
     at the training shapes, contiguous and in the T5 layout) and the w8a8
@@ -677,8 +680,11 @@ def kernel_ab(root: str = ".",
     ``WIDE_TABLE`` shape, beside the one-call library route), the GEMV (#9
     at every ``T5_GEMV_SHAPES`` shape x R 1, 8, 16, 32) and the paged
     decode (#4 at every ``paged_shapes`` case), these two also with a cold
-    L2 (``cold_ms``) and the host time a call, at the kernel
-    table's shapes, through the package of
+    L2 (``cold_ms``) and the host time a call, the fused sampler (#8 at
+    every ``sample_cases`` shape, noise off and on: cold, its whole device
+    time a call, event, host) and the quantize-in-kernel GEMM (#12 at
+    ``kernels_s8_qx``'s shapes beside the port's pre-pass + #2), at the
+    kernel table's shapes, through the package of
     the checkout at ``root``,
     so that two commits' kernels can be held against each other on one
     machine: unpack the other commit (``git archive``) into a git-ignored
@@ -731,6 +737,10 @@ def kernel_ab(root: str = ".",
                          lambda: paged_attention(*ops), "paged_decode", work)
             del ops
         torch.cuda.empty_cache()
+    if "sample" in parts:
+        kernel_ab_sample(where)
+    if "qx" in parts:
+        kernel_ab_qx(where)
     if "flash" in parts:
         kernel_ab_flash(where)
     if "rmsnorm" in parts:
@@ -771,6 +781,89 @@ def ab_bandwidth(where, label, run, kernel, work):
         f"({b_ms / cold:.0%} of the {b_ms:.4f} ms bound), warm device "
         f"{device_ms(run, runs=50):.4f} ms, event {time_ms(run):.4f} ms, "
         f"host {host_us(run):.1f} us a call")
+
+
+def kernel_ab_sample(where):
+    """``kernel_ab``'s fused-sampler lines: the weight (236-550 MB) never
+    fits the L2, so cold is the path's case; device is every kernel a call
+    (a pre-pass included), event and host a call besides."""
+    from thinkdiff_torch.ops.fused_sample import fused_lm_sample
+
+    seed = torch.tensor([2024, -77], dtype=torch.int32, device="cuda")
+    for label, pack, b in sample_cases():
+        x = randn((b, pack["qt"].shape[1]), 15)
+        blocked = (torch.arange(b, device="cuda") % 4 == 0).float()
+        b_ms = bound_ms(*sample_work(pack, x, blocked))[0]
+        for nz in (False, True):
+            run = (lambda nz=nz, pk=pack: fused_lm_sample(
+                x, pk, blocked, seed, temperature=0.6 if nz else 0.0,
+                noise=nz))
+            cold = cold_ms(run, "fused_sample")
+            say("ab", f"{where.name} fused_lm_sample {label}, noise "
+                f"{'on' if nz else 'off'}: cold device {cold:.4f} ms "
+                f"({b_ms / cold:.0%} of the {b_ms:.4f} ms bound), device "
+                f"{device_ms(run, runs=50):.4f} ms (every kernel a call), "
+                f"event {time_ms(run):.4f} ms, host {host_us(run):.1f} us a "
+                "call")
+    torch.cuda.empty_cache()
+
+
+def sample_sweep():
+    """The fused sampler's plans at every ``sample_cases`` shape, noise off
+    and on: rings of 3, 5 and the deepest (stages a ring; two rings a
+    CTA), cold device ms each (``cold_ms``), each plan's ids checked
+    identical to ``sample_plan``'s own. Run alone:
+    ``python3 -c "import chip_smoke as c; c.phase_device(); c.sample_sweep()"``."""
+    from unittest import mock
+
+    from thinkdiff_torch.ops import fused_sample as fs
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seed = torch.tensor([2024, -77], dtype=torch.int32, device="cuda")
+    for label, pack, b in sample_cases():
+        vp, d = pack["qt"].shape
+        x = randn((b, d), 15)
+        blocked = (torch.arange(b, device="cuda") % 4 == 0).float()
+        chosen = fs.sample_plan(b, d, vp, sms)
+        n, tiles = chosen[:2]
+        fit = [st for st in range(2, fs.SAMPLE_MAX_STAGES + 1)
+               if fs.sample_smem(n, tiles, st) <= fs.SMEM_LIMIT]
+        for nz in (False, True):
+            run = (lambda nz=nz: fs.fused_lm_sample(
+                x, pack, blocked, seed, temperature=0.6 if nz else 0.0,
+                noise=nz))
+            want = run()
+            for stages in sorted({3, 5, max(fit)} & set(fit)):
+                cfg = (n, tiles, stages, chosen[3])
+                with mock.patch.object(fs, "sample_plan",
+                                       lambda *a, c=cfg: c):
+                    same = torch.equal(run(), want)
+                    cold = cold_ms(run, "fused_sample_kernel")
+                say("sweep", f"sample {label} noise {'on' if nz else 'off'}"
+                    f" stages {stages}"
+                    f"{' (plan)' if cfg == chosen else ''}: cold device "
+                    f"{cold:.4f} ms, {'identical' if same else 'DIFFERS'}")
+    torch.cuda.empty_cache()
+
+
+def kernel_ab_qx(where):
+    """``kernel_ab``'s lines of #12 at ``kernels_s8_qx``'s shapes, beside
+    the port's pre-pass + #2 (the route #12 replaces)."""
+    from thinkdiff_torch.ops import int8_matmul as im
+    from thinkdiff_torch.ops.quant import _absmax_quant_rows
+
+    x = randn((1024, 4096), 66) * 3.0
+    for n in (4096, 20480):
+        w, s = int8_weight(4096, n, 65)
+        for label, run in (
+                ("s8_matmul_qx", lambda: im.s8_matmul_qx(x, w, s)),
+                ("pre-pass + s8_matmul", lambda: im.s8_matmul(
+                    *_absmax_quant_rows(x), w, s))):
+            say("ab", f"{where.name} {label} R1024 K4096 N{n}: device "
+                f"{device_ms(run, runs=50):.4f} ms, event {time_ms(run):.4f} "
+                f"ms, host {host_us(run):.1f} us a call")
+        del w
+    torch.cuda.empty_cache()
 
 
 def kernel_ab_flash(where):
@@ -1064,41 +1157,72 @@ def kernels_paged(results):
     torch.cuda.empty_cache()
 
 
+def sample_cases():
+    """(label, pack, rows) of every fused-sampler shape the paths give it:
+    the 2B tied-embedding pack (a seeded N(0, 0.02) table) at 64 rows (the
+    gumbel slice's decode step and first-token group), 8 (a small first-
+    token group) and 256 (the shipped configuration's decode step); the
+    7B's untied w8a8 lm_head (seeded int8 weight, column scales and input
+    scales; D3584, V152064: the opt-in ``sampler: gumbel`` of the LVLM
+    inference YAML) at its 16 requests."""
+    from thinkdiff_torch.ops.fused_sample import (
+        pack_lm_head, pack_tied_embedding)
+
+    eos = [151643, 151645]
+    d, v = 1536, 151936
+    pack = pack_tied_embedding(randn((v, d), 14, torch.float32) * 0.02, eos)
+    cases = [(f"B{b} D{d} V{v} (Vp {pack['qt'].shape[0]}) tied 2B pack",
+              pack, b) for b in (64, 8, 256)]
+    d, v = 3584, 152064
+    g = torch.Generator(device="cuda").manual_seed(16)
+    q = torch.randint(-127, 128, (d, v), dtype=torch.int8, device="cuda",
+                      generator=g)
+    scale = torch.rand(v, device="cuda", generator=g) / 2048 + 1e-4
+    iscale = torch.rand(d, device="cuda", generator=g) + 0.5
+    pack7 = pack_lm_head(q, scale, input_scale=iscale, eos_ids=eos)
+    del q
+    cases.append((f"B16 D{d} V{v} (Vp {pack7['qt'].shape[0]}) untied 7B pack",
+                  pack7, 16))
+    return cases
+
+
+def sample_work(pack, x, blocked):
+    """(bytes, operations, "int8") of one fused-sampler call."""
+    vp, d = pack["qt"].shape
+    b = x.shape[0]
+    return (nbytes(pack["qt"], pack["scale"], pack["pad_bias"],
+                   pack["eos_bias"], pack["inv_input"], x, blocked) + b * 8,
+            2 * b * d * vp, "int8")
+
+
 def kernels_fused_sample(results):
     from thinkdiff_torch.ops.fused_sample import (
-        fused_lm_sample, fused_lm_sample_reference, gumbel_noise,
-        pack_tied_embedding)
+        fused_lm_sample, fused_lm_sample_reference, gumbel_noise)
 
-    # the 2B tied-embedding pack, from a seeded N(0, 0.02) table; batch 64
-    # is the gumbel slice's decode step and first-token group (64 slots),
-    # 8 a small power-of-two first-token group (one partly filled row tile),
-    # 256 the shipped configuration's decode step
-    d, v = 1536, 151936
-    pack = pack_tied_embedding(randn((v, d), 14, torch.float32) * 0.02,
-                               [151643, 151645])
-    vp = pack["qt"].shape[0]
     seed = torch.tensor([2024, -77], dtype=torch.int32, device="cuda")
-    for b in (64, 8, 256):
+    for label, pack, b in sample_cases():
+        vp, d = pack["qt"].shape
         x = randn((b, d), 15)
         blocked = (torch.arange(b, device="cuda") % 4 == 0).float()
         noise = gumbel_noise(seed, b, vp)
-        work = (nbytes(pack["qt"], pack["scale"], pack["pad_bias"],
-                       pack["eos_bias"], x, blocked) + b * 8, 2 * b * d * vp,
-                "int8")
         for temp, use_noise in ((0.0, False), (0.6, True)):
+            run = (lambda x=x, blk=blocked, t=temp, nz=use_noise, pk=pack:
+                   fused_lm_sample(x, pk, blk, seed, temperature=t, noise=nz))
             results.append(check(
-                "fused_lm_sample", f"B{b} D{d} V{v} (Vp {vp}) tied 2B pack, "
-                f"noise {'on, T 0.6' if use_noise else 'off'}",
-                lambda x=x, blk=blocked, t=temp, nz=use_noise: fused_lm_sample(
-                    x, pack, blk, seed, temperature=t, noise=nz),
-                lambda x=x, blk=blocked, t=temp, nz=use_noise, nn=noise:
-                    fused_lm_sample_reference(x, pack, blk, temperature=t,
-                                              noise=nn if nz else None),
+                "fused_lm_sample", f"{label}, noise "
+                f"{'on, T 0.6' if use_noise else 'off'}", run,
+                lambda x=x, blk=blocked, t=temp, nz=use_noise, nn=noise,
+                pk=pack: fused_lm_sample_reference(
+                    x, pk, blk, temperature=t, noise=nn if nz else None),
                 lambda e, ref: e == 0,
                 "ids identical" + (" (same keyed Gumbel noise)" if use_noise
                                    else ""),
-                work, main=b == 64 and use_noise))
-
+                sample_work(pack, x, blocked), main=b == 64 and use_noise,
+                cold="fused_sample_kernel"))
+            expect_one_launch("kernels", f"fused_lm_sample {label}", run,
+                              "fused_sample_kernel")
+        del noise
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1649,6 +1773,9 @@ def kernels_s8_qx(results):
             lambda e, ref: e == 0, "identical",
             (4096 * n + nbytes(x, s, y), 2 * 1024 * 4096 * n, "int8"),
             library=library, main=proj == "wi_fused")
+        expect_one_launch("kernels", f"s8_matmul_qx {proj}",
+                          lambda x=x, w=w, s=s: im.s8_matmul_qx(x, w, s),
+                          "s8_gemm_qx_kernel")
         row["prepass_s8_ms"] = time_ms(lambda x=x, w=w, s=s: im.s8_matmul(
             *_absmax_quant_rows(x), w, s))
         say("kernels", f"s8_matmul_qx {proj}: the port's pre-pass + s8_matmul "

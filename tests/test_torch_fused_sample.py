@@ -193,3 +193,162 @@ def test_tied_embedding_pack_matches_jax():
     for key in ("q", "scale", "inv_input", "pad_bias", "eos_bias"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
                                       err_msg=key)
+
+
+# ---- the CUDA kernel's host side (csrc/fused_sample.cu): its plan, the
+# wrapper's checks and the 64-bit argmax key, on the CPU ----
+
+SMS = 132  # an H100's SMs
+_VP_2B = 153600  # the 2B pack's 151936 columns padded to 2048
+_VP_7B = 153600  # the 7B's 152064, likewise
+
+
+@pytest.mark.parametrize("b", [1, 5, 8, 9, 16, 17, 32, 33, 64, 65, 100, 128,
+                               129, 200, 256])
+@pytest.mark.parametrize("d,vp", [(1536, _VP_2B), (3584, _VP_7B), (64, 512)])
+def test_sample_plan_fits_covers_and_fills(b, d, vp):
+    """Shared memory within the block's limit, with rings as deep as fit;
+    batch tiles that hold the rows (one of B <= 128 at the narrowest wgmma
+    width, two of 128 above); every 64-row vocabulary block walked by
+    exactly one CTA, the CTAs' shares within one block of each other, every
+    CTA with at least one block (two, where there are, with one tile, so
+    that both warpgroups work); and as many CTAs as that leaves room for,
+    up to one an SM."""
+    n, tiles, stages, ctas = tfs.sample_plan(b, d, vp, SMS)
+    assert tfs.sample_smem(n, tiles, stages) <= tfs.SMEM_LIMIT
+    assert n in tfs.SAMPLE_WIDTHS and 2 <= stages <= tfs.SAMPLE_MAX_STAGES
+    assert (stages == tfs.SAMPLE_MAX_STAGES
+            or tfs.sample_smem(n, tiles, stages + 1) > tfs.SMEM_LIMIT)
+    assert tiles == (1 if b <= 128 else 2) and b <= tiles * n
+    assert (n == 8 or n // 2 < b) if tiles == 1 else n == 128
+    spans = tfs.sample_blocks((n, tiles, stages, ctas), vp)
+    covered = [blk for lo, hi in spans for blk in range(lo, hi)]
+    blocks = vp // tfs.SAMPLE_BLOCK
+    assert covered == list(range(blocks))
+    sizes = [hi - lo for lo, hi in spans]
+    least = 2 if tiles == 1 and blocks >= 2 else 1
+    assert min(sizes) >= least and max(sizes) - min(sizes) <= 1
+    # one CTA more would leave a CTA short of its blocks, or the SMs full
+    assert ctas <= SMS and (ctas == SMS or blocks // (ctas + 1) < least)
+
+
+def test_sample_plan_on_the_main_paths():
+    """The gumbel slice's 64 rows at D1536 and lvlm-text's 16 at D3584:
+    one batch tile at the batch's own width, rings of seven and eight
+    stages, one CTA an SM; 256 rows: two tiles of 128, rings of four."""
+    assert tfs.sample_plan(64, 1536, _VP_2B, SMS) == (64, 1, 7, SMS)
+    assert tfs.sample_plan(16, 3584, _VP_7B, SMS) == (16, 1, 8, SMS)
+    assert tfs.sample_plan(256, 1536, _VP_2B, SMS) == (128, 2, 4, SMS)
+    for b, d in ((128, 1536), (64, 3584)):
+        assert tfs.sample_plan(b, d, _VP_2B, SMS)[2] >= 4
+
+
+def _misaligned_rows(b, d, dtype):
+    n = b * d
+    return torch.zeros(n + 8, dtype=dtype)[1:n + 1].view(b, d)
+
+
+def _tiny_pack(d=64, v=300):
+    rs = np.random.RandomState(9)
+    q, scale = _quantize(rs.randn(d, v).astype(np.float32))
+    return tfs.pack_lm_head(torch.from_numpy(q), torch.from_numpy(scale))
+
+
+_SAMPLE_BAD = {
+    "x_wrong_d": (lambda pk: (torch.zeros(4, 32), pk), ValueError),
+    "x_3d": (lambda pk: (torch.zeros(4, 1, 64), pk), ValueError),
+    "x_int": (lambda pk: (torch.zeros(4, 64, dtype=torch.int32), pk),
+              TypeError),
+    "x_unaligned": (lambda pk: (_misaligned_rows(4, 64, torch.bfloat16), pk),
+                    ValueError),
+    "d_not_16": (lambda pk: (torch.zeros(4, 40), _tiny_pack(d=40)),
+                 ValueError),
+    "qt_float": (lambda pk: (torch.zeros(4, 64), dict(pk, qt=pk["qt"].float())),
+                 TypeError),
+    "qt_strided": (lambda pk: (torch.zeros(4, 64), dict(
+        pk, qt=torch.zeros(64, 1024, dtype=torch.int8).t()[:, :64])),
+        TypeError),
+    "b_4096": (lambda pk: (torch.zeros(4096, 64), pk), ValueError),
+}
+
+
+@pytest.fixture
+def no_launch(monkeypatch):
+    """Fail where a wrapper reaches the kernel library."""
+    from thinkdiff_torch import kernels
+
+    def library():
+        raise AssertionError("the wrapper reached the kernel library")
+
+    monkeypatch.setattr(kernels, "library", library)
+    before = kernels.launch_counts()
+    yield
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("case", sorted(_SAMPLE_BAD))
+def test_fused_sample_kernel_wrapper_raises_before_launch(no_launch, case):
+    make, err = _SAMPLE_BAD[case]
+    x, pack = make(_tiny_pack())
+    b = x.shape[0]
+    with pytest.raises(err):
+        tfs._fused_lm_sample_cuda(x, pack, torch.zeros(b),
+                                  torch.zeros(2, dtype=torch.int32), 0.6, True)
+
+
+def test_sample_plan_refuses_rows_past_a_launch():
+    for b in (0, 257):
+        with pytest.raises(ValueError):
+            tfs.sample_plan(b, 1536, _VP_2B, SMS)
+
+
+# values around which the key's order is easy to get wrong: ties, -0.0 and
+# +0.0, the -1e30 masking bias, the infinities, and Gumbel draws near the
+# clamped top (g of the top three uniform patterns)
+_TOP_G = tfs.bits_to_gumbel(torch.tensor([0xFFFFFFFF, 0xFFFFFEFF, 0xFFFFFDFF],
+                                         dtype=torch.int64)).tolist()
+_KEY_ROWS = {
+    "ties": [1.5, 3.0, -2.0, 3.0, 3.0, 0.5],
+    "signed_zeros": [-0.0, 0.0, -0.0, -1.0],
+    "zero_after_negative_zero": [-5.0, -0.0, 0.0],
+    "all_masked": [-1e30, -1e30, -1e30],
+    "masked_and_live": [-1e30, -7.25, -1e30, -7.25],
+    "negatives": [-3.0, -1.0, -1.0000001, -2.0],
+    "gumbel_top": _TOP_G + [_TOP_G[0], _TOP_G[1] - 1e-3],
+    "subnormals": [1e-45, -1e-45, 0.0, 1e-45],
+    "infinities": [-np.inf, 1e38, np.inf, np.inf],
+}
+
+
+@pytest.mark.parametrize("row", sorted(_KEY_ROWS))
+def test_argmax_key_orders_as_torch_argmax(row):
+    """The largest 64-bit key of a row encodes torch.argmax's column
+    (first occurrence), whichever order the keys are combined in; keys
+    order first by value, then by the lower column."""
+    vals = torch.tensor(_KEY_ROWS[row], dtype=torch.float32)
+    keys = [tfs.argmax_key(float(v), c) for c, v in enumerate(vals)]
+    want = int(torch.argmax(vals))
+    assert tfs.key_column(max(keys)) == want
+    assert tfs.key_column(max(reversed(keys))) == want
+    for i in range(len(keys)):
+        for j in range(len(keys)):
+            vi, vj = float(vals[i]), float(vals[j])
+            if vi != vj:
+                assert (keys[i] > keys[j]) == (vi > vj)
+            else:
+                assert (keys[i] > keys[j]) == (i < j)
+
+
+def test_argmax_key_noise_rows_match_torch_argmax():
+    """Rows of the plain version's biased, noised logits (keyed Gumbel
+    draws, -1e30 padding and EOS masks): the max key is torch.argmax's."""
+    seed = torch.tensor([7, -3], dtype=torch.int32)
+    g = tfs.gumbel_noise(seed, 16, 600)
+    rs = np.random.RandomState(11)
+    logits = torch.from_numpy(rs.randn(16, 600).astype(np.float32)) * 2
+    logits[:, 500:] = -1e30
+    logits[::3, 7] = -1e30
+    per = logits / 0.6 + g
+    for r in range(16):
+        keys = [tfs.argmax_key(float(v), c) for c, v in enumerate(per[r])]
+        assert tfs.key_column(max(keys)) == int(torch.argmax(per[r]))

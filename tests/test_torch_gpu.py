@@ -387,7 +387,10 @@ def _sample_case(cuda, b, d, v, seed=0):
 
 
 @pytest.mark.parametrize("b,d,v", [(5, 64, 300), (64, 1536, 20000),
-                                   (130, 1536, 5000), (256, 1536, 20000)])
+                                   (130, 1536, 5000), (256, 1536, 20000),
+                                   (1, 1536, 5000), (8, 1536, 20000),
+                                   (17, 1536, 5000), (200, 1536, 5000),
+                                   (16, 3584, 5000), (64, 3584, 3000)])
 @pytest.mark.parametrize("noise", [False, True])
 def test_fused_sample_kernel_matches_plain(cuda, b, d, v, noise):
     """Ids identical to the plain version on the same inputs: exact int32
@@ -407,6 +410,128 @@ def test_fused_sample_kernel_matches_plain(cuda, b, d, v, noise):
     assert torch.equal(got, want)
     assert (got < v).all()
     assert not ((blocked > 0) & ((got == 3) | (got == v - 1))).any()
+
+
+def _sample_check(x, pack, blocked, seed, noise):
+    from thinkdiff_torch.ops.fused_sample import (
+        fused_lm_sample, fused_lm_sample_reference, gumbel_noise)
+
+    got = fused_lm_sample(x, pack, blocked, seed, temperature=0.6,
+                          noise=noise)
+    torch.cuda.synchronize()
+    g = gumbel_noise(seed, x.shape[0], pack["qt"].shape[0]) if noise else None
+    want = fused_lm_sample_reference(x, pack, blocked, temperature=0.6,
+                                     noise=g)
+    return got, want
+
+
+@pytest.mark.parametrize("b", [16, 64])
+def test_fused_sample_bf16_x_with_input_scales(cuda, b):
+    """The serving path's input: bf16 hidden states, and a pack with input
+    scales (x * inv_input before the row's absmax, one rounded product)."""
+    from thinkdiff_torch.ops.fused_sample import pack_lm_head
+
+    d, v = 3584, 4000
+    qw = quantize_weight(_randn((d, v), 60, cuda, torch.float32) * 0.05)
+    iscale = torch.from_numpy(np.random.RandomState(61).rand(d).astype(
+        np.float32) + 0.5).to(cuda)
+    pack = pack_lm_head(qw["q"], qw["scale"], input_scale=iscale,
+                        eos_ids=[3])
+    x = _randn((b, d), 62, cuda)
+    blocked = (torch.arange(b, device=cuda) % 2 == 0).float()
+    seed = torch.tensor([5, 6], dtype=torch.int32, device=cuda)
+    for noise in (False, True):
+        got, want = _sample_check(x, pack, blocked, seed, noise)
+        assert torch.equal(got, want)
+
+
+def _sample_plans(b, d, vp, sms):
+    """Every plan the kernel takes for b rows: the batch tiles sample_plan
+    picks, rings of 2, 3 and the deepest, one CTA, a few, and one an SM."""
+    from thinkdiff_torch.ops import fused_sample as fs
+
+    n, tiles = fs.sample_plan(b, d, vp, sms)[:2]
+    blocks = vp // fs.SAMPLE_BLOCK
+    fit = [s for s in range(2, fs.SAMPLE_MAX_STAGES + 1)
+           if fs.sample_smem(n, tiles, s) <= fs.SMEM_LIMIT]
+    return [(n, tiles, stages, ctas)
+            for stages in sorted({2, 3, max(fit)})
+            for ctas in sorted({1, min(3, blocks), min(blocks, sms)})]
+
+
+@pytest.mark.parametrize("b,d,v", [(5, 1536, 3000), (64, 1536, 9000),
+                                   (130, 256, 3000), (16, 3584, 2000)])
+def test_fused_sample_every_plan_matches_plain(cuda, monkeypatch, b, d, v):
+    """Rings of 2, 3 and the deepest, CTAs from one
+    (every block in one CTA) to one an SM (one block a CTA at some shapes:
+    one warpgroup idle; odd counts: one warpgroup a block more): the ids
+    of the plain version, with and without noise."""
+    from thinkdiff_torch.ops import fused_sample as fs
+
+    x, pack, blocked = _sample_case(cuda, b, d, v, seed=3)
+    seed = torch.tensor([77, -5], dtype=torch.int32, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    vp = pack["qt"].shape[0]
+    plans = _sample_plans(b, d, vp, sms)
+    assert len(plans) >= 3
+    for plan in plans:
+        monkeypatch.setattr(fs, "sample_plan", lambda *a, c=plan: c)
+        for noise in (False, True):
+            got, want = _sample_check(x, pack, blocked, seed, noise)
+            assert torch.equal(got, want), (plan, noise)
+
+
+def test_fused_sample_repeats_graph_replays_and_two_streams(cuda):
+    """One launch a call; two calls give the same ids and allocate no
+    workspace; a launch captured in a CUDA graph and replayed on new hidden
+    states gives the eager call's ids (the keys and counters are back at 0
+    after every launch); two streams at once, each with its own workspace,
+    give the ids of each call alone."""
+    from thinkdiff_torch.ops import fused_sample as fs
+
+    x, pack, blocked = _sample_case(cuda, 64, 1536, 20000, seed=4)
+    seed = torch.tensor([11, 12], dtype=torch.int32, device=cuda)
+    before = kernels.launch_counts()["fused_lm_sample"]
+    first = fs.fused_lm_sample(x, pack, blocked, seed, temperature=0.6,
+                               noise=True)
+    assert kernels.launch_counts()["fused_lm_sample"] == before + 1
+    held = dict(fs._WORKSPACE)
+    assert torch.equal(first, fs.fused_lm_sample(
+        x, pack, blocked, seed, temperature=0.6, noise=True))
+    assert fs._WORKSPACE == held
+    xs = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fs.fused_lm_sample(xs, pack, blocked, seed, temperature=0.6,
+                           noise=True)  # the stream's workspace
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fs.fused_lm_sample(xs, pack, blocked, seed, temperature=0.6,
+                                 noise=True)
+    for s in (5, 6):
+        xs.copy_(_randn((64, 1536), s, cuda, torch.float32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fs.fused_lm_sample(
+            xs, pack, blocked, seed, temperature=0.6, noise=True))
+    xs2 = [_randn((64, 1536), s, cuda, torch.float32) for s in (7, 8)]
+    alone = [fs.fused_lm_sample(a, pack, blocked, seed, temperature=0.6,
+                                noise=True) for a in xs2]
+    streams = [torch.cuda.Stream() for _ in xs2]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(10):
+        for i, (st, a) in enumerate(zip(streams, xs2)):
+            with torch.cuda.stream(st):
+                outs[i].append(fs.fused_lm_sample(
+                    a, pack, blocked, seed, temperature=0.6, noise=True))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for o in outs[i]:
+            assert torch.equal(o, alone[i])
 
 
 # flash backward (dq kernel with delta, dk/dv kernel) vs the plain FA2
@@ -973,7 +1098,10 @@ def test_int8_matmul_wide_autograd_launches_once_each(cuda):
 
 @pytest.mark.parametrize("r,k,n,dtype", [(33, 128, 128, torch.float32),
                                          (300, 4096, 1552, torch.bfloat16),
-                                         (1024, 4096, 4096, torch.bfloat16)])
+                                         (1024, 4096, 4096, torch.bfloat16),
+                                         (300, 4096, 1552, torch.float32),
+                                         (8, 4096, 4096, torch.bfloat16),
+                                         (64, 8192, 1024, torch.bfloat16)])
 def test_s8_matmul_qx_kernel_identical(cuda, r, k, n, dtype):
     """Per-row scales, IEEE division, round half to even and exact int32
     sums: identical to the plain pre-pass chain, with an all-zero row (the
@@ -1034,3 +1162,88 @@ def test_activation_scale_on_the_card_is_a_reciprocal_product(cuda):
     assert torch.equal(s, amax * inv.to(cuda))
     _, s_cpu = _absmax_quant_rows(x.cpu())
     assert torch.equal(s_cpu, amax.cpu() / torch.tensor(127.0))
+
+
+@pytest.mark.parametrize("xt,yt", [(torch.float32, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32)])
+def test_s8_matmul_qx_mixed_dtypes_identical(cuda, xt, yt):
+    from thinkdiff_torch.ops.int8_matmul import (
+        s8_matmul_qx, s8_matmul_qx_reference)
+
+    x = (_randn((200, 1024), 70, cuda, torch.float32) * 3.0).to(xt)
+    w, s = _int8_weight(1024, 2048, 71, cuda)
+    out = s8_matmul_qx(x, w, s, yt)
+    torch.cuda.synchronize()
+    assert out.dtype == yt
+    assert torch.equal(out, s8_matmul_qx_reference(x, w, s, yt))
+
+
+@pytest.mark.parametrize("r,k,n", [(300, 4096, 1552), (64, 2048, 2048)])
+def test_s8_qx_every_plan_identical(cuda, monkeypatch, r, k, n):
+    """Both row tiles and both column widths, rings of 2, 3 and the
+    deepest, bf16 and f32 out: identical to the plain pre-pass chain."""
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    x = _randn((r, k), 72, cuda, torch.float32) * 3.0
+    x[3] = 0.0
+    w, s = _int8_weight(k, n, 73, cuda)
+    for yt in (torch.bfloat16, torch.float32):
+        want = im.s8_matmul_qx_reference(x, w, s, yt)
+        for bm in (64, 128):
+            for bn in (128, 256):
+                fit = [st for st in range(2, im.S8_MAX_STAGES + 1)
+                       if im.s8_gemm_smem(bm, bn, st) <= im.SMEM_LIMIT]
+                for stages in sorted({2, 3, max(fit)}):
+                    plan = (bm, bn, stages)
+                    monkeypatch.setattr(im, "s8_qx_plan",
+                                        lambda *a, c=plan: c)
+                    out = im.s8_matmul_qx(x, w, s, yt)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, want), (plan, yt)
+
+
+def test_s8_qx_repeats_graph_replays_and_two_streams(cuda):
+    """One launch a call; repeated calls give the same bits and allocate
+    no workspace; a CUDA-graph replay on new x gives the eager call's bits
+    (ticket, ready and exit counters back at 0 after every launch); two
+    streams at once give each call's bits alone. One row (32 tiles of 64
+    x 128: a short grid) and 1024 (128 tiles of 128 x 256)."""
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    w, s = _int8_weight(4096, 4096, 74, cuda)
+    for r in (1, 1024):
+        x = _randn((r, 4096), 75, cuda) * 3.0
+        before = kernels.launch_counts()["s8_matmul_qx"]
+        first = im.s8_matmul_qx(x, w, s)
+        assert kernels.launch_counts()["s8_matmul_qx"] == before + 1
+        held = dict(im._QX_WORKSPACE)
+        assert torch.equal(first, im.s8_matmul_qx(x, w, s))
+        assert im._QX_WORKSPACE == held
+        xs = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            im.s8_matmul_qx(xs, w, s)  # the stream's workspace
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = im.s8_matmul_qx(xs, w, s)
+        for seed in (76, 77):
+            xs.copy_(_randn((r, 4096), seed, cuda) * 3.0)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, im.s8_matmul_qx_reference(xs, w, s))
+        xs2 = [_randn((r, 4096), seed, cuda) for seed in (78, 79)]
+        alone = [im.s8_matmul_qx(a, w, s) for a in xs2]
+        streams = [torch.cuda.Stream() for _ in xs2]
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+        outs = [[], []]
+        for _ in range(10):
+            for i, (st, a) in enumerate(zip(streams, xs2)):
+                with torch.cuda.stream(st):
+                    outs[i].append(im.s8_matmul_qx(a, w, s))
+        torch.cuda.synchronize()
+        for i in range(2):
+            for o in outs[i]:
+                assert torch.equal(o, alone[i])

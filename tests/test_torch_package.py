@@ -141,18 +141,38 @@ def test_kernel_build_inputs():
                      "int8_gemv.cu", "int8_wide.cu", "paged_decode.cu",
                      "rmsnorm.cu", "s8_gemm.cu", "s8_gemm_bwd.cu",
                      "s8_gemm_qx.cu"]
-    # the mma.sync int8 tile is one header shared by the fused sampler and
-    # the quantize-in-kernel GEMM, the bf16 mma step (and ldmatrix) the
-    # GEMV's and the paged decode's, the Hopper PTX (TMA, mbarriers, wgmma,
-    # cached tensor maps) the flash kernels', the w8a8 GEMMs' (whose one
-    # kernel is s8_wgmma.cuh), the weight-only GEMMs' and the paged
-    # decode's; an edit to any names a new library
+    # the bf16 mma step (and ldmatrix) is the GEMV's and the paged decode's,
+    # the Hopper PTX (TMA, mbarriers, wgmma, cached tensor maps) every TMA
+    # kernel's, s8_wgmma.cuh the w8a8 GEMMs' mainloop (#2, #7 and #12), and
+    # s8_quant.cuh the per-row quantization of #8 and #12; no mma.sync int8
+    # tile is left; an edit to any names a new library
     assert [p.name for p in _build.headers()] == ["bf16_mma.cuh",
                                                   "hopper.cuh",
-                                                  "s8_tile.cuh",
+                                                  "s8_quant.cuh",
                                                   "s8_wgmma.cuh"]
+    assert not (_build.CSRC / "s8_tile.cuh").exists()
+    # #8 and #12: s8 wgmma on a TMA ring, each row of x quantized once in
+    # the same launch (tickets, a ready counter acquired before the TMA of
+    # the quanta, after the async-proxy fence), one kernel each, the
+    # counters reset by the last CTA
+    quant = (_build.CSRC / "s8_quant.cuh").read_text()
+    for call in ("__fdiv_rn(", "rintf(", "__frcp_rn(127.0f)", "atomicAdd(",
+                 "__threadfence()", "ld_acquire_gpu(",
+                 "fence_proxy_async_global()"):
+        assert call in quant
     for name in ("fused_sample.cu", "s8_gemm_qx.cu"):
-        assert '#include "s8_tile.cuh"' in (_build.CSRC / name).read_text()
+        src = (_build.CSRC / name).read_text()
+        assert '#include "hopper.cuh"' in src and '#include "s8_quant.cuh"' in src
+        assert "s8_tile.cuh" not in src and "mma.sync" not in src
+        assert src.count("__global__") == 1
+        assert "quant_rows_once<" in src and "quant_exit(" in src
+    sample = (_build.CSRC / "fused_sample.cu").read_text()
+    for call in ("wgmma_s8<N>(", "tma_load_4d(", "mbar_wait(", "cached_map_2d(",
+                 "CU_TENSOR_MAP_DATA_TYPE_UINT8", "wait_tile(", "atomicMax(",
+                 "atomicExch(", "logf(", "__fadd_rn(", "__fmul_rn("):
+        assert call in sample
+    assert "__logf(" not in sample
+    assert "s8_body<BM, BN, true, OUTF32>(" in (_build.CSRC / "s8_gemm_qx.cu").read_text()
     # #9 and #4: bandwidth kernels on a TMA ring (mma.sync products), the
     # split reduced in the same launch through a counter: no second kernel
     for name in ("int8_gemv.cu", "paged_decode.cu"):
@@ -171,13 +191,18 @@ def test_kernel_build_inputs():
                "mbarrier.try_wait.parity", "cached_map_2d("):
         assert op in hopper
     assert "m64n256k16.f32.bf16.bf16" in hopper
-    # #2 and #7: the s8 wgmma on a TMA ring, no mma.sync tile; int8 tiles
-    # through UINT8 maps (TMA has no signed 8-bit type)
+    # #2, #7 and #12: the s8 wgmma on a TMA ring, no mma.sync tile; int8
+    # tiles through UINT8 maps (TMA has no signed 8-bit type); #2 and #7
+    # add a split's partials in a second kernel; #12 waits for its row
+    # tiles and never splits, so it has no second kernel
     s8 = (_build.CSRC / "s8_wgmma.cuh").read_text()
     assert '#include "hopper.cuh"' in s8 and "mma.sync" not in s8
     for call in ("wgmma_s8<", "tma_load_4d(", "mbar_wait(", "cached_map_2d(",
-                 "CU_TENSOR_MAP_DATA_TYPE_UINT8"):
+                 "CU_TENSOR_MAP_DATA_TYPE_UINT8", "wait_tile(",
+                 "s8_split_sum<<<"):
         assert call in s8
+    qx = (_build.CSRC / "s8_gemm_qx.cu").read_text()
+    assert "s8_split_sum" not in qx and "s8_launch<" not in qx
     for name in ("s8_gemm.cu", "s8_gemm_bwd.cu"):
         src = (_build.CSRC / name).read_text()
         assert '#include "hopper.cuh"' in src

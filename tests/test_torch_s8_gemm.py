@@ -121,3 +121,77 @@ def test_s8_matmul_bwd_kernel_wrapper_raises_before_launch(no_launch, case):
     gq, w = make()
     with pytest.raises(err):
         im._s8_matmul_bwd_cuda(gq, torch.ones(gq.shape[0]), w, torch.bfloat16)
+
+
+# s8_matmul_qx (#12): the flan-t5-xxl training shapes the ops phase and the
+# kernel table use, R33 / R300 edges, and short grids where #2's plan splits
+QX_SHAPES = [(1024, 4096, 20480), (1024, 4096, 4096), (1024, 4096, 12288),
+             (33, 128, 128), (300, 4096, 1552), (1, 4096, 4096),
+             (64, 8192, 1024), (16, 18944, 3584), (256, 8960, 1536)]
+
+
+def _qx_busiest(r, n, bm, bn):
+    """Units of the busiest CTA of the kernel's persistent grid (s8_grid:
+    min(units, SMS) CTAs, CTA c taking units c, c + grid, ...)."""
+    units = -(-r // bm) * -(-n // bn)
+    grid = min(units, SMS)
+    return max(len(range(c, units, grid)) for c in range(grid)), units, grid
+
+
+@pytest.mark.parametrize("r,k,n", QX_SHAPES)
+def test_s8_qx_plan_fits_covers_and_fills(r, k, n):
+    """The quantize-in-kernel GEMM's plan: shared memory within the limit
+    (its flags included) with the ring as deep as fits, row tiles a whole
+    number of quantization tickets (8 rows), the CTAs' shares of the
+    tiles within one of each other and one CTA an SM wherever there are
+    that many tiles, and of the two column widths the one whose busiest
+    CTA does the least work (tiles x width), the wider on a tie."""
+    bm, bn, stages = im.s8_qx_plan(r, k, n, SMS)
+    assert im.s8_gemm_smem(bm, bn, stages) <= im.SMEM_LIMIT
+    assert (stages == im.S8_MAX_STAGES
+            or im.s8_gemm_smem(bm, bn, stages + 1) > im.SMEM_LIMIT)
+    assert bm % 8 == 0 and bn in (128, 256) and 2 <= stages <= im.S8_MAX_STAGES
+    busiest, units, grid = _qx_busiest(r, n, bm, bn)
+    assert busiest * grid - units < grid  # within one tile of the mean
+    assert grid == min(units, SMS)
+    work = {w: _qx_busiest(r, n, bm, w)[0] * w for w in (128, 256)}
+    assert work[bn] == min(work.values())
+    assert bn == 256 or work[128] < work[256]
+
+
+@pytest.mark.parametrize("r,k,n", [
+    (1024, 4096, 20480), (1024, 4096, 4096),
+    (64, 8192, 1024), (16, 18944, 3584)])
+def test_s8_qx_plan_is_the_gemm_tile_without_a_split(r, k, n):
+    """The kernel takes no split of the contraction, so its plan is #2's
+    tile where #2 does not split (the training shapes: 640 and 128 tiles
+    of 32 K slices); where #2 splits a short grid over a long
+    contraction, the qx plan keeps the same rows a tile and one launch."""
+    plan = im.s8_qx_plan(r, k, n, SMS)
+    gemm = im.s8_gemm_plan(r, k, n, SMS)
+    assert len(plan) == 3 and plan[0] == gemm[0]
+    if gemm[3] == 1:
+        assert plan == gemm[:3]
+
+
+_QX_BAD = {
+    "k_not_16": (lambda: (torch.zeros(4, 40), torch.zeros(40, 32, dtype=torch.int8)),
+                 ValueError),
+    "n_not_16": (lambda: (torch.zeros(4, 64), torch.zeros(64, 40, dtype=torch.int8)),
+                 ValueError),
+    "x_3d": (lambda: (torch.zeros(2, 4, 64), torch.zeros(64, 32, dtype=torch.int8)),
+             ValueError),
+    "x_half": (lambda: (torch.zeros(4, 64, dtype=torch.float16),
+                        torch.zeros(64, 32, dtype=torch.int8)), TypeError),
+    "w_float": (lambda: (torch.zeros(4, 64), torch.zeros(64, 32)), TypeError),
+    "x_unaligned": (lambda: (torch.zeros(4 * 64 + 4)[1:257].view(4, 64),
+                             torch.zeros(64, 32, dtype=torch.int8)), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_QX_BAD))
+def test_s8_matmul_qx_kernel_wrapper_raises_before_launch(no_launch, case):
+    make, err = _QX_BAD[case]
+    x, w = make()
+    with pytest.raises(err):
+        im._s8_matmul_qx_cuda(x, w, torch.ones(w.shape[-1]), torch.bfloat16)

@@ -1,6 +1,7 @@
 // Hopper building blocks as raw PTX, for the flash-attention forward
 // (flash_fwd.cu) and backward (flash_bwd.cu), the w8a8 GEMMs
-// (s8_wgmma.cuh) and the weight-only GEMMs (int8_wide.cu): mbarriers, TMA
+// (s8_wgmma.cuh), the fused sampler (fused_sample.cu) and the weight-only
+// GEMMs (int8_wide.cu): mbarriers, TMA
 // tile copies into shared memory, the warpgroup matrix multiply (wgmma,
 // bf16 -> f32 and s8 -> s32) with its shared-memory descriptors, and on
 // the host the 4-D tensor maps that TMA reads through, with a cache of 2-D
@@ -126,6 +127,20 @@ __device__ __forceinline__ void bulk_wait() {
 // make this thread's shared-memory writes visible to TMA (the async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// order this thread's earlier view of global memory (what an acquire made
+// visible: another CTA's generic stores) before its later TMA reads of it
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// a load with acquire semantics at GPU scope (a flag another CTA releases)
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
 // barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
@@ -374,7 +389,7 @@ __device__ __forceinline__ void wgmma_rs_kb(float (&d)[N / 2], const uint32_t (&
   else wgmma_rs_kb_m64n256(d, a, desc_b, scale_d);
 }
 
-// ---- int8 wgmma (the w8a8 GEMMs, s8_wgmma.cuh) ----------------------------
+// ---- int8 wgmma (the w8a8 GEMMs, s8_wgmma.cuh; the sampler, fused_sample.cu)
 
 // keep the compiler from moving accesses of int32 accumulator registers
 // across the asynchronous multiply that owns them
@@ -388,6 +403,63 @@ __device__ __forceinline__ void fence_regs(int (&d)[N]) {
 // m64nNk32, s8 x s8 -> s32, exact; scale_d = 0 overwrites D. A k32 step is
 // +32 B within the 128-byte row, as a bf16 k16 step. The accumulator
 // layout is the f32 one above.
+__device__ __forceinline__ void wgmma_s8_m64n8(int (&d)[4], uint64_t desc_a,
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3 "
+      "}, %4, %5, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n16(int (&d)[8], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n32(int (&d)[16], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n64(int (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_s8_m64n128(int (&d)[64], uint64_t desc_a,
                                                   uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -456,8 +528,13 @@ __device__ __forceinline__ void wgmma_s8_m64n256(int (&d)[128], uint64_t desc_a,
 template <int N>
 __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
-  static_assert(N == 128 || N == 256, "wgmma_s8: N in {128, 256}");
-  if constexpr (N == 128) wgmma_s8_m64n128(d, desc_a, desc_b, scale_d);
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128 || N == 256,
+                "wgmma_s8: N in {8, 16, 32, 64, 128, 256}");
+  if constexpr (N == 8) wgmma_s8_m64n8(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 16) wgmma_s8_m64n16(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 32) wgmma_s8_m64n32(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 64) wgmma_s8_m64n64(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 128) wgmma_s8_m64n128(d, desc_a, desc_b, scale_d);
   else wgmma_s8_m64n256(d, desc_a, desc_b, scale_d);
 }
 
@@ -509,6 +586,31 @@ __device__ __forceinline__ void work_item(int w, int bh_count, int n_tiles,
 
 constexpr int SMEM_LIMIT = 232448;     // bytes of shared memory a block may use
 constexpr int ERR_TENSOR_MAP = 1000;   // + CUresult of a refused tensor map
+
+// the SMs of the current device
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// let `kernel` take `smem` bytes of dynamic shared memory (`configured`: the
+// most set so far for it)
+template <class Kernel>
+inline int set_smem_attr(Kernel kernel, int smem, int& configured) {
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  if (configured < smem) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    configured = smem;
+  }
+  return 0;
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   void*, const cuuint64_t*, const cuuint64_t*,

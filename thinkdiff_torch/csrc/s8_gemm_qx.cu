@@ -10,164 +10,126 @@
 // it; the JAX package keeps it as the record of the attempt.
 //
 // What bounds it on an H100: the int8 tensor-core rate (1,979 TOP/s dense)
-// at the flan-t5-xxl training shapes (R = 1024, K = 4096), plus the
-// re-reading of the unquantized x, which each block does once per K tile.
-// Design: the 128 x 128 int32 tile of s8_tile.cuh with its own A loader. A
-// block first computes the scales of its 128 rows (one warp per 16 rows,
-// f32 absmax over K), then quantizes each (128 x 64) x tile as it is staged
-// into shared memory; the int8 copy of x never exists in HBM. A 128 x 4096
-// int8 copy would not fit in shared memory (512 KB), hence the per-tile
-// quantization. Each quantum equals the plain version's on the card: x / sx
-// is an IEEE division (__fdiv_rn) and the rounding rintf (half to even);
-// the row scale is max(amax, 1e-30) * fl(1 / 127), because that is what
-// `clamp(amax, 1e-30) / 127.0` computes on a CUDA tensor (PyTorch's CUDA
-// division by a Python scalar multiplies by the scalar's f32 reciprocal;
-// on the CPU it divides, which can differ by one ulp).
+// at the flan-t5-xxl training shapes (R = 1024, K = 4096); the quantization
+// is 4 M divisions and 8 MB of bf16 x, a few microseconds of the card.
+// Design: one launch of persistent CTAs, one an SM.
+//  - First every CTA takes tickets of 8 rows and quantizes them, a warp a
+//    row, into an int8 workspace (R, K) and an f32 sx (R,) (s8_quant.cuh):
+//    each row once. (Quantizing inside each output tile instead repeats
+//    the work for every column tile: 160 times at wi_fused, 2.6 GB of L2
+//    reads and 671 M divisions.)
+//  - Then s8_wgmma.cuh's mainloop (s8_body: s8 wgmma on a TMA ring, with
+//    the tiles of ops/int8_matmul.py s8_qx_plan) runs on the workspace,
+//    which stays in the 50 MB L2. Its producer issues the first unit's
+//    weight slices, then waits for the unit's row tile (an acquire of the
+//    tile's ready counter, then fence.proxy.async.global, then TMA), so
+//    the ring fills while the rows are quantized.
+//  - The contraction is not split: at every shape this op runs (R 1024 K
+//    4096: 128 or 640 tiles of 128 x 256) the tiles alone fill the grid,
+//    and a split would add a reduction of int32 partials (PERF.md).
+//  - Epilogue: float(acc) * sx[r] * s[c] in that order; bf16 through the
+//    TMA-store tile, f32 stored from registers.
+//  - The last CTA to finish resets the ticket and ready counters: a call
+//    and a CUDA-graph replay find them at 0 (while no two launches in
+//    flight share the workspace; s8_quant.cuh).
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "s8_tile.cuh"
+#include "hopper.cuh"
+#include "s8_quant.cuh"
+#include "s8_wgmma.cuh"
 
 namespace {
 
-// 16 consecutive x values (bf16 or f32) of one row as f32
-template <bool XF32>
-__device__ __forceinline__ void load16(float (&v)[16], const void* x, size_t off) {
-  if constexpr (XF32) {
-    const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(x) + off);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 f = p[i];
-      v[4 * i] = f.x; v[4 * i + 1] = f.y; v[4 * i + 2] = f.z; v[4 * i + 3] = f.w;
-    }
-  } else {
-    const uint4* p = reinterpret_cast<const uint4*>(
-        static_cast<const __nv_bfloat16*>(x) + off);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const uint4 raw = p[i];
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[8 * i + 2 * j] = __low2float(h[j]);
-        v[8 * i + 2 * j + 1] = __high2float(h[j]);
-      }
-    }
-  }
+template <int BM, int BN, bool XF32, bool OUTF32>
+__global__ void __launch_bounds__(S8Tile<BM, BN>::THREADS, 1)
+s8_gemm_qx_kernel(const __grid_constant__ CUtensorMap tm_a,
+                  const __grid_constant__ CUtensorMap tm_b,
+                  const __grid_constant__ CUtensorMap tm_out, const S8Params p,
+                  const QuantJob q) {
+  using T = S8Tile<BM, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // the 16 bytes of flags after the barriers: [0] the ticket, [1] the exit
+  // verdict
+  int* flags = reinterpret_cast<int*>(smem + p.stages * T::STAGE +
+                                      T::NWG * T::OUT_BYTES + 16 * p.stages);
+  quant_rows_once<XF32>(q, &flags[0]);
+  s8_body<BM, BN, true, OUTF32>(&tm_a, &tm_b, &tm_out, p, q, smem);
+  quant_exit(q, &flags[1]);
 }
 
-template <bool XF32, bool OUTF32>
-__global__ void __launch_bounds__(THREADS)
-s8_gemm_qx_kernel(const void* __restrict__ x, const int8_t* __restrict__ wt,
-                  const float* __restrict__ s, void* __restrict__ y, int R,
-                  int K, int N) {
-  __shared__ __align__(16) int8_t As[BM * LDS];
-  __shared__ __align__(16) int8_t Bs[BN * LDS];
-  __shared__ float sx[BM];
+template <int BM, int BN, bool XF32, bool OUTF32>
+int qx_launch(const CUtensorMap& ta, const CUtensorMap& tb,
+              const CUtensorMap& tout, const S8Params& p, const QuantJob& q,
+              cudaStream_t stream) {
+  using T = S8Tile<BM, BN>;
+  const int smem = T::smem(p.stages);
+  auto kernel = s8_gemm_qx_kernel<BM, BN, XF32, OUTF32>;
+  static int configured = 0;  // per instantiation
+  if (int rc = set_smem_attr(kernel, smem, configured)) return rc;
+  kernel<<<s8_grid(p, BM, BN), T::THREADS, smem, stream>>>(ta, tb, tout, p, q);
+  return (int)cudaGetLastError();
+}
 
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  // per-row scales: warp w takes rows w, w + 8, ...; lanes stride over K
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    float amax = 0.f;
-    if (m0 + r < R) {
-      for (int k = lane * 16; k < K; k += 32 * 16) {
-        float v[16];
-        load16<XF32>(v, x, (size_t)(m0 + r) * K + k);
-#pragma unroll
-        for (int i = 0; i < 16; ++i) amax = fmaxf(amax, fabsf(v[i]));
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    if (lane == 0) sx[r] = __fmul_rn(fmaxf(amax, 1e-30f), __frcp_rn(127.0f));
-  }
-  __syncthreads();
-
-  // stage the int8 tile of rows m0.., k0..k0+BK from x, quantized per row
-  const float* row_scale = sx;  // captured as a pointer, not a copy
-  auto load_a = [=](int8_t* smem, int k0) {
-    constexpr int CHUNKS = BM * BK / 16;
-    for (int c = threadIdx.x; c < CHUNKS; c += THREADS) {
-      const int r = c / (BK / 16);
-      const int kc = (c % (BK / 16)) * 16;
-      uint32_t packed[4] = {0, 0, 0, 0};
-      if (m0 + r < R && k0 + kc < K) {
-        float v[16];
-        load16<XF32>(v, x, (size_t)(m0 + r) * K + k0 + kc);
-        const float sr = row_scale[r];
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const float q = fminf(fmaxf(rintf(__fdiv_rn(v[i], sr)), -127.f), 127.f);
-          packed[i / 4] |= (uint32_t)(uint8_t)(int8_t)(int)q << (8 * (i % 4));
-        }
-      }
-      *reinterpret_cast<uint4*>(smem + r * LDS + kc) =
-          make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    }
-  };
-
-  int acc[MT][NT][4];
-  s8_tile_product_with(acc, As, Bs, load_a, wt, n0, N, K);
-
-  const int g = lane / 4, t = lane % 4;
-  const int wm = (warp / WARPS_N) * WM;
-  const int wn = (warp % WARPS_N) * WN;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int rl = wm + i * 16 + g + half * 8;
-      const int r = m0 + rl;
-      if (r >= R) continue;
-      const float srow = sx[rl];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c = n0 + wn + j * 8 + t * 2;
-        if (c >= N) continue;  // N is even, so c + 1 < N as well
-        const float v0 = (float)acc[i][j][half * 2 + 0] * srow * s[c];
-        const float v1 = (float)acc[i][j][half * 2 + 1] * srow * s[c + 1];
-        if constexpr (OUTF32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(y) + (size_t)r * N + c) =
-              make_float2(v0, v1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(
-              static_cast<__nv_bfloat16*>(y) + (size_t)r * N + c) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-  }
+template <int BM, int BN>
+int qx_dispatch(const CUtensorMap& ta, const CUtensorMap& tb,
+                const CUtensorMap& tout, const S8Params& p, const QuantJob& q,
+                bool x_f32, bool y_f32, cudaStream_t stream) {
+  if (x_f32 && y_f32) return qx_launch<BM, BN, true, true>(ta, tb, tout, p, q, stream);
+  if (x_f32) return qx_launch<BM, BN, true, false>(ta, tb, tout, p, q, stream);
+  if (y_f32) return qx_launch<BM, BN, false, true>(ta, tb, tout, p, q, stream);
+  return qx_launch<BM, BN, false, false>(ta, tb, tout, p, q, stream);
 }
 
 }  // namespace
 
 // x (R, K) bf16 (x_f32 = 0) or f32 row-major, unquantized; wt (N, K) int8
 // row-major (the transposed storage of the (K, N) weight); s (N,) f32; y (R,
-// N) bf16 (y_f32 = 0) or f32. K and N are multiples of 16. Launches on
-// `stream`; returns cudaGetLastError().
+// N) bf16 (y_f32 = 0) or f32. The workspace, kept per device and stream
+// (ops/int8_matmul.py): xq (R, K) int8, sx (R,) f32, cnt 2 + ceil(R /
+// block_m) int32 counters at 0. K and N are multiples of 16, the bases
+// 16-byte aligned. The plan (block_m, block_n, stages) is
+// ops/int8_matmul.py's s8_qx_plan.
+// Launches one kernel on `stream`; returns a CUDA error code (or 1000 + a
+// refused tensor map's CUresult).
 extern "C" int thinkdiff_s8_gemm_qx(const void* x, const void* wt,
-                                    const void* s, void* y, int R, int K,
-                                    int N, int x_f32, int y_f32,
-                                    void* stream) {
-  if (R <= 0 || K <= 0 || N <= 0 || K % 16 != 0 || N % 16 != 0)
+                                    const void* s, void* y, void* xq, void* sx,
+                                    void* cnt, int R, int K, int N,
+                                    int block_m, int block_n, int stages,
+                                    int x_f32, int y_f32, void* stream) {
+  if (R <= 0 || K <= 0 || N <= 0 || K % 16 != 0 || N % 16 != 0 ||
+      xq == nullptr || sx == nullptr || cnt == nullptr)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((N + BN - 1) / BN, (R + BM - 1) / BM);
+  S8Params p;
+  if (!s8_params(p, static_cast<const float*>(sx), static_cast<const float*>(s),
+                 y, nullptr, R, N, K, stages, 1))
+    return (int)cudaErrorInvalidValue;
+  QuantJob q;
+  q.x = x;
+  q.inv = nullptr;
+  q.xq = static_cast<int8_t*>(xq);
+  q.sx = static_cast<float*>(sx);
+  q.cnt = static_cast<int*>(cnt);
+  q.rows = R;
+  q.K = K;
+  q.tile = block_m;
+  CUtensorMap ta, tb, tout;
+  int rc;
+  if ((rc = cached_map(&ta, true, xq, R, K, block_m)) ||
+      (rc = cached_map(&tb, true, wt, N, K, block_n)))
+    return rc;
+  if (y_f32) tout = ta;  // unused: an f32 output is stored from registers
+  else if ((rc = cached_map(&tout, false, y, R, N, 64))) return rc;
   auto st = static_cast<cudaStream_t>(stream);
-  auto w = static_cast<const int8_t*>(wt);
-  auto sc = static_cast<const float*>(s);
-  if (x_f32 && y_f32)
-    s8_gemm_qx_kernel<true, true><<<grid, THREADS, 0, st>>>(x, w, sc, y, R, K, N);
-  else if (x_f32)
-    s8_gemm_qx_kernel<true, false><<<grid, THREADS, 0, st>>>(x, w, sc, y, R, K, N);
-  else if (y_f32)
-    s8_gemm_qx_kernel<false, true><<<grid, THREADS, 0, st>>>(x, w, sc, y, R, K, N);
-  else
-    s8_gemm_qx_kernel<false, false><<<grid, THREADS, 0, st>>>(x, w, sc, y, R, K, N);
-  return (int)cudaGetLastError();
+  if (block_m == 64 && block_n == 128)
+    return qx_dispatch<64, 128>(ta, tb, tout, p, q, x_f32, y_f32, st);
+  if (block_m == 64 && block_n == 256)
+    return qx_dispatch<64, 256>(ta, tb, tout, p, q, x_f32, y_f32, st);
+  if (block_m == 128 && block_n == 128)
+    return qx_dispatch<128, 128>(ta, tb, tout, p, q, x_f32, y_f32, st);
+  if (block_m == 128 && block_n == 256)
+    return qx_dispatch<128, 256>(ta, tb, tout, p, q, x_f32, y_f32, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,8 @@
-// The w8a8 GEMM on Hopper, shared by the forward (s8_gemm.cu, #2) and the
-// input gradient (s8_gemm_bwd.cu, #7), which differ only in their operands
-// and in the epilogue's column scale:
+// The w8a8 GEMM on Hopper, shared by the forward (s8_gemm.cu, #2), the
+// input gradient (s8_gemm_bwd.cu, #7) and the quantize-in-kernel forward
+// (s8_gemm_qx.cu, #12), which differ in their operands, the epilogue's
+// column scale and, for #12, what runs before and after the mainloop
+// (s8_body, below):
 //   out[r, c] = bf16(float(sum_k A[r, k] * B[c, k]) * srow[r] (* scol[c]))
 // for int8 A (M, Kc) and B (Nc, Kc), both row-major with the contraction
 // contiguous (K-major, the layout 8-bit wgmma reads without a transpose).
@@ -29,10 +31,17 @@
 //    the map clips the ragged M and Nc edges. (With bf16 pairs stored from
 //    registers instead, wi_fused's forward took 0.194 ms against 0.123 on
 //    an H100; PERF.md.)
-//    Split (the plan splits where the tiles are short of a wave): each unit
-//    writes its int32 partial tile from registers to the workspace (split,
-//    M, Nc), and s8_split_sum adds the splits in int32, in order, and
-//    applies the same epilogue, so every split gives the same bits.
+//    Split (#2 and #7: the plan splits where the tiles are short of a
+//    wave): each unit writes its int32 partial tile from registers to the
+//    workspace (split, M, Nc), and s8_split_sum adds the splits in int32,
+//    in order, and applies the same epilogue, so every split gives the
+//    same bits.
+//  - #12 only: its A rows are quantized in the same launch (s8_quant.cuh);
+//    the producer issues the first unit's B slices, then waits for the
+//    unit's row tile, then issues its A slices; later units wait for their
+//    row tile once. Its plan never splits (one launch a call). An f32
+//    output is stored from registers: a warp's 8-byte pairs fill whole
+//    32-byte sectors (a bf16 pair fills half of one).
 //  - The host encodes each tensor map once per address, shape and box and
 //    keeps it: the weight is the same tensor on every call, and PyTorch's
 //    caching allocator hands the activations and outputs the same
@@ -45,6 +54,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "s8_quant.cuh"
 
 namespace {
 
@@ -54,7 +64,7 @@ constexpr int S8_MAX_STAGES = 8;
 struct S8Params {
   const float* srow;   // (M,)
   const float* scol;   // (Nc,) or null (a column scale of 1)
-  __nv_bfloat16* out;  // (M, Nc)
+  void* out;           // (M, Nc) bf16 (f32: #12's OUTF32)
   int* ws;             // (split, M, Nc) int32 partials; null when split == 1
   int M, Nc;
   int steps;           // K slices of S8_BK in the contraction
@@ -69,10 +79,11 @@ struct S8Tile {
   static constexpr int A_BYTES = BM * S8_BK;
   static constexpr int STAGE = (BM + BN) * S8_BK;
   static constexpr int OUT_BYTES = BN * 64 * 2;  // a warpgroup's bf16 tile
-  // the stages, the output tiles, the stages' full and empty barriers, and
-  // 1024 B of alignment
+  // the stages, the output tiles, the stages' full and empty barriers, 16
+  // bytes of flags (#12: its ticket and exit verdicts), and 1024 B of
+  // alignment
   static int smem(int stages) {
-    return stages * STAGE + NWG * OUT_BYTES + 2 * stages * 8 + 1024;
+    return stages * STAGE + NWG * OUT_BYTES + 2 * stages * 8 + 16 + 1024;
   }
 };
 
@@ -102,17 +113,22 @@ __device__ __forceinline__ uint32_t s8_scale_pair(int a0, int a1, float srow,
   return pack_bf16x2(v0, v1);
 }
 
-template <int BM, int BN>
-__global__ void __launch_bounds__(S8Tile<BM, BN>::THREADS, 1)
-s8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
-                const __grid_constant__ CUtensorMap tm_b,
-                const __grid_constant__ CUtensorMap tm_out, const S8Params p) {
+// One CTA's share of the GEMM: barrier set-up, the producer thread's TMA
+// ring and the consumer warpgroups' products and epilogue, over the work
+// units blockIdx.x, + gridDim.x, ... Every thread of the CTA calls it;
+// `smem` is the 1024-aligned dynamic shared memory (S8Tile's layout).
+// QX (#12): A's row tiles are quantized in this launch (`q`), there is no
+// split, and the output is f32 where OUTF32.
+template <int BM, int BN, bool QX, bool OUTF32>
+__device__ __forceinline__ void s8_body(const CUtensorMap* tm_a,
+                                        const CUtensorMap* tm_b,
+                                        const CUtensorMap* tm_out,
+                                        const S8Params& p, const QuantJob& q,
+                                        uint8_t* smem) {
   using T = S8Tile<BM, BN>;
   constexpr int NWG = T::NWG;
+  static_assert(QX || !OUTF32, "an f32 output is #12's");
   const int S = p.stages;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full =
       reinterpret_cast<uint64_t*>(smem + S * T::STAGE + NWG * T::OUT_BYTES);
   uint64_t* empty = full + S;
@@ -133,18 +149,43 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
     // ---- producer: one thread ------------------------------------------
     if constexpr (NWG == 2) regs_dealloc<40>();
     if (threadIdx.x == NWG * 128) {
-      tma_prefetch_desc(&tm_a);
-      tma_prefetch_desc(&tm_b);
+      tma_prefetch_desc(tm_a);
+      tma_prefetch_desc(tm_b);
       int t = 0;
+      uint64_t ready = 0;  // QX: row tiles < 64 known quantized
       for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
         s8_unit(p, w, BM, BN, m0, n0, z, k0, k1);
-        for (int kt = k0; kt < k1; ++kt, ++t) {
+        int kt = k0;
+        if constexpr (QX) {
+          const int mt = m0 / BM;
+          if (mt >= 64 || !((ready >> mt) & 1)) {
+            // the B slices of the ring's free stages go out first; A's rows
+            // may still be being quantized
+            int pre = 0;
+            if (w == (int)blockIdx.x) {
+              pre = min(S, k1 - k0);
+              for (int i = 0; i < pre; ++i) {
+                mbar_arrive_expect_tx(&full[i], T::STAGE);
+                tma_load_4d(smem + i * T::STAGE + T::A_BYTES, tm_b, &full[i],
+                            (k0 + i) * S8_BK, n0, 0, 0);
+              }
+            }
+            wait_tile(q, mt);
+            if (mt < 64) ready |= 1ull << mt;
+            for (int i = 0; i < pre; ++i)
+              tma_load_4d(smem + i * T::STAGE, tm_a, &full[i], (k0 + i) * S8_BK,
+                          m0, 0, 0);
+            kt += pre;
+            t += pre;
+          }
+        }
+        for (; kt < k1; ++kt, ++t) {
           const int s = t % S;
           mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
           uint8_t* st = smem + s * T::STAGE;
           mbar_arrive_expect_tx(&full[s], T::STAGE);
-          tma_load_4d(st, &tm_a, &full[s], kt * S8_BK, m0, 0, 0);
-          tma_load_4d(st + T::A_BYTES, &tm_b, &full[s], kt * S8_BK, n0, 0, 0);
+          tma_load_4d(st, tm_a, &full[s], kt * S8_BK, m0, 0, 0);
+          tma_load_4d(st + T::A_BYTES, tm_b, &full[s], kt * S8_BK, n0, 0, 0);
         }
       }
     }
@@ -183,7 +224,41 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
 
       // value i of the accumulator: row rl + 8 * ((i / 2) % 2), column
       // 8 * (i / 4) + cl + i % 2 of the tile
-      if (p.split == 1) {
+      if (!QX && p.split > 1) {
+        // this split's int32 partial tile, from registers
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = m0 + rl + 8 * r;
+          if (row >= p.M) continue;
+          int* wrow = p.ws + ((size_t)z * p.M + row) * p.Nc;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int c = n0 + 8 * j + cl;
+            if (c < p.Nc)
+              *reinterpret_cast<int2*>(wrow + c) =
+                  make_int2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+          }
+        }
+      } else if (OUTF32) {
+        // f32 pairs from registers: (float(acc) * srow) * scol, in order
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = m0 + rl + 8 * r;
+          if (row >= p.M) continue;
+          const float sr = __ldcg(p.srow + row);
+          float* orow = static_cast<float*>(p.out) + (size_t)row * p.Nc;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int c = n0 + 8 * j + cl;  // Nc is even: c + 1 < Nc too
+            if (c < p.Nc) {
+              const float2 sc = __ldg(reinterpret_cast<const float2*>(p.scol + c));
+              *reinterpret_cast<float2*>(orow + c) = make_float2(
+                  (float)acc[4 * j + 2 * r] * sr * sc.x,
+                  (float)acc[4 * j + 2 * r + 1] * sr * sc.y);
+            }
+          }
+        }
+      } else {
         uint8_t* so = smem + S * T::STAGE + wg * T::OUT_BYTES;
         // this warpgroup's previous store has read the buffer
         if (tw == 0) bulk_wait_read<0>();
@@ -192,7 +267,7 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = m0 + rl + 8 * r;
-          sr[r] = row < p.M ? p.srow[row] : 0.f;
+          sr[r] = row >= p.M ? 0.f : QX ? __ldcg(p.srow + row) : p.srow[row];
         }
         const bool scaled = p.scol != nullptr;
 #pragma unroll
@@ -223,28 +298,26 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
         if (tw == 0) {
 #pragma unroll
           for (int ch = 0; ch < BN / 64; ++ch)
-            tma_store_4d(&tm_out, so + ch * 8192, n0 + 64 * ch, m0 + 64 * wg, 0,
+            tma_store_4d(tm_out, so + ch * 8192, n0 + 64 * ch, m0 + 64 * wg, 0,
                          0);
           bulk_commit();
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = m0 + rl + 8 * r;
-          if (row >= p.M) continue;
-          int* wrow = p.ws + ((size_t)z * p.M + row) * p.Nc;
-#pragma unroll
-          for (int j = 0; j < BN / 8; ++j) {
-            const int c = n0 + 8 * j + cl;
-            if (c < p.Nc)
-              *reinterpret_cast<int2*>(wrow + c) =
-                  make_int2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-          }
         }
       }
     }
     if (tw == 0) bulk_wait<0>();  // the last store, before the CTA exits
   }
+}
+
+// The w8a8 GEMM of #2 and #7
+template <int BM, int BN>
+__global__ void __launch_bounds__(S8Tile<BM, BN>::THREADS, 1)
+s8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                const __grid_constant__ CUtensorMap tm_b,
+                const __grid_constant__ CUtensorMap tm_out, const S8Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  s8_body<BM, BN, false, false>(&tm_a, &tm_b, &tm_out, p, QuantJob{}, smem);
 }
 
 // the split's second pass: the int32 partials of each output pair added in
@@ -286,35 +359,53 @@ inline int cached_map(CUtensorMap* m, bool s8, const void* base, int rows,
                             cols, 64, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// the persistent grid of a plan: a CTA an SM, at most one a work unit
+inline int s8_grid(const S8Params& p, int bm, int bn) {
+  const long long n_work = (long long)((p.M + bm - 1) / bm) *
+                           ((p.Nc + bn - 1) / bn) * p.split;
+  const int sms = sm_count();
+  return (int)(n_work < sms ? n_work : sms);
+}
+
 template <int BM, int BN>
 int s8_launch(const CUtensorMap& ta, const CUtensorMap& tb,
               const CUtensorMap& tout, const S8Params& p, cudaStream_t stream) {
   using T = S8Tile<BM, BN>;
   const int smem = T::smem(p.stages);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   auto kernel = s8_wgmma_kernel<BM, BN>;
-  static int configured = 0, sms = 0;  // per instantiation
-  if (configured < smem) {
-    cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return (int)rc;
-    configured = smem;
-  }
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const long long n_work = (long long)((p.M + BM - 1) / BM) *
-                           ((p.Nc + BN - 1) / BN) * p.split;
-  const int grid = (int)(n_work < sms ? n_work : sms);  // persistent
-  kernel<<<grid, T::THREADS, smem, stream>>>(ta, tb, tout, p);
+  static int configured = 0;  // per instantiation
+  if (int rc = set_smem_attr(kernel, smem, configured)) return rc;
+  kernel<<<s8_grid(p, BM, BN), T::THREADS, smem, stream>>>(ta, tb, tout, p);
   cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess || p.split == 1) return (int)rc;
   const long long pairs = (long long)p.M * (p.Nc / 2);
   s8_split_sum<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
-      p.ws, p.srow, p.scol, p.out, p.M, p.Nc, p.split);
+      p.ws, p.srow, p.scol, static_cast<__nv_bfloat16*>(p.out), p.M, p.Nc,
+      p.split);
   return (int)cudaGetLastError();
+}
+
+// The parameters of a plan (stages, split) for an (M, Nc) output over a
+// contraction of Kc; false where the plan is not one the kernels take (a
+// split must leave no split of the contraction empty)
+inline bool s8_params(S8Params& p, const float* srow, const float* scol,
+                      void* out, void* ws, int M, int Nc, int Kc, int stages,
+                      int split) {
+  if (M <= 0 || Nc <= 0 || Kc <= 0 || Kc % 16 != 0 || Nc % 8 != 0 ||
+      stages < 2 || stages > S8_MAX_STAGES || split < 1 ||
+      (split > 1) != (ws != nullptr) || encoder() == nullptr)
+    return false;
+  p.srow = srow;
+  p.scol = scol;
+  p.out = out;
+  p.ws = static_cast<int*>(ws);
+  p.M = M;
+  p.Nc = Nc;
+  p.steps = (Kc + S8_BK - 1) / S8_BK;
+  p.split = split;
+  p.per = (p.steps + split - 1) / split;
+  p.stages = stages;
+  return (split - 1) * p.per < p.steps;
 }
 
 // out (M, Nc) = the product of a (M, Kc) and b (Nc, Kc), int8 row-major,
@@ -328,22 +419,9 @@ inline int s8_wgmma(const void* a, const void* b, const float* srow,
                     const float* scol, void* out, void* ws, int M, int Nc,
                     int Kc, int block_m, int block_n, int stages, int split,
                     cudaStream_t stream) {
-  if (M <= 0 || Nc <= 0 || Kc <= 0 || Kc % 16 != 0 || Nc % 8 != 0 ||
-      stages < 2 || stages > S8_MAX_STAGES || split < 1 ||
-      (split > 1) != (ws != nullptr) || encoder() == nullptr)
-    return (int)cudaErrorInvalidValue;
   S8Params p;
-  p.srow = srow;
-  p.scol = scol;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.ws = static_cast<int*>(ws);
-  p.M = M;
-  p.Nc = Nc;
-  p.steps = (Kc + S8_BK - 1) / S8_BK;
-  p.split = split;
-  p.per = (p.steps + split - 1) / split;
-  p.stages = stages;
-  if ((split - 1) * p.per >= p.steps) return (int)cudaErrorInvalidValue;
+  if (!s8_params(p, srow, scol, out, ws, M, Nc, Kc, stages, split))
+    return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb, tout;
   int rc;
   if ((rc = cached_map(&ta, true, a, M, Kc, block_m)) ||

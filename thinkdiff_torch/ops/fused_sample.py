@@ -21,24 +21,90 @@ draw depends on neither the kernel's tiling nor the padding, and
 ``gumbel_noise`` reproduces the kernel's draws exactly. The TPU kernel drew
 from the chip's own generator; the two give different streams of the same
 law. On a CUDA tensor ``fused_lm_sample`` launches the hand-written kernel
-of ``csrc/fused_sample.cu``; on a CPU tensor it runs
+of ``csrc/fused_sample.cu`` (x quantized in the same launch; one launch a
+call up to 256 rows), whose batch tile, ring depth and grid
+``sample_plan`` picks from the shapes; on a CPU tensor it runs
 ``fused_lm_sample_reference`` on the same noise.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from thinkdiff_torch import kernels
+from thinkdiff_torch.ops.flash_attention import SMEM_LIMIT
 from thinkdiff_torch.ops.quant import _absmax_quant_rows
 
 _NEG = -1e30
 _M32 = 0xFFFFFFFF
 _U_MAX = 1.0 - 2.0 ** -24  # the largest f32 below 1
-_KERNEL_TILE = 128  # vocabulary columns per block of the CUDA kernel
+
+# the CUDA kernel's plan (csrc/fused_sample.cu): 64 vocabulary rows a block
+# (wgmma's M), 128 bytes of D a ring stage, at most SAMPLE_ROWS batch rows a
+# launch (two batch tiles of 128)
+SAMPLE_BLOCK = 64
+SAMPLE_BK = 128
+SAMPLE_ROWS = 256
+SAMPLE_MAX_STAGES = 8  # a ring's; a CTA runs two rings, one a warpgroup
+SAMPLE_WIDTHS = (8, 16, 32, 64, 128)  # wgmma widths of a batch tile
+
+
+def sample_smem(n: int, tiles: int, stages: int) -> int:
+    """Shared memory of the kernel (``SampleTile::smem``): two rings of
+    ``stages`` stages (a 64-row weight slice and the batch tile's slice of
+    xq), their barriers, the keys, sx and blocked of every batch column, 16
+    bytes of flags, 1024 bytes of alignment."""
+    stage = (SAMPLE_BLOCK + n) * SAMPLE_BK
+    return 2 * stages * stage + 4 * stages * 8 + tiles * n * 16 + 16 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def sample_plan(b: int, d: int, vp: int, sms: int = 132) -> tuple:
+    """(n, tiles, stages, ctas) of the kernel for b <= 256 rows, from the
+    shapes alone: one batch tile of n = b rounded up to a wgmma width of
+    SAMPLE_WIDTHS (the two warpgroups take alternate vocabulary blocks), or
+    above 128 rows two of 128 (warpgroup w takes tile w of every block);
+    the rings as deep as fit (at most 8 each). One CTA an SM, each with a
+    contiguous run of blocks (two or more with one batch tile, where the
+    vocabulary has them, so that both warpgroups work). ``d`` does not
+    change the plan: every stage holds one 128-byte slice of it."""
+    if not 1 <= b <= SAMPLE_ROWS:
+        raise ValueError(f"sample_plan: {b} rows, the kernel takes 1-256")
+    blocks = vp // SAMPLE_BLOCK
+    tiles = 1 if b <= 128 else 2
+    n = next(w for w in SAMPLE_WIDTHS if w >= b) if tiles == 1 else 128
+    ctas = min(sms, max(1, blocks // 2) if tiles == 1 else blocks)
+    stages = max(s for s in range(2, SAMPLE_MAX_STAGES + 1)
+                 if sample_smem(n, tiles, s) <= SMEM_LIMIT)
+    return n, tiles, stages, ctas
+
+
+def sample_blocks(plan: tuple, vp: int) -> list:
+    """The vocabulary blocks [lo, hi) of each CTA of a plan (the kernel's
+    split of Vp / 64 blocks)."""
+    blocks, ctas = vp // SAMPLE_BLOCK, plan[3]
+    return [(c * blocks // ctas, (c + 1) * blocks // ctas)
+            for c in range(ctas)]
+
+
+def argmax_key(value: float, col: int) -> int:
+    """The kernel's 64-bit argmax key of an f32 value at a column: the
+    value's order-preserving bits (-0.0 taken as +0.0) over 0xFFFFFFFF -
+    col, so that the larger key holds the larger value, and of equal values
+    the lower column."""
+    v = np.float32(value)
+    u = int(np.float32(0.0 if v == 0 else v).view(np.uint32))
+    ordered = (~u & _M32) if u & 0x80000000 else u | 0x80000000
+    return (ordered << 32) | (_M32 - int(col))
+
+
+def key_column(key: int) -> int:
+    """The column a key encodes."""
+    return _M32 - (key & _M32)
 
 
 def bits_to_gumbel(bits: torch.Tensor) -> torch.Tensor:
@@ -153,6 +219,27 @@ def fused_lm_sample_reference(x, pack, blocked, *, temperature: float,
     return torch.argmax(per, dim=-1)
 
 
+# the kernel's workspace per device, stream and shape: xq (B, D) int8, sx
+# (B,) f32, 3 counters and the (B,) argmax keys, all left at 0 by every
+# launch; allocated at the first call of a shape, never per call. Two
+# launches in flight at once must not share one: a CUDA graph keeps the
+# workspace of the stream it was captured on, so its replay must not
+# overlap another launch on that stream's.
+_WORKSPACE: dict = {}
+
+
+def _sample_workspace(device, stream: int, b: int, d: int):
+    key = (device.index, stream, b, d)
+    got = _WORKSPACE.get(key)
+    if got is None:
+        got = _WORKSPACE[key] = (
+            torch.empty((b, d), dtype=torch.int8, device=device),
+            torch.empty((b,), dtype=torch.float32, device=device),
+            torch.zeros((3,), dtype=torch.int32, device=device),
+            torch.zeros((b,), dtype=torch.int64, device=device))
+    return got
+
+
 def _fused_lm_sample_cuda(x, pack, blocked, seed2, temperature, noise):
     qt = pack["qt"]
     vp, d = qt.shape
@@ -163,28 +250,41 @@ def _fused_lm_sample_cuda(x, pack, blocked, seed2, temperature, noise):
     if qt.dtype != torch.int8 or not qt.is_contiguous():
         raise TypeError("fused_lm_sample kernel takes the pack's contiguous "
                         "int8 (Vp, D) storage")
-    if d % 16 or vp % _KERNEL_TILE or vp > (1 << 20) or b >= 4096:
+    if not x.is_floating_point():
+        raise TypeError(f"fused_lm_sample kernel takes float x, not {x.dtype}")
+    if d % 16 or vp % 128 or vp > (1 << 20) or b >= 4096:
         raise ValueError(f"fused_lm_sample kernel: D={d} must be a multiple "
-                         f"of 16, Vp={vp} of {_KERNEL_TILE} and <= 2^20, "
-                         f"B={b} < 4096")
-    xq, sx = _quantize_input(x, pack)
-    xq = xq.contiguous()
+                         f"of 16, Vp={vp} of 128 and <= 2^20, B={b} < 4096")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.float()
+    x = x.contiguous()
+    for label, t in (("x", x), ("pack qt", qt),
+                     ("pack inv_input", pack["inv_input"])):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_lm_sample kernel: {label} is not "
+                             "16-byte aligned")
     seed = seed2.to(device=x.device, dtype=torch.int32).contiguous()
     blk = blocked.to(device=x.device, dtype=torch.float32).contiguous()
-    n_tiles = vp // _KERNEL_TILE
-    part_val = torch.empty((b, n_tiles), dtype=torch.float32, device=x.device)
-    part_col = torch.empty((b, n_tiles), dtype=torch.int32, device=x.device)
-    ids = torch.empty((b,), dtype=torch.int32, device=x.device)
+    ids = torch.empty((b,), dtype=torch.int64, device=x.device)
     inv_temp = 1.0 / temperature if (noise and temperature > 0) else 1.0
-    rc = kernels.library().thinkdiff_fused_sample(
-        kernels.ptr(xq), kernels.ptr(sx), kernels.ptr(qt),
-        kernels.ptr(pack["scale"]), kernels.ptr(pack["pad_bias"]),
-        kernels.ptr(pack["eos_bias"]), kernels.ptr(blk), kernels.ptr(seed),
-        kernels.ptr(part_val), kernels.ptr(part_col), kernels.ptr(ids), b, d,
-        vp, float(inv_temp), int(bool(noise)), kernels.stream_of(x))
-    kernels.check_launch(rc, "fused_lm_sample")
-    kernels.count_launch("fused_lm_sample")
-    return ids.long()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    stream = kernels.stream_of(x)
+    lib = kernels.library()
+    for r0 in range(0, b, SAMPLE_ROWS):
+        rows = min(SAMPLE_ROWS, b - r0)
+        plan = sample_plan(rows, d, vp, sms)
+        ws = _sample_workspace(x.device, stream, rows, d)
+        rc = lib.thinkdiff_fused_sample(
+            kernels.ptr(x[r0:r0 + rows]), kernels.ptr(pack["inv_input"]),
+            kernels.ptr(qt), kernels.ptr(pack["scale"]),
+            kernels.ptr(pack["pad_bias"]), kernels.ptr(pack["eos_bias"]),
+            kernels.ptr(blk[r0:r0 + rows]), kernels.ptr(seed),
+            *map(kernels.ptr, ws), kernels.ptr(ids[r0:r0 + rows]), rows, d, vp,
+            r0, float(inv_temp), int(bool(noise)),
+            int(x.dtype == torch.float32), *plan, stream)
+        kernels.check_launch(rc, "fused_lm_sample")
+        kernels.count_launch("fused_lm_sample")
+    return ids
 
 
 def fused_lm_sample(x, pack, blocked, seed2, *, temperature: float,

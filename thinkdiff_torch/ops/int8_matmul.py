@@ -9,9 +9,10 @@ which holds every int32 sum exactly, so the kernels equal them on the card):
                      (``_s8_matmul_fused_bwd``, csrc/s8_gemm_bwd.cu)
   ``s8_matmul_qx``   s8_matmul with x quantized per row inside the kernel
                      (``_s8_matmul_fused_qx``, csrc/s8_gemm_qx.cu)
-``s8_matmul`` and ``s8_matmul_bwd`` run one kernel (csrc/s8_wgmma.cuh: s8
-wgmma on a TMA ring), whose tiles and split of the contraction
-``s8_gemm_plan`` picks from the shapes.
+All three run one mainloop (csrc/s8_wgmma.cuh: s8 wgmma on a TMA ring),
+whose tiles and split of the contraction ``s8_gemm_plan`` picks from the
+shapes (``s8_qx_plan`` for ``s8_matmul_qx``, which quantizes each row once
+in the same launch and does not split the contraction).
 weight-only int8 (x float, f32 accumulation):
   ``int8_matmul``       y = out(f32(x) @ f32(w_q) * scale), R <= 32 rows a
                         launch (``int8_matmul``, csrc/int8_gemv.cu: a
@@ -85,10 +86,29 @@ S8_SPLIT_COST = 48
 
 def s8_gemm_smem(block_m: int, block_n: int, stages: int) -> int:
     """Shared memory of the kernel: ``stages`` (A, B) stages of 128-byte K
-    slices, the bf16 output tile, the stages' full and empty barriers, 1024
-    bytes of alignment."""
+    slices, the bf16 output tile, the stages' full and empty barriers, 16
+    bytes of flags, 1024 bytes of alignment."""
     return (stages * (block_m + block_n) * S8_BLOCK_K + block_m * block_n * 2
-            + 2 * stages * 8 + 1024)
+            + 2 * stages * 8 + 16 + 1024)
+
+
+def _s8_stages(bm: int, bn: int) -> int:
+    """As deep a ring as fits in shared memory (2-8)."""
+    return max(s for s in range(2, S8_MAX_STAGES + 1)
+               if s8_gemm_smem(bm, bn, s) <= SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=None)
+def s8_qx_plan(r: int, k: int, n: int, sms: int = 132) -> tuple:
+    """(block_m, block_n, stages) of ``s8_matmul_qx``, whose kernel does
+    not split the contraction: ``s8_gemm_plan``'s rows a tile, the column
+    width (256 or 128) whose busiest SM takes the least time (waves x
+    block_n; ties to the wider), as deep a ring as fits. ``k`` does not
+    change the plan."""
+    bm = 64 if r <= 64 else 128
+    tiles_m = -(-r // bm)
+    bn = min((256, 128), key=lambda bn: -(-tiles_m * -(-n // bn) // sms) * bn)
+    return bm, bn, _s8_stages(bm, bn)
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,9 +136,7 @@ def s8_gemm_plan(r: int, k: int, n: int, sms: int = 132) -> tuple:
             if best is None or (cost, split, -bn) < best[0]:
                 best = ((cost, split, -bn), bn, split)
     _, bn, split = best
-    stages = max(s for s in range(2, S8_MAX_STAGES + 1)
-                 if s8_gemm_smem(bm, bn, s) <= SMEM_LIMIT)
-    return bm, bn, stages, split
+    return bm, bn, _s8_stages(bm, bn), split
 
 
 def _s8_outputs(a, rows, k, cols):
@@ -543,7 +561,28 @@ def s8_matmul_qx_reference(x, w_q, scale, out_dtype=torch.bfloat16):
     return s8_matmul_reference(xq, sx, w_q, scale, out_dtype)
 
 
+# s8_matmul_qx's workspace per device, stream, shape and row tile: xq (R,
+# K) int8, sx (R,) f32 and the ticket / exit / row-tile counters, which
+# every launch leaves at 0. Two launches in flight at once must not share
+# one: a CUDA graph keeps the workspace of the stream it was captured on,
+# so its replay must not overlap another launch on that stream's.
+_QX_WORKSPACE: dict = {}
+
+
+def _qx_workspace(device, stream: int, r: int, k: int, bm: int):
+    key = (device.index, stream, r, k, bm)
+    got = _QX_WORKSPACE.get(key)
+    if got is None:
+        got = _QX_WORKSPACE[key] = (
+            torch.empty((r, k), dtype=torch.int8, device=device),
+            torch.empty((r,), dtype=torch.float32, device=device),
+            torch.zeros((2 + -(-r // bm),), dtype=torch.int32, device=device))
+    return got
+
+
 def _s8_matmul_qx_cuda(x, w_q, scale, out_dtype):
+    if x.dim() != 2:
+        raise ValueError(f"s8_matmul_qx: x must be (R, K), not {tuple(x.shape)}")
     r, k = x.shape
     _check_int8_operands("s8_matmul_qx", k, w_q, scale)
     if x.dtype not in _KERNEL_DTYPES or out_dtype not in _KERNEL_DTYPES:
@@ -555,10 +594,13 @@ def _s8_matmul_qx_cuda(x, w_q, scale, out_dtype):
     scale = scale.float().contiguous()
     _aligned("s8_matmul_qx", ("x", x), ("w_q", wt))
     y = torch.empty((r, n), dtype=out_dtype, device=x.device)
+    plan = s8_qx_plan(r, k, n, _sm_count(x.device.index or 0))
+    stream = kernels.stream_of(x)
+    ws = _qx_workspace(x.device, stream, r, k, plan[0])
     rc = kernels.library().thinkdiff_s8_gemm_qx(
         kernels.ptr(x), kernels.ptr(wt), kernels.ptr(scale), kernels.ptr(y),
-        r, k, n, int(x.dtype == torch.float32),
-        int(out_dtype == torch.float32), kernels.stream_of(x))
+        *map(kernels.ptr, ws), r, k, n, *plan, int(x.dtype == torch.float32),
+        int(out_dtype == torch.float32), stream)
     kernels.check_launch(rc, "s8_matmul_qx")
     kernels.count_launch("s8_matmul_qx")
     return y
