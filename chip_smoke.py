@@ -66,7 +66,19 @@ non-zero:
                 device-busy share and the top kernels;
  11. gumbel slice — the YAML with sampler gumbel and 64 slots, 128
                 requests: the fused sampler serves first tokens and decode;
- 12. lvlm-text — this slice's main path: configs/test_thinkdiff_lvlm_ccsbu_
+ 12. cli      — stages 1 and 2 from their entry points. Stage 1: 256
+                448x448 JPEGs in wids-indexed shards through the precompute
+                bootstrap, task and runner_process_data over
+                configs/qwen2_vl_embed_ccsbu.yaml as written (the task's
+                shard size set to 2e8), the paged slice's model injected and its stop lengths;
+                every sample's embeddings checked (bf16, finite, rows,
+                compact .pth) and one read back through the teacher-forced
+                check. Stage 2: thinkdiff_torch.train.main over
+                configs/train_thinkdiff_lvlm_ccsbu.yaml as written (2B width,
+                the shards, 2 epochs of 4 steps), then resumed from
+                checkpoint_0.pth: epoch 1's steps and lr equal, losses within
+                2.2e-4 relative, projector cosine >= 0.995;
+ 13. lvlm-text — this slice's main path: configs/test_thinkdiff_lvlm_ccsbu_
                 image_text.yaml (Qwen2-VL-7B, w8a8 LM, bf16 vision, T 0.6,
                 top_p 0.9, 128 tokens, ignore_eos) with the frozen flan-t5-xxl
                 decoder weight-only int8 at full depth:
@@ -77,13 +89,14 @@ non-zero:
                 plain version, then get_text on 8 text-only prompts.
 Every serving slice runs at full width and depth on seeded random weights
 and the stand-in tokenizer, on the engine's default device: Qwen2-VL-2B
-(w8a8 LM with fused projections, weight-only int8 vision) in 7-11, 7B in 12.
+(w8a8 LM with fused projections, weight-only int8 vision) in 7-12, 7B in 13.
 Each checks output shapes, finiteness, vocabulary range and stop lengths,
 that the kernels of its path launched (counts set to 0 just before, read
 just after), and a teacher-forced forward over one request. The last two
 lines are a JSON object with per-kernel results (launches of #1-#3 and
 #5-#7 from the train-w8a8 timed passes, #4 from the paged slice, #8 from
-the gumbel slice, #9 from lvlm-text, #10-#12 from the ops phase) and
+the gumbel slice, #9 from lvlm-text, #10-#12 from the ops phase; each
+kernel's launches in the cli phase's two stages beside them) and
 {"ok": true, "device": {...}}.
 """
 
@@ -2116,6 +2129,7 @@ def phase_train_yaml():
         + " ".join(f"{x:.4f}" for x in losses.tolist())
         + f"; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
         f"launches {launches}")
+    return wall / 4 * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -2433,6 +2447,340 @@ def say_total(by_name, kernel, what, steps):
     say("profile", f"  {us / 1e3 / steps:.3f} ms/step  {what} ({n} names)")
 
 
+# ---------------------------------------------------------------------------
+# The jobs from their entry points: stage 1 (precompute) and stage 2 (train)
+# ---------------------------------------------------------------------------
+
+CLI_DIR = Path(__file__).resolve().parent / "build" / "cli"
+CLI_IMAGES = 256
+# the 256 samples hold ~330 MB (a 283-token prompt and ~100 generated rows
+# of 1536 bf16 a sample, and the JPEG), under one shard of the reference's
+# 5e8 bytes: the phase sets the task's shard size to this, so that the
+# writer rolls over and stage 2 reads several tars
+CLI_SHARD_BYTES = 2e8
+CLI_STAGE1_KERNELS = ("flash_attention_fwd", "s8_matmul", "rmsnorm",
+                      "paged_attention")
+CLI_STAGE2_KERNELS = ("flash_attention_fwd", "rmsnorm", "flash_attention_dq",
+                      "flash_attention_dkv")
+CLI_LOSS_TOL = 2.2e-4    # the gradient check's loss limit (PERF.md section 2)
+CLI_COSINE = 0.995
+CLI_PARTS = 8            # batches in each part of stage 2's step taken apart
+
+
+def cli_image_index():
+    """CLI_IMAGES 448x448 JPEGs (seeded) in wids-indexed image shards:
+    (index path, the index's dataset)."""
+    from thinkdiff_torch.data.tario import ShardWriter, write_wids_index
+    from thinkdiff_torch.data.wids_reader import ShardListDataset
+
+    images, _ = requests(CLI_IMAGES, SEED + 5)
+    pattern = str(CLI_DIR / "images" / "%06d.tar")
+    with ShardWriter(pattern, maxcount=100) as w:
+        for i, im in enumerate(images):
+            w.write({"__key__": f"{i:09d}", "jpg": im,
+                     "json": {"caption": f"picture {i}"}})
+        n = w.shard
+    index = str(CLI_DIR / "images" / "index.json")
+    write_wids_index([pattern % i for i in range(n)], index, "cli")
+    return index, ShardListDataset(index)
+
+
+def check_embed_shards(tars, width):
+    """Every sample of the stage-1 shards: bf16, finite embeddings whose rows
+    equal the token counts, each .pth at most 1.01 x rows x width x 2 bytes
+    plus torch.save's header. Returns (samples, the last one read back)."""
+    import io
+
+    from thinkdiff_torch.data.tario import tar_sample_iterator
+
+    one = io.BytesIO()
+    torch.save(torch.zeros((1, width), dtype=torch.bfloat16), one)
+    header = len(one.getvalue()) - width * 2
+    n, last, keys = 0, None, set()
+    for tar in tars:
+        for raw in tar_sample_iterator(str(tar)):
+            js = json.loads(raw["json"])
+            sample = {"__key__": raw["__key__"], "json": js}
+            for kind, ids in (("input", js["input_prompt_token_ids"]),
+                              ("output", js["output_token_ids"])):
+                data = raw[f"model.norm.{kind}_embed.pth"]
+                e = torch.load(io.BytesIO(data), weights_only=True)
+                rows = len(ids)
+                if e.dtype != torch.bfloat16 or tuple(e.shape) != (rows, width):
+                    raise AssertionError(f"{raw['__key__']} {kind}: {e.dtype} "
+                                         f"{tuple(e.shape)}, {rows} tokens")
+                if not torch.isfinite(e.float()).all():
+                    raise AssertionError(f"{raw['__key__']} {kind}: non-finite")
+                if len(data) > 1.01 * rows * width * 2 + header:
+                    raise AssertionError(
+                        f"{raw['__key__']} {kind}: {len(data)} bytes for "
+                        f"{rows} x {width} bf16 (header {header})")
+                sample[kind] = e
+            keys.add(raw["__key__"])
+            n, last = n + 1, sample
+    if n != CLI_IMAGES or len(keys) != n:
+        raise AssertionError(f"cli stage 1: {n} samples, {len(keys)} keys")
+    return n, last
+
+
+def cli_stage1(base_cfg, cfg, params):
+    """The precompute bootstrap -> task -> runner_process_data over
+    configs/qwen2_vl_embed_ccsbu.yaml as written (256 slots, batch 256),
+    the dataset and output path overridden and the task's shard size set
+    to CLI_SHARD_BYTES, with the seeded 2B model injected into the runner;
+    the paged slice's stop lengths."""
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.scripts.common import (
+        bootstrap, build_runner, parse_args)
+    from thinkdiff_torch.tasks import image_text_process_data
+
+    t0 = time.perf_counter()
+    index, images = cli_image_index()
+    embed_dir = CLI_DIR / "embed"
+    args = parse_args("stage 1", [
+        "--cfg-path", str(CONFIG), "--options",
+        f"datasets.cc_sbu_mllama_vllm_process_wids.build_info.storage={index}",
+        f'run.output_shard_path=["{embed_dir}", "%06d.tar", 0]'])
+    run_cfg, task = bootstrap(args)
+    model = build_model(base_cfg, cfg, params, {})
+    runner = build_runner(run_cfg, task, model, task.build_datasets(run_cfg),
+                          None, "runner_process_data")
+    lengths = stop_lengths(CLI_IMAGES, SEED + 1)
+    model.engine.stop_len_fn = lambda req, m: m >= lengths[req]
+    say("cli", f"stage 1: {CLI_IMAGES} images of 448x448 written as JPEGs "
+        f"into wids-indexed shards in {time.perf_counter() - t0:.2f} s; "
+        f"batch {run_cfg.datasets_cfg['cc_sbu_mllama_vllm_process_wids']['batch_size']}"
+        f", {model.max_num_seqs} slots, shard size {CLI_SHARD_BYTES:g} bytes")
+    saved = image_text_process_data.SHARD_MAXSIZE
+    image_text_process_data.SHARD_MAXSIZE = CLI_SHARD_BYTES
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = runner.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        image_text_process_data.SHARD_MAXSIZE = saved
+    engine = model.engine
+    engine.stop_len_fn = None
+    tars = sorted(embed_dir.glob("*.tar"))
+    mb = sum(t.stat().st_size for t in tars) / 1e6
+    if stats["num_samples"] != CLI_IMAGES or stats["num_shards"] != len(tars) \
+            or len(tars) < 2:
+        raise AssertionError(f"cli stage 1: {stats}, tars {tars}")
+    missing = [k for k in CLI_STAGE1_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"cli stage 1: kernels not launched: {missing}")
+    n, last = check_embed_shards(tars, engine.cfg.hidden_size)
+    say("cli", f"stage 1: {n} samples into {len(tars)} shards, "
+        f"{mb:.1f} MB, in {wall:.2f} s: {n / wall:.2f} imgs/s (image "
+        f"shard reads and JPEG decode, serving and shard writing); every "
+        f"embedding bf16, finite, rows = its tokens, each .pth within "
+        f"1.01 x rows x width x 2 + header; launches {launches}")
+    out = {"prompt_token_ids": [last["json"]["input_prompt_token_ids"]],
+           "output_token_ids": [last["json"]["output_token_ids"]],
+           "prompt_hidden_states": [last["input"]],
+           "hidden_states": [last["output"]]}
+    teacher_forcing_check("cli", engine, out,
+                          [images[int(last["__key__"])]["jpg"]], 0)
+    return {"dir": embed_dir, "tars": len(tars), "mb": mb,
+            "imgs_per_s": n / wall, "launches": launches}
+
+
+def cli_train(argv, record):
+    """thinkdiff_torch.train.main(argv) with each train_step's step, lr,
+    loss (left on the card) and host start time appended to ``record``,
+    the launch counters set to 0 just before and read just after:
+    (the runner, the launches)."""
+    from thinkdiff_torch import kernels, train
+    from thinkdiff_torch.engines.trainer import Trainer
+
+    step = Trainer.train_step
+
+    def recorded(self, state, batch, rng=None):
+        t = time.perf_counter()
+        state, m = step(self, state, batch, rng)
+        record.append({"step": state["step"], "lr": m["lr"],
+                       "loss": m["loss"], "t": t})
+        return state, m
+
+    Trainer.train_step = recorded
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        runner = train.main(argv)
+        torch.cuda.synchronize()
+        return runner, kernels.launch_counts()
+    finally:
+        Trainer.train_step = step
+
+
+def cli_stage2_parts(runner):
+    """Stage 2's step through the runner taken apart, in one process on the
+    same shards and state: ms a batch of the epoch's loader alone (shard
+    reads, .pth and JPEG decode, collation on its prefetch thread; timed
+    after its first two batches, the first of which fills the shuffle
+    buffer), of ``prepare_batch`` alone (pinned copies to the card), and of
+    ``train_step`` alone on batches already there (synchronized at the end;
+    and the host's time inside the calls). Returns them and the batches'
+    shapes."""
+    loader = iter(runner.train_loader(0))
+    try:
+        next(loader)
+        next(loader)
+        t0 = time.perf_counter()
+        host = [next(loader) for _ in range(CLI_PARTS)]
+        loader_ms = (time.perf_counter() - t0) * 1e3 / CLI_PARTS
+    finally:
+        loader.close()
+    trainer, state = runner.trainer, runner.state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = [trainer.prepare_batch(b) for b in host]
+    torch.cuda.synchronize()
+    prepare_ms = (time.perf_counter() - t0) * 1e3 / CLI_PARTS
+    state, _ = trainer.train_step(state, dev[0], runner.seed)
+    torch.cuda.synchronize()
+    inside = 0.0
+    t0 = time.perf_counter()
+    for b in dev:
+        t1 = time.perf_counter()
+        state, _ = trainer.train_step(state, b, runner.seed)
+        inside += time.perf_counter() - t1
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / CLI_PARTS
+    shapes = sorted({f"S{b['embeds'].shape[1]}/T{b['labels'].shape[1]}"
+                     for b in host})
+    return {"loader_ms": loader_ms, "prepare_ms": prepare_ms,
+            "step_ms": step_ms, "dispatch_ms": inside * 1e3 / CLI_PARTS,
+            "shapes": shapes}
+
+
+def cli_stage2(stage1, yaml_step_ms):
+    """thinkdiff_torch.train over configs/train_thinkdiff_lvlm_ccsbu.yaml as
+    written, on stage 1's shards (2 epochs of 4 steps), then resumed from
+    checkpoint_0.pth: epoch 1 again."""
+    import gc
+
+    from thinkdiff_torch.core.optim import tree_leaves
+    from thinkdiff_torch.engines.standin_tokenizer import StandInTokenizer
+    from thinkdiff_torch.models.aligner_lvlm import MllamaT5EmbedDecoder
+
+    # no tokenizer files: flan-t5's 32128 ids through a stand-in, and the
+    # VLM ids decoded by the stand-in the engine served with
+    t5_tok = StandInTokenizer({"<pad>": 0, "</s>": 1, "<unk>": 2}, word_lo=3,
+                              word_hi=32100, eos_token="</s>")
+    vlm_decode = StandInTokenizer().decode
+    saved = (MllamaT5EmbedDecoder.get_t5_tokenizer,
+             MllamaT5EmbedDecoder.get_vlm_decode_fn)
+    MllamaT5EmbedDecoder.get_t5_tokenizer = lambda self: t5_tok
+    MllamaT5EmbedDecoder.get_vlm_decode_fn = lambda self: vlm_decode
+    out_dir = CLI_DIR / "train"
+    storage = f"{stage1['dir']}/{{000000..{stage1['tars'] - 1:06d}}}.tar"
+    argv = ["--cfg-path", str(TRAIN_CONFIG), "--options",
+            "model.mllama_pretrained_model_name_or_path=Qwen/Qwen2-VL-2B-Instruct",
+            f"datasets.llava_instruct_mllama_embed_2.build_info.storage={storage}",
+            f"run.output_dir={out_dir}", "run.max_epoch=2",
+            "run.iters_per_epoch=4"]
+    runs = {}
+    try:
+        for name, extra in (("straight", []), ("resumed", [
+                f"run.resume_ckpt_path={out_dir / 'straight' / 'checkpoint_0.pth'}"])):
+            record = []
+            t0 = time.perf_counter()
+            runner, launches = cli_train(argv + extra + ["--job-id", name],
+                                         record)
+            wall = time.perf_counter() - t0
+            losses = torch.stack([r["loss"] for r in record]).float().cpu()
+            runs[name] = {"record": record, "losses": losses.tolist(),
+                          "launches": launches, "wall": wall,
+                          "dir": Path(runner.output_dir),
+                          "d_vlm": runner.model.vlm_hidden,
+                          "d_model": runner.model.t5_cfg.d_model,
+                          "dtype": runner.model.dtype, "batch":
+                          runner.config.datasets_cfg[
+                              "llava_instruct_mllama_embed_2"]["batch_size"]}
+            if not torch.isfinite(losses).all():
+                raise AssertionError(f"cli stage 2 {name}: losses {losses}")
+            if name == "straight":
+                parts = cli_stage2_parts(runner)
+            del runner
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        (MllamaT5EmbedDecoder.get_t5_tokenizer,
+         MllamaT5EmbedDecoder.get_vlm_decode_fn) = saved
+    st, rs = runs["straight"], runs["resumed"]
+    lines = [json.loads(x) for x in (st["dir"] / "log.txt").read_text().splitlines()]
+    if [e["epoch"] for e in lines if "train_loss" in e] != [0, 1]:
+        raise AssertionError(f"cli stage 2: log.txt {lines[1:]}")
+    for tag in (0, 1):
+        if not (st["dir"] / f"checkpoint_{tag}.pth").exists():
+            raise AssertionError(f"cli stage 2: no checkpoint_{tag}.pth")
+    missing = [k for k in CLI_STAGE2_KERNELS if st["launches"][k] == 0]
+    if missing or st["launches"]["s8_matmul"]:
+        raise AssertionError(f"cli stage 2: launches {st['launches']}")
+    if len(st["record"]) != 8 or len(rs["record"]) != 4:
+        raise AssertionError("cli stage 2: steps "
+                             f"{len(st['record'])}, {len(rs['record'])}")
+    again = st["record"][4:]
+    for a, b, la, lb in zip(again, rs["record"], st["losses"][4:],
+                            rs["losses"]):
+        if a["step"] != b["step"] or a["lr"] != b["lr"] or \
+                abs(lb - la) > CLI_LOSS_TOL * abs(la):
+            raise AssertionError(f"cli resume: step {b['step']} lr {b['lr']} "
+                                 f"loss {lb} against step {a['step']} lr "
+                                 f"{a['lr']} loss {la}")
+    ca = torch.load(st["dir"] / "checkpoint_1.pth", weights_only=True)["model"]
+    cb = torch.load(rs["dir"] / "checkpoint_1.pth", weights_only=True)["model"]
+    cos = {k: cosine(ca[k], cb[k]) for k in ca}
+    if min(cos.values()) < CLI_COSINE:
+        raise AssertionError(f"cli resume: projector cosines {cos}")
+    rel = max(abs(lb - la) / abs(la)
+              for la, lb in zip(st["losses"][4:], rs["losses"]))
+    gaps = [b["t"] - a["t"] for run in (st, rs)
+            for a, b in zip(run["record"], run["record"][1:])
+            if b["step"] % 4 != 1]     # within an epoch
+    step_ms = statistics.median(gaps) * 1e3
+    say("cli", f"stage 2: train YAML as written ({st['dtype']}, projector "
+        f"{st['d_vlm']} -> {st['d_model']}, batch {st['batch']}) on "
+        f"{stage1['tars']} shards, 2 "
+        f"epochs x 4 steps in {st['wall']:.1f} s (model build and each "
+        f"epoch's shuffle-buffer fill included); {step_ms:.0f} ms a step "
+        f"through the runner (median gap between steps within an epoch; "
+        f"train-yaml's synthetic batches {yaml_step_ms:.0f}); losses "
+        + " ".join(f"{x:.4f}" for x in st["losses"])
+        + f"; launches {st['launches']}")
+    say("cli", f"stage 2 resumed from checkpoint_0.pth: epoch 1 steps "
+        f"{[r['step'] for r in rs['record']]}, lr equal, losses "
+        + " ".join(f"{x:.4f}" for x in rs["losses"])
+        + f" (max rel err {rel:.3g} <= {CLI_LOSS_TOL}); projector cosine "
+        f"min {min(cos.values()):.6f} (>= {CLI_COSINE}) over "
+        f"{len(cos)} leaves")
+    say("cli", f"stage 2 taken apart over {CLI_PARTS} batches of the "
+        f"straight run's loader (shapes {' '.join(parts['shapes'])}): loader "
+        f"alone {parts['loader_ms']:.1f} ms a batch, prepare_batch alone "
+        f"{parts['prepare_ms']:.1f} ms, train_step alone "
+        f"{parts['step_ms']:.1f} ms a step ({parts['dispatch_ms']:.1f} ms of "
+        f"host time inside the call); through the runner {step_ms:.0f} ms")
+    return {"launches": st["launches"], "step_ms": step_ms}
+
+
+def phase_cli(base_cfg, cfg, params, yaml_step_ms):
+    import shutil
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    try:
+        stage1 = cli_stage1(base_cfg, cfg, params)
+        torch.cuda.empty_cache()
+        stage2 = cli_stage2(stage1, yaml_step_ms)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return stage1, stage2
+
+
 def phase_lvlm_text():
     """configs/test_thinkdiff_lvlm_ccsbu_image_text.yaml with the frozen T5
     in weight-only int8: MllamaT5EmbedDecoderWithEngine.generate over
@@ -2716,7 +3064,7 @@ def main() -> int:
     results = phase_kernels()
     launches, train = phase_train_w8a8()
     torch.cuda.empty_cache()
-    phase_train_yaml()
+    yaml_step_ms = phase_train_yaml()
     torch.cuda.empty_cache()
     ops = phase_ops()
     for k in OP_KERNELS:
@@ -2731,6 +3079,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["fused_lm_sample"] = phase_gumbel_slice(
         base_cfg, cfg, params)["fused_lm_sample"]
+    torch.cuda.empty_cache()
+    cli1, cli2 = phase_cli(base_cfg, cfg, params, yaml_step_ms)
     del params
     torch.cuda.empty_cache()
     lvlm, lvlm_rates = phase_lvlm_text()
@@ -2741,7 +3091,10 @@ def main() -> int:
         f"{train['peak_gib']:.2f} GiB; paged slice {rates['imgs_per_s']:.2f} "
         f"imgs/s, {rates['tokens_per_s']:.1f} generated tokens/s; lvlm-text "
         f"{lvlm_rates['wall_s']:.2f} s for {LVLM_REQUESTS} requests, "
-        f"{lvlm_rates['t5_ms_per_step']:.2f} ms a T5 step")
+        f"{lvlm_rates['t5_ms_per_step']:.2f} ms a T5 step; cli stage 1 "
+        f"{cli1['imgs_per_s']:.2f} imgs/s, {cli1['mb']:.1f} MB in "
+        f"{cli1['tars']} shards; cli stage 2 {cli2['step_ms']:.0f} ms a step "
+        f"(train-yaml {yaml_step_ms:.0f})")
     report = []
     for kname, (route, source, replaces) in TPU_KERNELS.items():
         rows = results[kname]
@@ -2757,6 +3110,8 @@ def main() -> int:
             "library_ms": main_row["library_ms"],
             "launches_from": ("ops phase (no model path runs it)"
                               if kname in OP_KERNELS else "main path"),
+            "cli_stage1_launches": cli1["launches"][kname],
+            "cli_stage2_launches": cli2["launches"][kname],
             "timed_shape": main_row["shape"],
             "shapes": [{k: v for k, v in r.items() if k != "main"}
                        for r in rows],

@@ -44,7 +44,15 @@ def test_every_module_imports_without_jax():
     for name in ("engines.embed_engine", "engines.trainer", "models.t5",
                  "ops.int8_matmul", "models.qdense",
                  "models.aligner_lvlm", "models.projector", "ops.chunked_ce",
-                 "core.optim", "data.packing", "data.synthetic"):
+                 "core.optim", "data.packing", "data.synthetic",
+                 "core.config", "core.registry", "core.logging",
+                 "core.distributed", "core.utils", "data.tario",
+                 "data.wids_reader", "data.processors", "data.pipeline",
+                 "data.collators", "data.builders", "tasks.base_task",
+                 "tasks.image_text_process_data", "engines.checkpoint",
+                 "runners.runner_base", "runners.runner_process_data",
+                 "train", "scripts.common",
+                 "scripts.generate_embedding_webdataset"):
         assert f"thinkdiff_torch.{name}" in _submodules()
 
 

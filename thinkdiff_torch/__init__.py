@@ -8,34 +8,9 @@ It imports ``torch`` and never JAX. See ROADMAP.md for what is ported.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from thinkdiff_torch.core.registry import Registry, registry  # noqa: F401
 
 __version__ = "0.1.0"
-
-
-class Registry:
-    """Model name -> class map of the port, kept apart from the JAX
-    package's registry so both packages can register the same names in one
-    process."""
-
-    def __init__(self):
-        self.models: Dict[str, type] = {}
-
-    def register_model(self, name: str) -> Callable[[type], type]:
-        def wrap(cls: type) -> type:
-            if self.models.get(name, cls) is not cls:
-                raise KeyError(f"Model '{name}' already registered for "
-                               f"{self.models[name]}")
-            self.models[name] = cls
-            return cls
-
-        return wrap
-
-    def get_model_class(self, name: str):
-        return self.models.get(name)
-
-
-registry = Registry()
 
 
 def resolve_device(device):

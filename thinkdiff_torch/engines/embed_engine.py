@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from thinkdiff_torch import registry, resolve_device
+from thinkdiff_torch.core.config import model_default_config_path
 from thinkdiff_torch.models.bridge import load_params
 from thinkdiff_torch.models.qwen2_vl import (
     Qwen2VLConfig, Qwen2VLModel, Qwen2VisionTower, get_mrope_position_ids,
@@ -1330,6 +1331,12 @@ class MllamaVllmGenerateModel:
     """Registry model wrapping the engine for the precompute task — the
     reference's ``mllama-vllm-generate-1``."""
 
+    default_model_type = "pretrain_mllama_vllm_generate_1"
+    PRETRAINED_MODEL_CONFIG_DICT = {
+        "pretrain_mllama_vllm_generate_1":
+            "configs/models/mllama_vllm_generate_1.yaml",
+    }
+
     def __init__(self, cfg: Dict[str, Any], engine: Optional[EmbedEngine] = None,
                  device="cuda"):
         self.cfg = cfg
@@ -1345,9 +1352,11 @@ class MllamaVllmGenerateModel:
             name in model_id for name in _LLAVA_LEADING_SPACE_IDS)
         self.max_num_seqs = int(vcfg.get("max_num_seqs", 32))
 
+    default_config_path = classmethod(model_default_config_path)
+
     @classmethod
-    def from_config(cls, cfg):
-        return cls(cfg)
+    def from_config(cls, cfg, device="cuda"):
+        return cls(cfg, device=device)
 
     def load_checkpoint_from_config(self, cfg):
         pass  # frozen inference model

@@ -29,9 +29,10 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from thinkdiff_torch import registry, resolve_device
+from thinkdiff_torch.core.config import model_default_config_path
 from thinkdiff_torch.core.optim import tree_map
 from thinkdiff_torch.models.bridge import (
-    local_hf_dir, local_hf_state_dict, to_numpy, to_tensor)
+    local_hf_dir, local_hf_state_dict, to_numpy, to_tensor, unflatten)
 from thinkdiff_torch.models.projector import (
     build_vision_projector, convert_projector_torch, export_projector_torch)
 from thinkdiff_torch.models.qdense import QDense
@@ -78,6 +79,12 @@ def init_frozen_t5_(t5: T5ForConditionalGeneration,
 
 @registry.register_model("mllama-vllm-t5-embed-decoder-2")
 class MllamaT5EmbedDecoder:
+    default_model_type = "pretrain_mllama_vllm_t5_embed_decoder_2"
+    PRETRAINED_MODEL_CONFIG_DICT = {
+        "pretrain_mllama_vllm_t5_embed_decoder_2":
+            "configs/models/mllama_vllm_t5_embed_decoder_2.yaml",
+    }
+    default_config_path = classmethod(model_default_config_path)
     DEFAULT_CONFIG = {
         "mm_projector_type": "mlp2x_gelu_t5_norm",
         "dtype": "bfloat16",
@@ -133,13 +140,36 @@ class MllamaT5EmbedDecoder:
         self.trainable = {"projector": self.projector.init_params(
             self.vlm_hidden, gen, self.device)}
 
+    @classmethod
+    def from_config(cls, cfg, device="cuda"):
+        return cls(cfg, device=device)
+
+    def load_checkpoint_from_config(self, cfg) -> None:
+        """Loads the trainable weights the config's ``ckpt`` names."""
+        ckpt = cfg.get("ckpt", None) if cfg else None
+        if ckpt:
+            self.load_checkpoint(ckpt)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Trainable weights from a ``.pth``: the port's checkpoint (its
+        ``model`` holds the trainable leaves under their JAX names) or the
+        reference's (``mm_projector.*`` entries, raw or under ``model``)."""
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
+            sd = sd["model"]
+        if any("mm_projector" in k for k in sd):
+            self.load_trainable(self.convert_reference_checkpoint(sd))
+        else:
+            self.load_trainable(unflatten(sd))
+        logger.info("Loaded trainable checkpoint from %s", path)
+
     def trainable_params(self) -> Dict[str, Any]:
         return self.trainable
 
     def load_trainable(self, params: Dict[str, Any]) -> None:
-        """A JAX-layout trainable tree (numpy or torch leaves)."""
-        self.trainable = tree_map(lambda x: to_tensor(x).to(self.device),
-                                  params)
+        """A JAX-layout trainable tree (numpy or torch leaves), copied."""
+        self.trainable = tree_map(
+            lambda x: to_tensor(x).to(self.device, copy=True), params)
 
     def export_trainable(self) -> Dict[str, Any]:
         """Inverse of ``load_trainable``: the trainable tree as numpy. The
@@ -178,6 +208,26 @@ class MllamaT5EmbedDecoder:
             # no transformers, or incomplete files
             logger.warning("T5 tokenizer unavailable for %s: %s", path, e)
             return None
+
+    def get_vlm_decode_fn(self):
+        """token ids -> text with the VLM tokenizer from local files, or the
+        ``vlm_decode_fn`` attribute when one is set; None without either."""
+        override = self.__dict__.get("vlm_decode_fn")
+        if override is not None:
+            return override
+        path = self.cfg.get("mllama_pretrained_model_name_or_path", None)
+        local = local_hf_dir(path) if path else None
+        if local is None:
+            logger.warning("VLM tokenizer unavailable: %s is not on disk", path)
+            return None
+        try:
+            from transformers import AutoTokenizer
+
+            tok = AutoTokenizer.from_pretrained(local, local_files_only=True)
+        except (ImportError, OSError, ValueError) as e:
+            logger.warning("VLM tokenizer unavailable for %s: %s", path, e)
+            return None
+        return lambda ids: tok.decode(ids, skip_special_tokens=True)
 
     # -- compute ------------------------------------------------------------
     def project(self, trainable, embeds: torch.Tensor,
