@@ -36,7 +36,12 @@ non-zero:
                 rows; the fused sampler at the 2B tied pack's 8, 64 and 256
                 rows and the 7B untied pack's 16, noise off and on, also
                 with a cold L2; the quantize-in-kernel s8 GEMM at 1024
-                rows; both checked to be one device launch a call;
+                rows; both checked to be one device launch a call; the
+                flash forward at FLUX.1-dev's joint attention (B1 H24
+                D128, T4224 and the ragged T4507) and CLIP-L's causal
+                layer (B1 H12 T77 D64), and RMSNorm at FLUX's q/k norm
+                (24 x 4224 rows of 128), each also with a cold L2 and
+                checked to be one device launch a call;
   4. train-w8a8 — the LVLM aligner's training step: configs/
                 train_thinkdiff_lvlm_ccsbu.yaml's model and run sections with
                 bench.py's overrides (w8a8 frozen flan-t5-xxl decoder at full
@@ -86,7 +91,23 @@ non-zero:
                 448x448 image (VLM -> hidden states -> projector -> 32 greedy
                 T5 steps each), the GEMV's launches against the count derived
                 from the config, a teacher-forced T5 pass against the GEMV's
-                plain version, then get_text on 8 text-only prompts.
+                plain version, then get_text on 8 text-only prompts;
+ 14. lvlm-flux — stage 3 into an image: lvlm-text's model through
+                get_embed on one request ("both": 411 tokens, then the
+                path's output_embed: 128), the VLM side then freed;
+                FLUX.1-dev (19 + 38 blocks, bf16), CLIP-L and the FLUX VAE
+                from seeded random weights on the card;
+                ThinkDiffPipeline.generate with the YAML's run section as
+                written (1024², 28 steps, guidance 3.5, seed 42) and the
+                pooled embedding of "" through a CLIP stand-in tokenizer;
+                image (1, 1024, 1024, 3) finite in [0, 1] and not constant,
+                final latents finite, the path's launches (counts set to 0
+                before get_embed) against get_embed_launches +
+                flux_launches, one full-shape forward at both joint lengths
+                with every kernel call held against its plain version and
+                the velocity against the plain forward's, planted faults
+                shown to fail that check, the PNG read back equal, one
+                profiled denoise step.
 Every serving slice runs at full width and depth on seeded random weights
 and the stand-in tokenizer, on the engine's default device: Qwen2-VL-2B
 (w8a8 LM with fused projections, weight-only int8 vision) in 7-12, 7B in 13.
@@ -96,13 +117,15 @@ just after), and a teacher-forced forward over one request. The last two
 lines are a JSON object with per-kernel results (launches of #1-#3 and
 #5-#7 from the train-w8a8 timed passes, #4 from the paged slice, #8 from
 the gumbel slice, #9 from lvlm-text, #10-#12 from the ops phase; each
-kernel's launches in the cli phase's two stages beside them) and
+kernel's launches in the cli phase's two stages and in lvlm-flux beside
+them) and
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -472,6 +495,118 @@ def kernels_flash(results):
         ok, tol, (nbytes(q, k, v, q, bias), 4 * pairs * 128, "bf16"),
         library=lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=128 ** -0.5, enable_gqa=True)))
+
+
+# FLUX's joint attention (q/k RMS-normed, D128, scale 128^-0.5): logits
+# of std ~1 spread the softmax over ~T/e keys, so |out| ~ sqrt(e/T) ~ 0.025
+# and the absolute floor of the other flash rows (2e-2) would pass a kernel
+# that lost a tile. These rows are held at a limit scaled to the output:
+# 2e-2 * max|ref| (4.0e-3 / 3.8e-3 at T4224 / T4507 on these inputs, where
+# the kernel errs 9.8e-4, one bf16 ulp of the largest outputs), and the
+# limit is shown to reject the faults it is there for (flash_flux_faults:
+# 0.085-0.178 on the card)
+FLUX_FLASH_REL = 2e-2
+
+
+def flux_flash_limit(ref: torch.Tensor) -> float:
+    return FLUX_FLASH_REL * float(ref.float().abs().max())
+
+
+def flash_flux_faults(q, k, v, sm_scale, limit):
+    """Faults planted in the plain version at a FLUX joint shape: one
+    128-key tile skipped (keys 2048-2175) and, where T is no multiple of
+    128, the ragged tail dropped. Each must err beyond ``limit`` against
+    the sound plain version; returns {fault: max |err|}."""
+    from thinkdiff_torch.ops.flash_attention import mha_reference
+
+    t = k.shape[2]
+    ref = mha_reference(q, k, v, None, None, False, sm_scale).float()
+    keep = {"tile 16 skipped": torch.cat([torch.arange(2048),
+                                          torch.arange(2176, t)])}
+    if t % 128:
+        keep["ragged tail dropped"] = torch.arange(t - t % 128)
+    errs = {}
+    for fault, idx in keep.items():
+        idx = idx.to(k.device)
+        out = mha_reference(q, k[:, :, idx], v[:, :, idx], None, None, False,
+                            sm_scale)
+        errs[fault] = float((out.float() - ref).abs().max())
+        if not errs[fault] > limit:
+            raise AssertionError(f"flash T{t}: the planted fault {fault!r} "
+                                 f"errs {errs[fault]:.3g}, within the limit "
+                                 f"{limit:.3g}")
+    return errs
+
+
+def kernels_flash_flux(results):
+    """The flash forward at the shapes of LVLM inference into FLUX: FLUX.1-
+    dev's joint attention (B1, 24 heads of 128, unmasked) over 128 aligned
+    tokens + a 1024² image's 4096 (T4224) and over embedding_type "both"'s
+    411 + 4096 (T4507, no multiple of a tile), held at FLUX_FLASH_REL *
+    max|ref| with the planted faults shown to fail it, and CLIP-L's causal
+    layer (B1, 12 heads of 64, T77); q/k/v as the modules hand them over:
+    head-transposed views of (B, T, H, D) projections. Each also with a
+    cold L2 and checked to be one device launch a call."""
+    import torch.nn.functional as F
+
+    from thinkdiff_torch.ops.flash_attention import (
+        flash_attention, mha_reference)
+
+    for t, h, d, causal, label in (
+            (4224, 24, 128, False, "flux joint B1 H24 T4224 D128"),
+            (4507, 24, 128, False, "flux joint ragged B1 H24 T4507 D128"),
+            (77, 12, 64, True, "clip-l B1 H12 T77 D64 causal")):
+        q, k, v = (randn((1, t, h, d), s).transpose(1, 2)
+                   for s in (95, 96, 97))
+        pairs = h * (t * (t + 1) // 2 if causal else t * t)
+        run = lambda q=q, k=k, v=v, c=causal, d=d: flash_attention(
+            q, k, v, None, None, c, d ** -0.5)
+        plain = lambda q=q, k=k, v=v, c=causal, d=d: mha_reference(
+            q, k, v, None, None, c, d ** -0.5)
+        if causal:
+            tol = "2e-2 + 2e-2*|ref| (P rounded to bf16; bf16 output)"
+            ok = lambda e, r: e <= 2e-2 + 2e-2 * r.abs()
+        else:
+            limit = flux_flash_limit(plain())
+            tol = (f"{FLUX_FLASH_REL:g} * max|ref| = {limit:.3g} (P rounded "
+                   "to bf16; bf16 output)")
+            ok = lambda e, r, limit=limit: e <= limit
+        results.append(check(
+            "flash_attention_fwd", label + " (projection views)", run, plain,
+            ok, tol, (nbytes(q, k, v, q), 4 * pairs * d, "bf16"),
+            library=lambda q=q, k=k, v=v, c=causal, d=d:
+                F.scaled_dot_product_attention(q, k, v, is_causal=c,
+                                               scale=d ** -0.5),
+            cold="flash_fwd"))
+        if not causal:
+            faults = flash_flux_faults(q, k, v, d ** -0.5, limit)
+            results[-1]["planted_fault_errs"] = faults
+            say("kernels", f"{label}: planted faults in the plain version "
+                "err " + ", ".join(f"{f} {e:.3g}" for f, e in faults.items())
+                + f", each beyond the limit {limit:.3g}")
+        expect_one_launch("kernels", label, run, "flash_fwd")
+        del q, k, v
+
+
+def kernels_rmsnorm_flux(results):
+    """RMSNorm at FLUX's per-head q/k norm: a single block's q over 4224
+    tokens x 24 heads, rows of 128, in the (B, S, H, D) layout of the
+    projection (no copy), with the f32 scale cast to bf16; cold L2 and one
+    device launch a call."""
+    import torch.nn.functional as F
+
+    from thinkdiff_torch.ops.norms import rmsnorm, rmsnorm_reference
+
+    x = randn((1, 4224, 24, 128), 98) * 3.0
+    scale = randn((128,), 99, torch.float32).to(torch.bfloat16)
+    run = lambda: rmsnorm(x, scale, 1e-6)
+    results.append(check(
+        "rmsnorm", "flux q/k norm R101376 (24 x 4224) D128",
+        run, lambda: rmsnorm_reference(x, scale, 1e-6),
+        lambda e, ref: e <= bf16_ulp(ref), "1 bf16 ulp",
+        (nbytes(x, scale, x), 4 * x.numel(), "bf16"),
+        library=lambda: F.rms_norm(x, (128,), scale, 1e-6), cold="rmsnorm"))
+    expect_one_launch("kernels", "rmsnorm flux q/k norm", run, "rmsnorm")
 
 
 def kernels_flash_t5_decode(results, ok, tol):
@@ -1803,8 +1938,10 @@ def phase_kernels():
     kernels_attention_train(results)
     kernels_s8(results["s8_matmul"])
     kernels_s8_train(results)
+    kernels_flash_flux(results["flash_attention_fwd"])
     kernels_rmsnorm(results["rmsnorm"])
     kernels_rmsnorm_train(results)
+    kernels_rmsnorm_flux(results["rmsnorm"])
     kernels_paged(results["paged_attention"])
     kernels_fused_sample(results["fused_lm_sample"])
     kernels_int8_gemv(results["int8_matmul"])
@@ -2901,7 +3038,412 @@ def phase_lvlm_text():
         f"{engine.max_tokens} tokens each in {wall_text:.2f} s")
     engine.generate = served
     return launches, {"wall_s": wall, "t5_ms_per_step":
-                      ph["t5"] / ph["t5_steps"] * 1e3}
+                      ph["t5"] / ph["t5_steps"] * 1e3}, model
+
+
+# ---------------------------------------------------------------------------
+# LVLM inference into FLUX: aligned tokens -> a 1024² image
+# ---------------------------------------------------------------------------
+
+FLUX_DIR = Path(__file__).resolve().parent / "build" / "lvlm_flux"
+# seeded random weights of FLUX.1-dev, CLIP-L and the FLUX VAE: every
+# kernel and embedding N(0, 0.02) (HF's initializer_range), CLIP's position
+# embedding N(0, 0.01), biases 0, LayerNorm / GroupNorm scales 1, and
+# FLUX's q/k RMSNorm scales U(0.5, 1.5), so that a norm that left its scale
+# out would show. A scale that let the trajectory go non-finite would fail
+# the finiteness checks below
+FLUX_INIT_STD = 0.02
+# one transformer forward at full shape through the kernels against the
+# same forward with the flash forward and RMSNorm replaced by their plain
+# versions (mha_reference in f32, rmsnorm_reference): velocity cosine at
+# least this, at both joint lengths. The same forward holds every kernel
+# call against its plain version on the call's own inputs
+# (FLUX_FLASH_REL * max|ref| for the flash forward, one bf16 ulp for
+# RMSNorm). Measured on the card (NVIDIA H100 80GB HBM3, 700 W), get_embed's
+# tokens, T4224 / T4507: sound 0.999878 / 0.999874 (the kernel rounds P to
+# bf16 before PV, and both round the output to bf16); planted faults
+# (flux_velocity_check) a uniform softmax 0.991090 / 0.985104, RMSNorm's
+# scale left out 0.998470 / 0.997479, the keys cut to a tile multiple
+# (T4507) 0.999857, each caught by the per-call check. The limit sits
+# between the sound runs and the first two faults (4x the sound distance
+# from 1, a third of the nearer fault's); no cosine can tell the cut tail
+# from sound rounding, so that fault rests on the per-call check alone
+FLUX_VEL_COS_MIN = 0.9995
+
+
+class ClipStandInTokenizer:
+    """CLIP-L's tokenizer surface for seeded runs without tokenizer files:
+    BOS 49406, one id a word (from a hash, in 1..49405), EOS 49407, padded
+    to ``max_length`` with EOS, as CLIP pads."""
+
+    BOS, EOS = 49406, 49407
+
+    def __call__(self, texts, padding="max_length", max_length=77,
+                 truncation=True, return_tensors="np"):
+        import zlib
+
+        rows = []
+        for t in texts:
+            words = [1 + zlib.crc32(w.encode()) % (self.BOS - 1)
+                     for w in t.split()]
+            ids = ([self.BOS] + words)[:max_length - 1] + [self.EOS]
+            rows.append(ids + [self.EOS] * (max_length - len(ids)))
+        return {"input_ids": np.asarray(rows, np.int64)}
+
+
+@torch.no_grad()
+def init_random_(module, gen, std=FLUX_INIT_STD):
+    """Seeded random weights in place on the module's device (see
+    FLUX_INIT_STD)."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "bias":
+            p.zero_()
+        elif leaf == "scale":
+            p.fill_(1.0)
+        elif leaf in ("q_scale", "k_scale"):
+            p.copy_(0.5 + torch.rand(p.shape, generator=gen, device=p.device))
+        else:
+            s = std / 2 if leaf == "position_embedding" else std
+            p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * s)
+
+
+def lvlm_flux_embeds(model):
+    """lvlm-text's model (Qwen2-VL-7B engine + projector) on one 448x448
+    request through get_embed, as the LVLM FLUX CLI calls it: with
+    "both" (prompt + generated; the velocity check's second joint length),
+    then with the YAML's embedding_type output_embed (its 128 generated
+    tokens), the start of the lvlm-flux path: the launch counts are set to
+    0 before it, and its launches must equal get_embed_launches. Returns
+    ({embedding_type: (S, 4096)}, get_embed's launches)."""
+    import yaml
+
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.models.aligner_lvlm import get_embed_launches
+
+    run = yaml.safe_load(LVLM_CONFIG.read_text())["run"]
+    images, prompts = requests(1, SEED + 9)
+    samples = {"images": images, "answers": prompts}
+    out = {}
+    for etype in ("both", run["embedding_type"]):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        conds, res = model.get_embed(samples, embedding_type=etype,
+                                     max_new_tokens=int(run["max_new_tokens"]))
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        c = conds[0]
+        if not (c.ndim == 2 and c.shape[1] == model.t5_cfg.d_model
+                and torch.isfinite(c.float()).all()):
+            raise AssertionError(f"lvlm-flux: get_embed({etype}) gave "
+                                 f"{tuple(c.shape)} or non-finite")
+        say("lvlm-flux", f"get_embed(embedding_type={etype!r}): "
+            f"{tuple(c.shape)} {c.dtype} in {time.perf_counter() - t0:.2f} s "
+            f"({len(res.prompt_token_ids[0])} prompt + "
+            f"{len(res.output_token_ids[0])} generated tokens)")
+        out[etype] = c
+    want = get_embed_launches(model, [len(res.prompt_token_ids[0])],
+                              int(run["max_new_tokens"]))
+    if launches != {k: want.get(k, 0) for k in launches}:
+        raise AssertionError(f"lvlm-flux: get_embed launches {launches} != "
+                             f"derived {want}")
+    say("lvlm-flux", f"get_embed({run['embedding_type']!r}) launches = "
+        f"get_embed_launches {want}")
+    return out, launches
+
+
+def flux_forward(pipe, embeds, latents, pooled, sigma, attention, norm):
+    """One transformer forward at full shape on ``embeds`` (S_txt rows)
+    with ``attention`` and ``norm`` in place of the flash forward and
+    RMSNorm at their call sites in models/flux.py. Returns the f32
+    velocity."""
+    from unittest import mock
+
+    from thinkdiff_torch.models import flux as flux_mod
+
+    cfg, model = pipe.sampler.cfg, pipe.sampler.transformer
+    dev, side = pipe.sampler.device, math.isqrt(latents.shape[1]) * 2
+    img_ids = torch.from_numpy(flux_mod.make_img_ids(side, side)).to(dev)
+    args = (latents.to(cfg.dtype), embeds[None], pooled,
+            torch.full((1,), sigma, device=dev), img_ids,
+            torch.zeros((embeds.shape[0], 3), device=dev),
+            torch.full((1,), 3.5, device=dev))
+    with torch.no_grad(), \
+            mock.patch.object(flux_mod, "flash_attention", attention), \
+            mock.patch.object(flux_mod, "rmsnorm", norm):
+        out = model(*args).float()
+    if not torch.isfinite(out).all():
+        raise AssertionError("lvlm-flux: non-finite velocity")
+    return out
+
+
+def flux_velocity_check(pipe, embeds, latents, pooled, sigma):
+    """The FLUX forward of ``embeds`` through the kernels against its plain
+    version (mha_reference, rmsnorm_reference): the velocity cosine, and
+    each kernel call held against its plain version on the call's own
+    inputs (the flash forward at FLUX_FLASH_REL * max|ref|, RMSNorm at one
+    bf16 ulp: ``worst`` is each kernel's largest error over its limit, at
+    most 1). Then the same with a fault planted in place of a kernel: a
+    uniform softmax (the mean of v), the keys cut to a multiple of 128
+    (where T is none), and RMSNorm with its scale left out. Every fault
+    must fail the per-call check. Returns {run: {"cos": ..., "worst":
+    {kernel: ...}}}."""
+    from thinkdiff_torch.ops.flash_attention import (
+        flash_attention, mha_reference)
+    from thinkdiff_torch.ops.norms import rmsnorm, rmsnorm_reference
+
+    t = embeds.shape[0] + latents.shape[1]
+    cut = t - t % 128
+    want = flux_forward(pipe, embeds, latents, pooled, sigma, mha_reference,
+                        rmsnorm_reference)
+    faults = {
+        "sound": (flash_attention, rmsnorm),
+        "uniform softmax": (lambda q, k, v, *a: v.mean(
+            dim=2, keepdim=True).expand(q.shape), rmsnorm),
+        "RMSNorm scale left out": (flash_attention,
+                                   lambda x, s, eps=1e-6: rmsnorm(
+                                       x, torch.ones_like(s), eps)),
+    }
+    if cut != t:
+        faults["keys cut to a tile multiple"] = (
+            lambda q, k, v, *a: flash_attention(
+                q, k[:, :, :cut], v[:, :, :cut], *a), rmsnorm)
+    out = {}
+    for run, (attention, norm) in faults.items():
+        worst = {"flash": 0.0, "rmsnorm": 0.0}
+
+        def attention_checked(q, k, v, *a, attention=attention):
+            o = attention(q, k, v, *a)
+            ref = mha_reference(q, k, v, *a).float()
+            worst["flash"] = max(worst["flash"], float(
+                (o.float() - ref).abs().max()) / flux_flash_limit(ref))
+            return o
+
+        def norm_checked(x, s, eps=1e-6, norm=norm):
+            o = norm(x, s, eps)
+            ref = rmsnorm_reference(x, s, eps)
+            worst["rmsnorm"] = max(worst["rmsnorm"], float(
+                ((o.float() - ref.float()).abs() / bf16_ulp(ref)).max()))
+            return o
+
+        got = flux_forward(pipe, embeds, latents, pooled, sigma,
+                           attention_checked, norm_checked)
+        out[run] = {"cos": cosine(got, want), "worst": worst}
+        say("lvlm-flux", f"velocity at joint length {t}, {run}: cosine "
+            f"{out[run]['cos']:.6f} against the plain forward (limit "
+            f"{FLUX_VEL_COS_MIN}); worst call of the flash forward "
+            f"{worst['flash']:.3g}, of RMSNorm {worst['rmsnorm']:.3g} of "
+            "its limit")
+        caught = max(worst.values()) > 1.0
+        if run == "sound" and (caught
+                               or not out[run]["cos"] >= FLUX_VEL_COS_MIN):
+            raise AssertionError(f"lvlm-flux: velocity check failed {out}")
+        if run != "sound" and not caught:
+            raise AssertionError(f"lvlm-flux: the planted fault {run!r} "
+                                 f"passes the per-call check {out[run]}")
+    return out
+
+
+def profile_denoise_step(pipe, embeds, latents, pooled):
+    """One Euler step of the transformer at full shape (the step's forward
+    and its f32 update) under torch.profiler: wall time, device-busy share
+    and the kernels that take the time."""
+    from torch.autograd import DeviceType
+
+    from thinkdiff_torch.models.flux import make_img_ids
+
+    s = pipe.sampler
+    img_ids = torch.from_numpy(make_img_ids(128, 128))
+    txt_ids = torch.zeros((embeds.shape[0], 3))
+    step = lambda: s.denoise(latents, embeds[None], pooled, img_ids, txt_ids,
+                             [1.0, 0.96], 3.5)
+    from torch.utils.flop_counter import FlopCounterMode
+
+    # the step's matmul operations as PyTorch dispatches them (the
+    # projections; the flash kernel is a library call it does not see)
+    with FlopCounterMode(display=False) as fc:
+        step()
+    torch.cuda.synchronize()
+    proj_flops = fc.get_total_flops()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3
+    say("profile", f"FLUX denoise step, joint length "
+        f"{embeds.shape[0] + 4096}: {wall_ms:.1f} ms unprofiled; device "
+        "kernel time "
+        + (f"{busy_ms:.1f} ms, busy {busy_ms / wall_ms:.0%}" if by_name
+           else "not measured (no device events in the trace)"))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say("profile", f"  {us / 1e3:.3f} ms/step  {name[:100]}")
+    say_total(by_name, "flash_fwd", "the flash forward (#1)", 1)
+    say_total(by_name, "rmsnorm", "RMSNorm (#3)", 1)
+    say_total(by_name, "nvjet", "cuBLAS (the projections)", 1)
+    say_total(by_name, "elementwise", "PyTorch's elementwise kernels", 1)
+    say_total(by_name, "copy", "PyTorch's copies", 1)
+    cfg = s.cfg
+    t = embeds.shape[0] + 4096
+    attn_flops = ((cfg.num_double_layers + cfg.num_single_layers)
+                  * 4 * cfg.num_heads * t * t * cfg.head_dim)
+    say("profile", f"  the step's work: projections {proj_flops / 1e12:.2f} "
+        f"TFLOP (torch.utils.flop_counter), {bound_ms(0, proj_flops, 'bf16')[0]:.1f} "
+        f"ms at the bf16 peak; joint attention {attn_flops / 1e12:.2f} TFLOP, "
+        f"{bound_ms(0, attn_flops, 'bf16')[0]:.1f} ms")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "proj_tflop": proj_flops / 1e12}
+
+
+def phase_lvlm_flux(embeds, embed_launches=None):
+    """LVLM inference into FLUX with the LVLM YAML's run section as written
+    (1024², 28 steps, guidance 3.5, seed 42): FLUX.1-dev (19 + 38 blocks,
+    hidden 3072, bf16), CLIP-L and the FLUX VAE on the card from seeded
+    random weights; the pooled embedding of "" through CLIP-L and the
+    stand-in tokenizer; ThinkDiffPipeline.generate on get_embed's
+    output_embed tokens; the image, launches, velocity and PNG checks; one
+    profiled step. ``embed_launches``: get_embed's launches on this path
+    (lvlm_flux_embeds), counted since the counts were set to 0 before it;
+    the path's launches are then its and flux_launches' together. Without
+    it (random tokens in place of get_embed's) the counts are set to 0
+    here and hold the FLUX part only. Returns (the path's launches,
+    rates)."""
+    import shutil
+
+    import yaml
+    from PIL import Image
+
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.engines.flux_sampler import FluxSampler, save_images
+    from thinkdiff_torch.engines.pipeline import ThinkDiffPipeline
+    from thinkdiff_torch.models.aligner_lvlm import flux_launches
+    from thinkdiff_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+    from thinkdiff_torch.models.flux import FluxConfig, FluxTransformer
+    from thinkdiff_torch.models.flux_vae import VAEConfig, VAEDecoder
+
+    run = yaml.safe_load(LVLM_CONFIG.read_text())["run"]
+    hgt, wdt = int(run["image_height"]), int(run["image_width"])
+    steps, guidance = int(run["num_inference_steps"]), float(run["guidance_scale"])
+    seed = int(run["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    cfg = FluxConfig.flux_dev()
+    transformer = FluxTransformer(cfg, device="cuda")
+    init_random_(transformer, gen)
+    clip_cfg = CLIPTextConfig.clip_l(dtype=torch.bfloat16)
+    clip = CLIPTextEncoder(clip_cfg, device="cuda")
+    init_random_(clip, gen)
+    vae_cfg = VAEConfig.flux()
+    vae = VAEDecoder(vae_cfg, device="cuda")
+    init_random_(vae, gen)
+    pipe = ThinkDiffPipeline(FluxSampler(cfg, transformer, vae_cfg, vae),
+                             clip, ClipStandInTokenizer())
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in transformer.parameters())
+    say("lvlm-flux", f"FLUX.1-dev ({cfg.num_double_layers} + "
+        f"{cfg.num_single_layers} blocks, hidden {cfg.hidden_size}, "
+        f"{n_params / 1e9:.2f} B params, bf16), CLIP-L ({clip_cfg.num_layers} "
+        f"layers, bf16) and the FLUX VAE (bf16) from seeded random weights "
+        f"(std {FLUX_INIT_STD}) in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+
+    times, final = {}, {}
+    sampler = pipe.sampler
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t
+            final[name] = out
+            return out
+        return wrapper
+
+    sampler.denoise = timed("denoise", sampler.denoise)
+    sampler.decode = timed("decode", sampler.decode)
+    cond = embeds[run["embedding_type"]]
+    torch.cuda.synchronize()
+    if embed_launches is None:
+        kernels.reset_launch_counts()
+        embed_launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    pooled = pipe.pooled_from_prompt("", 1)
+    torch.cuda.synchronize()
+    clip_ms = (time.perf_counter() - t0) * 1e3
+    images = pipe.generate(cond[None], prompt="", height=hgt, width=wdt,
+                           num_steps=steps, guidance=guidance, seed=seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    del sampler.denoise, sampler.decode
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    lat = final["denoise"]
+    if not torch.isfinite(lat).all():
+        raise AssertionError("lvlm-flux: non-finite final latents")
+    if tuple(images.shape) != (1, hgt, wdt, 3):
+        raise AssertionError(f"lvlm-flux: image {tuple(images.shape)}")
+    img = images.float()
+    if not (torch.isfinite(img).all() and float(img.min()) >= 0.0
+            and float(img.max()) <= 1.0 and float(img.std()) > 0.0):
+        raise AssertionError("lvlm-flux: image not finite, outside [0, 1] "
+                             "or constant")
+    want = flux_launches(cfg, steps, clip_cfg.num_layers)
+    got = {k: launches[k] - embed_launches[k] for k in want}
+    path = {k: embed_launches[k] + want.get(k, 0) for k in launches}
+    if launches != path:
+        raise AssertionError(f"lvlm-flux: launches {launches} != get_embed's "
+                             f"{embed_launches} + flux_launches {want}")
+    if float(pooled.abs().max()) == 0.0:
+        raise AssertionError("lvlm-flux: the pooled embedding is zeros")
+    say("lvlm-flux", f"ThinkDiffPipeline.generate on {tuple(cond.shape)} "
+        f"{run['embedding_type']} tokens, {hgt}x{wdt}, {steps} steps, "
+        f"guidance {guidance}, seed {seed}: {wall:.2f} s; CLIP-L pooled "
+        f"embedding of \"\" {clip_ms:.1f} ms; denoise {times['denoise']:.2f} "
+        f"s ({times['denoise'] / steps * 1e3:.1f} ms a step); VAE decode "
+        f"{times['decode']:.2f} s; image mean {float(img.mean()):.4f} std "
+        f"{float(img.std()):.4f}; final latents |max| "
+        f"{float(lat.abs().max()):.3f}; peak {peak:.2f} GiB")
+    say("lvlm-flux", f"FLUX launches flash_attention_fwd "
+        f"{got['flash_attention_fwd']}, rmsnorm {got['rmsnorm']} = "
+        f"flux_launches {want}; the whole path (get_embed + FLUX) "
+        f"{launches}")
+
+    # the trajectory's first velocity at both joint lengths, kernels vs
+    # plain, and the planted faults
+    noise = sampler.noise(1, lat.shape[1], seed)
+    coss = {etype: flux_velocity_check(pipe, e, noise, pooled, 1.0)
+            for etype, e in embeds.items()}
+
+    FLUX_DIR.mkdir(parents=True, exist_ok=True)
+    path = FLUX_DIR / f"request0_seed{seed}.png"
+    save_images(images, [str(path)])
+    back = np.asarray(Image.open(path))
+    if not np.array_equal(back, (images.cpu() * 255).to(torch.uint8)[0]
+                          .numpy()):
+        raise AssertionError("lvlm-flux: the PNG read back differs")
+    say("lvlm-flux", f"PNG {path.stat().st_size} bytes written and read back "
+        "equal")
+    shutil.rmtree(FLUX_DIR)
+    prof = profile_denoise_step(pipe, cond, noise, pooled)
+    return launches, {"wall_s": wall, "clip_ms": clip_ms,
+                      "denoise_s": times["denoise"],
+                      "ms_per_step": times["denoise"] / steps * 1e3,
+                      "vae_s": times["decode"], "peak_gib": peak,
+                      "cos": coss, **prof}
 
 
 def phase_dense_int8(base_cfg, params):
@@ -3083,8 +3625,16 @@ def main() -> int:
     cli1, cli2 = phase_cli(base_cfg, cfg, params, yaml_step_ms)
     del params
     torch.cuda.empty_cache()
-    lvlm, lvlm_rates = phase_lvlm_text()
+    lvlm, lvlm_rates, lvlm_model = phase_lvlm_text()
     launches["int8_matmul"] = lvlm["int8_matmul"]
+    embeds, embed_launches = lvlm_flux_embeds(lvlm_model)
+    # the VLM side is freed: the FLUX phase needs only the aligned tokens
+    del lvlm_model
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    flux, flux_rates = phase_lvlm_flux(embeds, embed_launches)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; "
         f"train-w8a8 {train['step_ms']:.1f} ms a step, "
         f"{train['samples_per_s']:.2f} samples/s per GPU, peak "
@@ -3094,7 +3644,10 @@ def main() -> int:
         f"{lvlm_rates['t5_ms_per_step']:.2f} ms a T5 step; cli stage 1 "
         f"{cli1['imgs_per_s']:.2f} imgs/s, {cli1['mb']:.1f} MB in "
         f"{cli1['tars']} shards; cli stage 2 {cli2['step_ms']:.0f} ms a step "
-        f"(train-yaml {yaml_step_ms:.0f})")
+        f"(train-yaml {yaml_step_ms:.0f}); lvlm-flux {flux_rates['wall_s']:.2f} "
+        f"s for a 1024² image, {flux_rates['ms_per_step']:.1f} ms a denoise "
+        f"step, VAE {flux_rates['vae_s']:.2f} s, peak "
+        f"{flux_rates['peak_gib']:.2f} GiB")
     report = []
     for kname, (route, source, replaces) in TPU_KERNELS.items():
         rows = results[kname]
@@ -3112,6 +3665,8 @@ def main() -> int:
                               if kname in OP_KERNELS else "main path"),
             "cli_stage1_launches": cli1["launches"][kname],
             "cli_stage2_launches": cli2["launches"][kname],
+            "lvlm_flux_launches": flux[kname],
+            "lvlm_flux_get_embed_launches": embed_launches[kname],
             "timed_shape": main_row["shape"],
             "shapes": [{k: v for k, v in r.items() if k != "main"}
                        for r in rows],

@@ -74,7 +74,24 @@ FLASH_CASES = {
                                    causal=True, pad_bias=True, strided=True),
     "d80_full_bias": dict(b=1, hq=2, hkv=2, tq=130, tk=200, d=80,
                           full_bias=True),
+    # FLUX.1-dev's joint attention: 128 aligned tokens + a 1024² image's
+    # 4096, and embedding_type "both"'s 411 + 4096 (no tile multiple), the
+    # q/k/v head-transposed views of the projections, held at
+    # FLUX_FLASH_REL * max|ref| (``scaled``); CLIP-L's causal layer
+    "flux_joint_t4224": dict(b=1, hq=24, hkv=24, tq=4224, tk=4224, d=128,
+                             strided=True, scaled=True),
+    "flux_joint_ragged_t4507": dict(b=1, hq=24, hkv=24, tq=4507, tk=4507,
+                                    d=128, strided=True, scaled=True),
+    "clip_l_causal_t77": dict(b=1, hq=12, hkv=12, tq=77, tk=77, d=64,
+                              strided=True, causal=True),
 }
+
+
+# FLUX's joint rows spread the softmax over ~T/e keys, so |out| ~ 0.025 and
+# the absolute floor above would pass a kernel that lost a whole tile: they
+# are held at 2e-2 * max|ref| (~4e-3; the kernel errs 9.8e-4, one bf16 ulp
+# of the largest outputs), chip_smoke.py's FLUX_FLASH_REL
+FLUX_FLASH_REL = 2e-2
 
 
 def _flash_inputs(cuda, b, hq, hkv, tq, tk, d, strided):
@@ -118,7 +135,11 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     ref = mha_reference(q, k, v, **kw)
     err = (out.float() - ref.float()).abs()
     assert torch.isfinite(out.float()).all()
-    assert (err <= 2e-2 + 2e-2 * ref.float().abs()).all(), float(err.max())
+    if c.get("scaled"):
+        tol = FLUX_FLASH_REL * ref.float().abs().max()
+    else:
+        tol = 2e-2 + 2e-2 * ref.float().abs()
+    assert (err <= tol).all(), float(err.max())
     # the lse the backward reads: a few f32 ulps (chip_smoke.py's LSE_TOL)
     args = (kw.get("bias"), kw.get("kv_mask"), kw["causal"],
             kw["sm_scale"] or d ** -0.5, kw.get("q_segment_ids"),
@@ -126,6 +147,25 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     _, lse = _forward_cuda(q, k, v, *args, with_lse=True)
     lse_ref = logsumexp_reference(q, k, *args)
     assert float((lse - lse_ref).abs().max()) <= 3e-5
+
+
+@pytest.mark.parametrize("t", [4224, 4507])
+def test_flux_flash_limit_rejects_planted_faults(cuda, t):
+    """The FLUX rows' limit is tight enough to matter: on their inputs, the
+    plain version with one 128-key tile skipped, or with the ragged tail of
+    T4507 dropped, errs beyond FLUX_FLASH_REL * max|ref| against the sound
+    plain version, while the kernel stays within it."""
+    q, k, v = _flash_inputs(cuda, 1, 24, 24, t, t, 128, True)
+    ref = mha_reference(q, k, v).float()
+    limit = FLUX_FLASH_REL * float(ref.abs().max())
+    assert float((flash_attention(q, k, v).float() - ref).abs().max()) <= limit
+    keeps = [torch.cat([torch.arange(2048), torch.arange(2176, t)])]
+    if t % 128:
+        keeps.append(torch.arange(t - t % 128))
+    for keep in keeps:
+        keep = keep.to(cuda)
+        out = mha_reference(q, k[:, :, keep], v[:, :, keep]).float()
+        assert float((out - ref).abs().max()) > limit
 
 
 def test_flash_attention_all_masked_rows(cuda):
@@ -241,6 +281,7 @@ def test_s8_matmul_kernel_rejects_unaligned_k(cuda):
 
 
 @pytest.mark.parametrize("rows,d,dtype", [
+    (24 * 4224, 128, torch.bfloat16), (24 * 4507, 128, torch.bfloat16),
     (7, 64, torch.float32), (4096, 1536, torch.bfloat16),
     (33, 1280, torch.bfloat16), (5, 1000, torch.bfloat16),
     (3, 1001, torch.float32)] + [
@@ -1247,3 +1288,88 @@ def test_s8_qx_repeats_graph_replays_and_two_streams(cuda):
         for i in range(2):
             for o in outs[i]:
                 assert torch.equal(o, alone[i])
+
+
+def test_flux_qk_norm_in_the_projection_layout_is_one_launch(cuda):
+    """FLUX's per-head q/k norm on the (B, S, H, D) projection itself (no
+    head transpose, so no copy): one RMSNorm launch, within 1 bf16 ulp of
+    the plain version."""
+    from thinkdiff_torch.models.flux import QKNorm
+
+    norm = QKNorm(128, torch.bfloat16, cuda)
+    with torch.no_grad():
+        norm.q_scale.copy_(_randn((128,), 8, cuda, torch.float32))
+    q, k = (_randn((1, 4224, 24, 128), s, cuda) for s in (9, 10))
+    before = kernels.launch_counts()["rmsnorm"]
+    qn, kn = norm(q, k)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rmsnorm"] == before + 2
+    for out, x, s in ((qn, q, norm.q_scale), (kn, k, norm.k_scale)):
+        ref = rmsnorm_reference(x, s.to(torch.bfloat16), 1e-6)
+        assert out.shape == x.shape
+        assert ((out.float() - ref.float()).abs() <= _bf16_ulp(ref)).all()
+
+
+def test_flux_blocks_at_full_width_match_plain(cuda):
+    """A FLUX.1-dev transformer cut to one double and one single block, at
+    full width (hidden 3072, 24 heads of 128) on seeded random weights
+    (q/k norm scales U(0.5, 1.5)), S_txt 128 + a 1024² image's 4096
+    tokens: every kernel call against its plain version on the call's own
+    inputs (the flash forward within FLUX_FLASH_REL * max|ref|, RMSNorm
+    within one bf16 ulp), and the velocity through the kernels against the
+    same forward with both replaced by their plain versions, cosine at
+    least 0.999 (chip_smoke.py measures the whole model)."""
+    from unittest import mock
+
+    from thinkdiff_torch.models import flux as tfm
+    from thinkdiff_torch.ops.flash_attention import mha_reference as mha
+
+    cfg = tfm.FluxConfig.flux_dev(num_double_layers=1, num_single_layers=1)
+    model = tfm.FluxTransformer(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("kernel"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=cuda)
+                        * 0.02)
+            elif name.endswith("scale"):
+                p.copy_(0.5 + torch.rand(p.shape, generator=gen, device=cuda))
+            else:
+                p.zero_()
+    img = torch.randn((1, 4096, 64), generator=gen, device=cuda)
+    txt = torch.randn((1, 128, 4096), generator=gen, device=cuda)
+    pooled = torch.randn((1, 768), generator=gen, device=cuda)
+    args = (img, txt, pooled, torch.full((1,), 0.7, device=cuda),
+            torch.from_numpy(tfm.make_img_ids(128, 128)).to(cuda),
+            torch.zeros((128, 3), device=cuda),
+            torch.full((1,), 3.5, device=cuda))
+    errs = []
+
+    def attention(q, k, v, *a):
+        out, ref = flash_attention(q, k, v, *a), mha(q, k, v, *a).float()
+        errs.append(float((out.float() - ref).abs().max())
+                    / (FLUX_FLASH_REL * float(ref.abs().max())))
+        return out
+
+    def norm(x, s, eps=1e-6):
+        out, ref = rmsnorm(x, s, eps), rmsnorm_reference(x, s, eps)
+        errs.append(float(((out.float() - ref.float()).abs()
+                           / _bf16_ulp(ref)).max()))
+        return out
+
+    with torch.no_grad():
+        before = kernels.launch_counts()
+        with mock.patch.object(tfm, "flash_attention", attention), \
+                mock.patch.object(tfm, "rmsnorm", norm):
+            got = model(*args).float()
+        after = kernels.launch_counts()
+        with mock.patch.object(tfm, "flash_attention", mha), \
+                mock.patch.object(tfm, "rmsnorm", rmsnorm_reference):
+            want = model(*args).float()
+    assert after["flash_attention_fwd"] - before["flash_attention_fwd"] == 2
+    assert after["rmsnorm"] - before["rmsnorm"] == 6
+    assert len(errs) == 8 and max(errs) <= 1.0, errs
+    assert torch.isfinite(got).all() and got.shape == (1, 4096, 64)
+    cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(),
+                                                dim=0)
+    assert float(cos) >= 0.999, float(cos)

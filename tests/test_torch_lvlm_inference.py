@@ -264,6 +264,62 @@ def test_lvlm_text_launches_match_the_wrapper_calls(fused, embed_len):
     assert max(s[-2] for s in calls) <= 32
 
 
+@pytest.mark.parametrize("chunk,samples", [(None, "one"), (64, "one"),
+                                           (64, "two")])
+def test_get_embed_launches_match_the_wrapper_calls(chunk, samples):
+    """``get_embed_launches`` against the flash forward, RMSNorm and w8a8
+    GEMM calls that get_embed makes on a tiny engine laid out as the LVLM
+    YAML's (w8a8 LM with fused projections, bf16 vision, exact sampler),
+    counted at their call sites: the vision blocks, the prefill (one flash
+    pass, or chunks of 64 over a 64x64 image's 64 tokens + the text), the
+    decode steps, the lm_head and the projector's t5_norm; "two" holds two
+    images of two grids (two vision passes)."""
+    from PIL import Image
+
+    from thinkdiff_torch.models.qwen2_vl import (
+        fuse_qwen2_params, init_params)
+    from thinkdiff_torch.ops.quant import quantize_tree
+
+    cfg = tm.Qwen2VLConfig.tiny(quant_int8="w8a8", fused_proj=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params["lm"] = fuse_qwen2_params(quantize_tree(params["lm"], min_size=0,
+                                                   w8a8=True))
+    engine = te.EmbedEngine(cfg, params, _tokenizer(), device="cpu",
+                            prefill_chunk=chunk, **ENGINE_KW)
+    tmod = ta.MllamaT5EmbedDecoderWithEngine(_cfg(None), seed=1, device="cpu",
+                                             engine=engine)
+    if samples == "one":
+        img = Image.fromarray((np.random.RandomState(2).rand(64, 64, 3) * 255)
+                              .astype("uint8"))
+        batch, vision_calls = {"images": [img], "answers": ["describe it"]}, 1
+    else:
+        batch, vision_calls = _samples(), 2
+    calls = {"flash_attention_fwd": 0, "rmsnorm": 0, "s8_matmul": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    from thinkdiff_torch.models import projector, qdense
+
+    with mock.patch.object(tm, "flash_attention", counted(
+            "flash_attention_fwd", tm.flash_attention)), \
+            mock.patch.object(tm, "rmsnorm", counted("rmsnorm", tm.rmsnorm)), \
+            mock.patch.object(projector, "rmsnorm", counted(
+                "rmsnorm", projector.rmsnorm)), \
+            mock.patch.object(qdense, "int8_dynamic_matmul", counted(
+                "s8_matmul", qdense.int8_dynamic_matmul)):
+        conds, res = tmod.get_embed(batch, max_new_tokens=5)
+    lens = [len(p) for p in res.prompt_token_ids]
+    assert len(conds) == len(lens) and all(len(o) == 5
+                                           for o in res.output_token_ids)
+    if chunk:
+        assert -(-max(lens) // chunk) == (2 if samples == "one" else 1)
+    assert calls == ta.get_embed_launches(tmod, lens, 5, vision_calls)
+
+
 def test_with_engine_builds_on_the_card_by_default(monkeypatch):
     import thinkdiff_torch
 

@@ -52,7 +52,11 @@ def test_every_module_imports_without_jax():
                  "tasks.image_text_process_data", "engines.checkpoint",
                  "runners.runner_base", "runners.runner_process_data",
                  "train", "scripts.common",
-                 "scripts.generate_embedding_webdataset"):
+                 "scripts.generate_embedding_webdataset", "models.flux",
+                 "models.clip_text", "models.flux_vae",
+                 "engines.flux_sampler", "engines.pipeline",
+                 "scripts.test_mllama_t5_decoder_flux",
+                 "scripts.test_mllama_t5_decoder_text"):
         assert f"thinkdiff_torch.{name}" in _submodules()
 
 

@@ -473,6 +473,58 @@ def lvlm_text_launches(t5_cfg: T5Config, embed_lens: List[int],
     return total
 
 
+def get_embed_launches(model, prompt_lens: List[int], max_tokens: int,
+                       vision_calls: int = 1) -> Dict[str, int]:
+    """Flash forward, RMSNorm and w8a8 GEMM launches of ``model.get_embed``
+    on a static batch (``EmbedEngine.generate``): prompts of
+    ``prompt_lens`` tokens, ``max_tokens`` generated each, for an engine
+    whose language model is w8a8 with fused projections and its own
+    lm_head, whose vision tower is bf16 and whose sampler is exact.
+
+    Each of ``vision_calls`` vision passes runs one flash forward a block.
+    The prompt runs in chunks of ``prefill_chunk`` (their attention, like
+    the decode steps', is the plain cache attention) or in one causal
+    flash pass a layer; then max_tokens - 1 single-token decode steps.
+    Every LM forward runs two RMSNorms a layer and the final norm, and four
+    w8a8 GEMMs a layer (qkv, o, gate_up, down); the first token and every
+    decode step take the lm_head's logits, one more GEMM; the projector's
+    trailing t5_norm is one RMSNorm a sample."""
+    engine, cfg = model.engine, model.engine.cfg
+    if (cfg.quant_int8 != "w8a8" or not cfg.fused_proj
+            or cfg.tie_word_embeddings or cfg.vision.quant_int8
+            or engine.sampler != "exact"):
+        raise ValueError("get_embed_launches counts a w8a8 LM with fused "
+                         "projections and an lm_head, a bf16 vision tower "
+                         "and the exact sampler")
+    n = cfg.num_layers
+    longest = max(prompt_lens)
+    flash = cfg.vision.depth * vision_calls
+    if engine.prefill_chunk:
+        bucket = min(1 << max(6, (longest - 1).bit_length()),
+                     engine.max_prompt_len)
+        chunks = -(-longest // min(engine.prefill_chunk, bucket))
+    else:
+        chunks, flash = 1, flash + n
+    forwards = chunks + max_tokens - 1
+    norms = len(prompt_lens) if model.projector.use_t5_norm else 0
+    return {"flash_attention_fwd": flash,
+            "rmsnorm": forwards * (2 * n + 1) + norms,
+            "s8_matmul": forwards * 4 * n + max_tokens}
+
+
+def flux_launches(cfg, steps: int, clip_layers: int) -> Dict[str, int]:
+    """Flash forward and RMSNorm launches of LVLM inference into FLUX: the
+    CLIP-L pooled embedding (computed once for the prompt and batch, one
+    causal attention a layer), then ``steps`` Euler steps of the transformer
+    of ``cfg`` (models/flux.FluxConfig): one joint attention a block, and
+    q/k norms of the image and text streams in a double block (4) and of
+    the joint stream in a single block (2)."""
+    blocks = cfg.num_double_layers + cfg.num_single_layers
+    return {"flash_attention_fwd": steps * blocks + clip_layers,
+            "rmsnorm": steps * (4 * cfg.num_double_layers
+                                + 2 * cfg.num_single_layers)}
+
+
 def step_launches(t5_cfg: T5Config, dec_len: int, chunk: int) -> Dict[str, int]:
     """Kernel launches of one training step of the aligner (forward and
     backward; projector, decoder, chunked lm_head + CE) for a w8a8 fused or
