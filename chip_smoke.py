@@ -41,7 +41,11 @@ non-zero:
                 D128, T4224 and the ragged T4507) and CLIP-L's causal
                 layer (B1 H12 T77 D64), and RMSNorm at FLUX's q/k norm
                 (24 x 4224 rows of 128), each also with a cold L2 and
-                checked to be one device launch a call;
+                checked to be one device launch a call; the flash forward
+                at BLIP-2's ViT-g (B1 and B32, H16 T257 D88, projection
+                views, cold L2, one launch a call) and at the flan-t5-xxl
+                encoder (B32 H64 T128 D64, bidirectional relative bias +
+                kv_mask), RMSNorm at the encoder's 4096 rows of 4096;
   4. train-w8a8 — the LVLM aligner's training step: configs/
                 train_thinkdiff_lvlm_ccsbu.yaml's model and run sections with
                 bench.py's overrides (w8a8 frozen flan-t5-xxl decoder at full
@@ -107,7 +111,31 @@ non-zero:
                 with every kernel call held against its plain version and
                 the velocity against the plain forward's, planted faults
                 shown to fail that check, the PNG read back equal, one
-                profiled denoise step.
+                profiled denoise step;
+ 15. clip-flux — ThinkDiff-CLIP inference from its CLIs, on lvlm-flux's
+                FLUX pipeline: test_blip_vision_t5_decoder_flux.main over
+                configs/test_thinkdiff_clip_image_text.yaml as written
+                (1024², 28 steps, guidance 3.5, seed 42) with one 448x448
+                JPEG as run.image_path, the CLIP model (BLIP-2 ViT-g 39 x
+                1408, projector, flan-t5-xxl bf16) from seeded random
+                weights injected where build_model would read files: image
+                finite in [0, 1] and not constant, the PNG read back equal,
+                the path's launches against clip_flux_launches, one ViT-g
+                forward with every flash call held against mha_reference and
+                its tokens against the plain forward, the FLUX velocity check
+                at T4161 with its planted faults; then the _flux_text CLI
+                over configs/test_thinkdiff_clip_two_images.yaml on two
+                images (T4226);
+ 16. clip-train — thinkdiff_torch.train.main over
+                configs/train_thinkdiff_clip.yaml as written (ViT-g,
+                flan-t5-xxl bf16 encoder 24 + decoder 24, batch 32,
+                max_txt_len 128) on 256 seeded 448x448 JPEGs with captions in
+                cc_sbu shards, 2 epochs of 4 steps, the flan-t5 stand-in
+                tokenizer: losses and gradient norms finite, the projector
+                updated, launches against clip_train_launches, a 2-layer
+                full-width copy (ViT 2 blocks, T5 2 + 2) on 4 samples
+                against the same step on the CPU's plain versions, 10 steps
+                on one batch at lr 1e-3 lower the loss, one profiled step.
 Every serving slice runs at full width and depth on seeded random weights
 and the stand-in tokenizer, on the engine's default device: Qwen2-VL-2B
 (w8a8 LM with fused projections, weight-only int8 vision) in 7-12, 7B in 13.
@@ -117,8 +145,8 @@ just after), and a teacher-forced forward over one request. The last two
 lines are a JSON object with per-kernel results (launches of #1-#3 and
 #5-#7 from the train-w8a8 timed passes, #4 from the paged slice, #8 from
 the gumbel slice, #9 from lvlm-text, #10-#12 from the ops phase; each
-kernel's launches in the cli phase's two stages and in lvlm-flux beside
-them) and
+kernel's launches in the cli phase's two stages, in lvlm-flux, clip-flux
+(the single-image CLI's path) and clip-train beside them) and
 {"ok": true, "device": {...}}.
 """
 
@@ -317,17 +345,23 @@ def cold_ms(fn, kernel: str, runs: int = 20) -> float:
 def expect_one_launch(phase: str, label: str, fn, kernel: str) -> None:
     """Fail unless one call of ``fn`` (after a warm call) puts exactly one
     operation on the card, torch.profiler's count: the kernel named
-    ``kernel`` (no copy, fill, second pass or allocation's memset)."""
+    ``kernel`` (no copy, fill, second pass or allocation's memset). A trace
+    with no device event at all (torch.profiler lost them: seen once in a
+    full run on an H100) is taken again, up to three times."""
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):  # a trace that caught no event at all is taken again
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
     if len(names) != 1 or kernel not in names[0]:
         raise AssertionError(f"{label}: {len(names)} device operations a "
                              f"call, expected one {kernel}: {names}")
@@ -609,6 +643,80 @@ def kernels_rmsnorm_flux(results):
     expect_one_launch("kernels", "rmsnorm flux q/k norm", run, "rmsnorm")
 
 
+def kernels_flash_clip(results):
+    """The flash forward at the shapes of ThinkDiff-CLIP: BLIP-2's ViT-g
+    (16 heads of 88, T257 for a 224² image; B1 at inference, B32 in
+    training), q/k/v as the block hands them over (head-transposed views of
+    its three 1408-wide projections, no copy), each also with a cold L2 and
+    checked to be one device launch a call; and the flan-t5-xxl encoder's
+    self-attention (B32 H64 T128 D64, sm_scale 1, the bidirectional
+    relative bias in the kernel's layout and a kv_mask of ragged caption
+    halves) on views of its q/k/v projections."""
+    import torch.nn.functional as F
+
+    from thinkdiff_torch.models.t5 import relative_position_bucket
+    from thinkdiff_torch.ops.flash_attention import (
+        flash_attention, kernel_bias, mha_reference)
+
+    tol = "2e-2 + 2e-2*|ref| (P rounded to bf16; bf16 output)"
+    ok = lambda e, r: e <= 2e-2 + 2e-2 * r.abs()
+    t, h, d = 257, 16, 88
+    for b in (1, 32):
+        q, k, v = (randn((b, t, h * d), s).reshape(b, t, h, d).transpose(1, 2)
+                   for s in (100, 101, 102))
+        run = lambda q=q, k=k, v=v: flash_attention(q, k, v, None, None,
+                                                    False, d ** -0.5)
+        label = f"vit-g B{b} H16 T257 D88"
+        results.append(check(
+            "flash_attention_fwd", label + " (projection views)", run,
+            lambda q=q, k=k, v=v: mha_reference(q, k, v, None, None, False,
+                                                d ** -0.5),
+            ok, tol, (nbytes(q, k, v, q), 4 * b * h * t * t * d, "bf16"),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, scale=d ** -0.5), cold="flash_fwd"))
+        expect_one_launch("kernels", label, run, "flash_fwd")
+        del q, k, v
+    b, t, h = 32, 128, 64
+    heads = lambda x: x.reshape(b, t, h, 64).transpose(1, 2)
+    q, k, v = (heads(randn((b, t, h * 64), s)) for s in (103, 104, 105))
+    rel = torch.arange(t, device="cuda")
+    buckets = relative_position_bucket(rel[None] - rel[:, None], True, 32, 128)
+    table = randn((32, h), 106, torch.float32)
+    bias = kernel_bias(table[buckets.long()].permute(2, 0, 1)[None])
+    lens = torch.randint(4, t + 1, (b,), generator=torch.Generator(
+        device="cuda").manual_seed(107), device="cuda")
+    kv_mask = (torch.arange(t, device="cuda")[None] < lens[:, None]).int()
+    mask = torch.where(kv_mask[:, None, None, :] > 0, bias, -1e30).to(
+        torch.bfloat16)
+    run = lambda: flash_attention(q, k, v, bias, kv_mask, False, 1.0)
+    results.append(check(
+        "flash_attention_fwd", "t5 encoder B32 H64 T128 D64 bidirectional "
+        "rel bias + kv_mask (projection views)", run,
+        lambda: mha_reference(q, k, v, bias, kv_mask, False, 1.0),
+        ok, tol, (nbytes(q, k, v, q, bias, kv_mask),
+                  4 * h * int(lens.sum()) * t * 64, "bf16"),
+        library=lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=1.0)))
+    expect_one_launch("kernels", "t5 encoder self-attention", run, "flash_fwd")
+
+
+def kernels_rmsnorm_clip(results):
+    """RMSNorm at the flan-t5-xxl encoder's layer norms in ThinkDiff-CLIP
+    training: 32 captions x 128 tokens, rows of 4096."""
+    import torch.nn.functional as F
+
+    from thinkdiff_torch.ops.norms import rmsnorm, rmsnorm_reference
+
+    x, scale = randn((4096, 4096), 108) * 3.0, randn((4096,), 109)
+    results.append(check(
+        "rmsnorm", "t5 encoder R4096 D4096",
+        lambda: rmsnorm(x, scale, 1e-6),
+        lambda: rmsnorm_reference(x, scale, 1e-6),
+        lambda e, ref: e <= bf16_ulp(ref), "1 bf16 ulp",
+        (nbytes(x, scale, x), 4 * x.numel(), "bf16"),
+        library=lambda: F.rms_norm(x, (4096,), scale, 1e-6), cold="rmsnorm"))
+
+
 def kernels_flash_t5_decode(results, ok, tol):
     """A greedy flan-t5-xxl step of lvlm-text (B1, 64 heads of 64, sm_scale
     1): self-attention over the t decoder rows (causal + the relative bias)
@@ -688,6 +796,11 @@ def flash_tile_sweep():
     q, k, v = (randn((32, 16, 1024, 80), s) for s in (1, 2, 3))
     cases = [("vision B32 H16 S1024 D80", q, k, v,
               dict(sm_scale=80 ** -0.5))]
+    for b in (1, 32):
+        q, k, v = (randn((b, 257, 1408), s).reshape(b, 257, 16, 88)
+                   .transpose(1, 2) for s in (100, 101, 102))
+        cases.append((f"vit-g B{b} H16 T257 D88", q, k, v,
+                      dict(sm_scale=88 ** -0.5)))
     q, k, v = (randn((4, 64, 256, 64), s) for s in (30, 31, 32))
     cases += [("t5 self B4 H64 T256", q, k, v, dict(
         bias=randn((1, 64, 256, 256), 34, torch.float32) * 0.5, causal=True,
@@ -715,7 +828,7 @@ def flash_tile_sweep():
         flags = (mode, "kv_mask" in kw, "q_segment_ids" in kw)
         chosen = fa.flash_fwd_tiles(q.shape[2], d, *flags)
         bk = 128 if d == 64 else 64  # the instantiated (D, block_k)
-        for bq in (64, 128, 192) if d == 80 else (64, 128):
+        for bq in (64, 128, 192) if d in (80, 88) else (64, 128):
             for st in (2, 3, 4, 6, 8):
                 if fa.flash_fwd_smem(d, bq, bk, st, *flags) > fa.SMEM_LIMIT:
                     continue
@@ -1939,9 +2052,11 @@ def phase_kernels():
     kernels_s8(results["s8_matmul"])
     kernels_s8_train(results)
     kernels_flash_flux(results["flash_attention_fwd"])
+    kernels_flash_clip(results["flash_attention_fwd"])
     kernels_rmsnorm(results["rmsnorm"])
     kernels_rmsnorm_train(results)
     kernels_rmsnorm_flux(results["rmsnorm"])
+    kernels_rmsnorm_clip(results["rmsnorm"])
     kernels_paged(results["paged_attention"])
     kernels_fused_sample(results["fused_lm_sample"])
     kernels_int8_gemv(results["int8_matmul"])
@@ -2106,9 +2221,10 @@ def gradient_check(model_cfg, batch):
     return rel, min(cos.values())
 
 
-def phase_profile_train(trainer, state, batch):
-    """One w8a8 training step under torch.profiler: device-busy share and
-    the kernels that take the time."""
+def phase_profile_train(trainer, state, batch,
+                        label="w8a8 training step (packed 4 x 256)"):
+    """One training step under torch.profiler: device-busy share and the
+    kernels that take the time."""
     from torch.autograd import DeviceType
 
     trainer.train_step(state, batch)
@@ -2127,7 +2243,7 @@ def phase_profile_train(trainer, state, batch):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(by_name.values()) / 1e3
-    say("profile", f"w8a8 training step (packed 4 x 256): {wall_ms:.1f} ms "
+    say("profile", f"{label}: {wall_ms:.1f} ms "
         "unprofiled; device kernel time "
         + (f"{busy_ms:.1f} ms, busy {busy_ms / wall_ms:.0%}" if by_name
            else "not measured (no device events in the trace)"))
@@ -3174,11 +3290,12 @@ def flux_forward(pipe, embeds, latents, pooled, sigma, attention, norm):
             mock.patch.object(flux_mod, "rmsnorm", norm):
         out = model(*args).float()
     if not torch.isfinite(out).all():
-        raise AssertionError("lvlm-flux: non-finite velocity")
+        raise AssertionError("flux forward: non-finite velocity")
     return out
 
 
-def flux_velocity_check(pipe, embeds, latents, pooled, sigma):
+def flux_velocity_check(pipe, embeds, latents, pooled, sigma,
+                        phase="lvlm-flux"):
     """The FLUX forward of ``embeds`` through the kernels against its plain
     version (mha_reference, rmsnorm_reference): the velocity cosine, and
     each kernel call held against its plain version on the call's own
@@ -3230,7 +3347,7 @@ def flux_velocity_check(pipe, embeds, latents, pooled, sigma):
         got = flux_forward(pipe, embeds, latents, pooled, sigma,
                            attention_checked, norm_checked)
         out[run] = {"cos": cosine(got, want), "worst": worst}
-        say("lvlm-flux", f"velocity at joint length {t}, {run}: cosine "
+        say(phase, f"velocity at joint length {t}, {run}: cosine "
             f"{out[run]['cos']:.6f} against the plain forward (limit "
             f"{FLUX_VEL_COS_MIN}); worst call of the flash forward "
             f"{worst['flash']:.3g}, of RMSNorm {worst['rmsnorm']:.3g} of "
@@ -3238,9 +3355,9 @@ def flux_velocity_check(pipe, embeds, latents, pooled, sigma):
         caught = max(worst.values()) > 1.0
         if run == "sound" and (caught
                                or not out[run]["cos"] >= FLUX_VEL_COS_MIN):
-            raise AssertionError(f"lvlm-flux: velocity check failed {out}")
+            raise AssertionError(f"{phase}: velocity check failed {out}")
         if run != "sound" and not caught:
-            raise AssertionError(f"lvlm-flux: the planted fault {run!r} "
+            raise AssertionError(f"{phase}: the planted fault {run!r} "
                                  f"passes the per-call check {out[run]}")
     return out
 
@@ -3305,37 +3422,16 @@ def profile_denoise_step(pipe, embeds, latents, pooled):
             "proj_tflop": proj_flops / 1e12}
 
 
-def phase_lvlm_flux(embeds, embed_launches=None):
-    """LVLM inference into FLUX with the LVLM YAML's run section as written
-    (1024², 28 steps, guidance 3.5, seed 42): FLUX.1-dev (19 + 38 blocks,
-    hidden 3072, bf16), CLIP-L and the FLUX VAE on the card from seeded
-    random weights; the pooled embedding of "" through CLIP-L and the
-    stand-in tokenizer; ThinkDiffPipeline.generate on get_embed's
-    output_embed tokens; the image, launches, velocity and PNG checks; one
-    profiled step. ``embed_launches``: get_embed's launches on this path
-    (lvlm_flux_embeds), counted since the counts were set to 0 before it;
-    the path's launches are then its and flux_launches' together. Without
-    it (random tokens in place of get_embed's) the counts are set to 0
-    here and hold the FLUX part only. Returns (the path's launches,
-    rates)."""
-    import shutil
-
-    import yaml
-    from PIL import Image
-
-    from thinkdiff_torch import kernels
-    from thinkdiff_torch.engines.flux_sampler import FluxSampler, save_images
+def build_flux_pipe(phase):
+    """FLUX.1-dev (19 + 38 blocks, hidden 3072, bf16), CLIP-L and the FLUX
+    VAE on the card from seeded random weights, in a ThinkDiffPipeline with
+    the CLIP stand-in tokenizer."""
+    from thinkdiff_torch.engines.flux_sampler import FluxSampler
     from thinkdiff_torch.engines.pipeline import ThinkDiffPipeline
-    from thinkdiff_torch.models.aligner_lvlm import flux_launches
     from thinkdiff_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
     from thinkdiff_torch.models.flux import FluxConfig, FluxTransformer
     from thinkdiff_torch.models.flux_vae import VAEConfig, VAEDecoder
 
-    run = yaml.safe_load(LVLM_CONFIG.read_text())["run"]
-    hgt, wdt = int(run["image_height"]), int(run["image_width"])
-    steps, guidance = int(run["num_inference_steps"]), float(run["guidance_scale"])
-    seed = int(run["seed"])
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     cfg = FluxConfig.flux_dev()
@@ -3351,12 +3447,44 @@ def phase_lvlm_flux(embeds, embed_launches=None):
                              clip, ClipStandInTokenizer())
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in transformer.parameters())
-    say("lvlm-flux", f"FLUX.1-dev ({cfg.num_double_layers} + "
+    say(phase, f"FLUX.1-dev ({cfg.num_double_layers} + "
         f"{cfg.num_single_layers} blocks, hidden {cfg.hidden_size}, "
         f"{n_params / 1e9:.2f} B params, bf16), CLIP-L ({clip_cfg.num_layers} "
         f"layers, bf16) and the FLUX VAE (bf16) from seeded random weights "
         f"(std {FLUX_INIT_STD}) in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    return pipe
+
+
+def phase_lvlm_flux(embeds, embed_launches=None):
+    """LVLM inference into FLUX with the LVLM YAML's run section as written
+    (1024², 28 steps, guidance 3.5, seed 42): FLUX.1-dev (19 + 38 blocks,
+    hidden 3072, bf16), CLIP-L and the FLUX VAE on the card from seeded
+    random weights; the pooled embedding of "" through CLIP-L and the
+    stand-in tokenizer; ThinkDiffPipeline.generate on get_embed's
+    output_embed tokens; the image, launches, velocity and PNG checks; one
+    profiled step. ``embed_launches``: get_embed's launches on this path
+    (lvlm_flux_embeds), counted since the counts were set to 0 before it;
+    the path's launches are then its and flux_launches' together. Without
+    it (random tokens in place of get_embed's) the counts are set to 0
+    here and hold the FLUX part only. Returns (the path's launches,
+    rates, the pipeline: clip-flux runs on it)."""
+    import shutil
+
+    import yaml
+    from PIL import Image
+
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.engines.flux_sampler import save_images
+    from thinkdiff_torch.models.aligner_lvlm import flux_launches
+
+    run = yaml.safe_load(LVLM_CONFIG.read_text())["run"]
+    hgt, wdt = int(run["image_height"]), int(run["image_width"])
+    steps, guidance = int(run["num_inference_steps"]), float(run["guidance_scale"])
+    seed = int(run["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    pipe = build_flux_pipe("lvlm-flux")
+    cfg, clip_cfg = pipe.sampler.cfg, pipe.clip_encoder.cfg
 
     times, final = {}, {}
     sampler = pipe.sampler
@@ -3443,7 +3571,464 @@ def phase_lvlm_flux(embeds, embed_launches=None):
                       "denoise_s": times["denoise"],
                       "ms_per_step": times["denoise"] / steps * 1e3,
                       "vae_s": times["decode"], "peak_gib": peak,
-                      "cos": coss, **prof}
+                      "cos": coss, **prof}, pipe
+
+
+# ---------------------------------------------------------------------------
+# ThinkDiff-CLIP
+# ---------------------------------------------------------------------------
+
+CLIP_DIR = Path(__file__).resolve().parent / "build" / "clip"
+CLIP_TRAIN_CONFIG = (Path(__file__).resolve().parent / "configs"
+                     / "train_thinkdiff_clip.yaml")
+CLIP_IMAGE_CONFIG = (Path(__file__).resolve().parent / "configs"
+                     / "test_thinkdiff_clip_image_text.yaml")
+CLIP_TWO_CONFIG = (Path(__file__).resolve().parent / "configs"
+                   / "test_thinkdiff_clip_two_images.yaml")
+# 2 epochs of 4 steps of 32 from the cc_sbu shards (each epoch's shuffle
+# buffer of 1000 re-reads them)
+CLIP_IMAGES, CLIP_EPOCHS, CLIP_STEPS = 256, 2, 4
+CLIP_TRAIN_KERNELS = ("flash_attention_fwd", "rmsnorm", "flash_attention_dq",
+                      "flash_attention_dkv")
+# one full-width ViT-g forward (B1, 39 blocks) through the flash forward
+# against the same forward through mha_reference (f32): the output tokens'
+# cosine at least this (the per-call check holds each call at the flash
+# rows' 2e-2 + 2e-2 |ref|). Measured on the card (NVIDIA H100 80GB HBM3,
+# 700 W) on seeded weights: 0.999874, the worst token 0.999857, the worst
+# call at 0.26 of its limit; the limit is 4x that distance from 1, as
+# FLUX_VEL_COS_MIN's
+CLIP_VIT_COS_MIN = 0.9995
+# the gradient check of the 2-layer full-width copy (ViT 2 blocks, T5 2 +
+# 2, 4 samples) against the same step on the CPU's plain versions, bf16 on
+# both sides. The loss limit is three times the largest relative
+# difference of ``clip_gradient_draws`` (5 draws, model seeds 20-24 and
+# 4 samples of the phase's shards each; NVIDIA H100 80GB HBM3, 700 W):
+# 3.55e-5, 2.66e-6, 2.56e-6, 4.33e-5, 1.27e-5 (the phase's own 6.4e-7);
+# gradient cosine 0.99999 at worst, norm ratio card/CPU 0.99978-1.00023,
+# so the LVLM check's cosine limit and band stand
+CLIP_GRAD_LOSS_TOL, CLIP_GRAD_COS_MIN = 1.3e-4, GRAD_COS_MIN
+CLIP_GRAD_SAMPLES = 4
+
+
+def clip_t5_tokenizer():
+    """flan-t5's 32128 ids through the stand-in (no tokenizer files): pad
+    0, eos 1, unk 2, words 3..32099."""
+    from thinkdiff_torch.engines.standin_tokenizer import StandInTokenizer
+
+    return StandInTokenizer({"<pad>": 0, "</s>": 1, "<unk>": 2}, word_lo=3,
+                            word_hi=32100, eos_token="</s>")
+
+
+def clip_shards(root, n, seed):
+    """``n`` seeded 448x448 JPEGs with captions of N(14, 6) words (2-60) in
+    cc_sbu tar shards of 64: the brace pattern of the shards."""
+    from thinkdiff_torch.data.tario import ShardWriter
+
+    images, _ = requests(n, seed)
+    rs = np.random.RandomState(seed + 1)
+    vocab = [f"word{i}" for i in range(2000)]
+    root.mkdir(parents=True, exist_ok=True)
+    pattern = str(root / "%06d.tar")
+    with ShardWriter(pattern, maxcount=64) as w:
+        for i, im in enumerate(images):
+            words = rs.choice(vocab, int(np.clip(rs.normal(14, 6), 2, 60)))
+            w.write({"__key__": f"{i:09d}", "jpg": im,
+                     "json": {"caption": " ".join(words).capitalize() + "."}})
+        shards = w.shard
+    return str(root / f"{{000000..{shards - 1:06d}}}.tar")
+
+
+def clip_vit_check(model, pixels):
+    """One ViT-g forward of ``pixels`` through the flash forward, every
+    call held against mha_reference on its own inputs (2e-2 + 2e-2 |ref|),
+    and its tokens against the same forward through mha_reference: the
+    cosine over all tokens and the worst token's."""
+    from unittest import mock
+
+    from thinkdiff_torch.models import vit as vit_mod
+    from thinkdiff_torch.ops.flash_attention import (
+        flash_attention, mha_reference)
+
+    worst = {"calls": 0, "ratio": 0.0}
+
+    def checked(q, k, v, *a):
+        o = flash_attention(q, k, v, *a)
+        ref = mha_reference(q, k, v, *a).float()
+        worst["calls"] += 1
+        worst["ratio"] = max(worst["ratio"], float(
+            ((o.float() - ref).abs() / (2e-2 + 2e-2 * ref.abs())).max()))
+        return o
+
+    vit = model.frozen["vision"]
+    with torch.no_grad():
+        with mock.patch.object(vit_mod, "flash_attention", checked):
+            got = vit(pixels).float()
+        with mock.patch.object(vit_mod, "flash_attention", mha_reference):
+            want = vit(pixels).float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("clip-flux: non-finite ViT tokens")
+    cos = cosine(got, want)
+    per_token = torch.nn.functional.cosine_similarity(
+        got.flatten(0, 1).double(), want.flatten(0, 1).double(), dim=-1)
+    say("clip-flux", f"ViT-g forward B{pixels.shape[0]} T{got.shape[1]} D88 "
+        f"({model.vit_cfg.num_layers} blocks): {worst['calls']} flash calls, "
+        f"the worst at {worst['ratio']:.3g} of its limit; tokens against the "
+        f"plain forward: cosine {cos:.6f} (limit {CLIP_VIT_COS_MIN}), worst "
+        f"token {float(per_token.min()):.6f}")
+    if (worst["calls"] != model.vit_cfg.num_layers or worst["ratio"] > 1.0
+            or not cos >= CLIP_VIT_COS_MIN):
+        raise AssertionError(f"clip-flux: ViT check failed {worst} {cos}")
+    return cos, float(per_token.min())
+
+
+def _png_check(phase, path, images=None):
+    """The PNG at ``path`` read back: not constant, and equal to ``images``
+    (1, H, W, 3) in [0, 1] rounded as save_images rounds them."""
+    from PIL import Image
+
+    back = np.asarray(Image.open(path))
+    if back.std() == 0:
+        raise AssertionError(f"{phase}: constant PNG {path}")
+    if images is not None and not np.array_equal(
+            back, (images.cpu() * 255).to(torch.uint8)[0].numpy()):
+        raise AssertionError(f"{phase}: the PNG read back differs")
+    return back.shape
+
+
+def phase_clip_flux(pipe):
+    """ThinkDiff-CLIP inference into FLUX from its CLIs on seeded random
+    weights: the single-image CLI's main over
+    configs/test_thinkdiff_clip_image_text.yaml as written (1024², 28
+    steps, guidance 3.5, seed 42) with one 448x448 JPEG as run.image_path;
+    the CLIP model (BLIP-2 ViT-g, projector, flan-t5-xxl) and ``pipe``
+    (lvlm-flux's FLUX.1-dev, CLIP-L, VAE) injected where build_model and
+    from_pretrained would read files. The image, its PNG, the path's
+    launches against clip_flux_launches, the ViT check, the FLUX velocity
+    check at T4161 (65 tokens); then the _flux_text CLI once on two images
+    (130 tokens, T4226). Returns (the single-image path's launches,
+    rates)."""
+    import shutil
+    from unittest import mock
+
+    import yaml
+
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.data.processors import BlipImageEvalProcessor
+    from thinkdiff_torch.engines.pipeline import ThinkDiffPipeline
+    from thinkdiff_torch.models.aligner_clip import (
+        BlipVisionT5Decoder, clip_flux_launches)
+    from thinkdiff_torch.scripts import test_blip_vision_t5_decoder_flux as one
+    from thinkdiff_torch.scripts import (
+        test_blip_vision_t5_decoder_flux_text as two)
+    from thinkdiff_torch.tasks import base_task
+
+    doc = yaml.safe_load(CLIP_IMAGE_CONFIG.read_text())
+    run = doc["run"]
+    steps = int(run["num_inference_steps"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = BlipVisionT5Decoder(doc["model"], seed=SEED + 13)
+    torch.cuda.synchronize()
+    vc, tc5 = model.vit_cfg, model.t5_cfg
+    say("clip-flux", f"ThinkDiff-CLIP model as written (ViT-g {vc.num_layers}"
+        f" x {vc.hidden_size}, {vc.num_heads} heads of "
+        f"{vc.hidden_size // vc.num_heads}; flan-t5-xxl {model.dtype} encoder "
+        f"{tc5.num_layers} + decoder {tc5.num_decoder_layers}; projector "
+        f"{model.cfg['mm_projector_type']}, pool x"
+        f"{model.downsample_factor}) from seeded random weights in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB with FLUX")
+    CLIP_DIR.mkdir(parents=True, exist_ok=True)
+    imgs, _ = requests(2, SEED + 14)
+    paths = []
+    for name, im in zip(("animal", "glasses"), imgs):
+        paths.append(CLIP_DIR / f"{name}.jpg")
+        im.save(paths[-1])
+    seen = {}
+    generate = pipe.generate
+
+    def recorded(embeds, *a, **kw):
+        seen["cond"] = embeds
+        seen["images"] = generate(embeds, *a, **kw)
+        return seen["images"]
+
+    def run_cli(main, argv):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        out = main(argv)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, kernels.launch_counts()
+
+    # the pooled embedding of "" is computed on this path, not cached
+    pipe._pooled_cache.clear()
+    with mock.patch.object(base_task.BaseTask, "build_model",
+                           lambda self, cfg: model), \
+            mock.patch.object(ThinkDiffPipeline, "from_pretrained",
+                              classmethod(lambda cls, *a, **k: pipe)), \
+            mock.patch.object(pipe, "generate", recorded):
+        png, wall, launches = run_cli(one.main, [
+            "--cfg-path", str(CLIP_IMAGE_CONFIG), "--options",
+            f"run.image_path={paths[0]}",
+            f"run.output_dir={CLIP_DIR / 'image_text'}"])
+        cond, images = seen["cond"], seen["images"]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        img = images.float()
+        hgt, wdt = int(run["image_height"]), int(run["image_width"])
+        if tuple(images.shape) != (1, hgt, wdt, 3) or not (
+                torch.isfinite(img).all() and float(img.min()) >= 0.0
+                and float(img.max()) <= 1.0 and float(img.std()) > 0.0):
+            raise AssertionError(f"clip-flux: image {tuple(images.shape)} "
+                                 "not finite, outside [0, 1] or constant")
+        if tuple(cond.shape) != (1, 65, tc5.d_model):
+            raise AssertionError(f"clip-flux: condition {tuple(cond.shape)}")
+        _png_check("clip-flux", png, images)
+        want = clip_flux_launches(model, pipe.sampler.cfg, steps,
+                                  pipe.clip_encoder.cfg.num_layers)
+        if launches != {k: want.get(k, 0) for k in launches}:
+            raise AssertionError(f"clip-flux: launches {launches} != "
+                                 f"clip_flux_launches {want}")
+        say("clip-flux", f"test_blip_vision_t5_decoder_flux.main over the "
+            f"image YAML as written: one 448x448 JPEG -> ViT-g -> pool -> "
+            f"projector -> {tuple(cond.shape)} {cond.dtype} condition (T"
+            f"{cond.shape[1] + 4096}), {hgt}x{wdt}, {steps} steps, guidance "
+            f"{run['guidance_scale']}, seed {run['seed']}: {wall:.2f} s "
+            f"(model injected, so no build); image mean "
+            f"{float(img.mean()):.4f} std {float(img.std()):.4f}; PNG read "
+            f"back equal; peak {peak:.2f} GiB; launches {launches} = "
+            "clip_flux_launches")
+        proc = BlipImageEvalProcessor(image_size=224)
+        from PIL import Image
+
+        pixels = torch.from_numpy(proc(Image.open(paths[0]))[None]).cuda()
+        vit_cos = clip_vit_check(model, pixels)
+        noise = pipe.sampler.noise(1, 4096, int(run["seed"]))
+        vel = flux_velocity_check(pipe, cond[0], noise,
+                                  pipe.pooled_from_prompt("", 1), 1.0,
+                                  phase="clip-flux")
+        two_png, two_wall, two_launches = run_cli(two.main, [
+            "--cfg-path", str(CLIP_TWO_CONFIG), "--options",
+            f"run.img_urls=[[{paths[0]}, {paths[1]}]]",
+            f"run.output_dir={CLIP_DIR / 'two_images'}"])
+        cond2 = seen["cond"]
+    want2 = clip_flux_launches(model, pipe.sampler.cfg, steps, 0, images=2)
+    if (len(two_png) != 1 or tuple(cond2.shape) != (1, 130, tc5.d_model)
+            or two_launches != {k: want2.get(k, 0) for k in two_launches}):
+        raise AssertionError(f"clip-flux: two images gave {two_png}, "
+                             f"{tuple(cond2.shape)}, {two_launches} against "
+                             f"{want2}")
+    shape = _png_check("clip-flux", two_png[0], seen["images"])
+    say("clip-flux", f"test_blip_vision_t5_decoder_flux_text.main over the "
+        f"two-image YAML (questions [\"\"]): [img_1; img_2] "
+        f"{tuple(cond2.shape)} (T{cond2.shape[1] + 4096}) -> "
+        f"{Path(two_png[0]).name} {shape} in {two_wall:.2f} s; launches "
+        f"{two_launches} = clip_flux_launches(images=2, CLIP-L pooled "
+        "cached)")
+    shutil.rmtree(CLIP_DIR)
+    del model
+    return launches, {"wall_s": wall, "two_wall_s": two_wall,
+                      "peak_gib": peak, "vit_cos": vit_cos, "vel": vel}
+
+
+def _clip_two_layer_copy(model_cfg, seed):
+    """The CLIP model cut to 2 ViT blocks and 2 + 2 T5 layers at full
+    width on the card, and the same frozen towers on the CPU (plain
+    versions)."""
+    from thinkdiff_torch.models.aligner_clip import BlipVisionT5Decoder
+    from thinkdiff_torch.models.bridge import load_params, tree_of
+    from thinkdiff_torch.models.t5 import T5ForConditionalGeneration
+    from thinkdiff_torch.models.vit import VisionTransformer
+
+    cfg = dict(model_cfg)
+    cfg["vision_config"] = {**cfg.get("vision_config", {}), "num_layers": 2}
+    cfg["t5_config"] = {**cfg.get("t5_config", {}), "num_layers": 2,
+                        "num_decoder_layers": 2}
+    model = BlipVisionT5Decoder(cfg, seed=seed)
+    cpu = {"vision": VisionTransformer(model.vit_cfg, device="cpu"),
+           "t5": T5ForConditionalGeneration(model.t5_cfg, device="cpu",
+                                             encoder=True)}
+    for name, module in cpu.items():
+        load_params(module, tree_of(model.frozen[name], lambda _, t: t))
+    return model, cpu
+
+
+def clip_gradient_check(model_cfg, host, seed=SEED + 15, phase="clip-train"):
+    """The 2-layer full-width copy: loss and projector gradients of
+    ``host`` (CLIP_GRAD_SAMPLES samples) on the card (the kernels) against
+    the same step through the plain versions on the CPU. Returns (relative
+    loss difference, the lowest gradient cosine)."""
+    model, cpu = _clip_two_layer_copy(model_cfg, seed)
+    lk, gk, _ = _grad_step(model, model.frozen, host, model.device)
+    lp, gp, tp = _grad_step(model, cpu, host, torch.device("cpu"))
+    del model, cpu
+    torch.cuda.empty_cache()
+    rel = abs(lk - lp) / abs(lp)
+    cos = {n: cosine(gk[n], gp[n]) for n in gk}
+    ratio = {n: float(gk[n].double().norm() / gp[n].double().norm())
+             for n in gk}
+    lo, hi = GRAD_NORM_RATIO
+    say(phase, f"gradient check, ViT 2 blocks + T5 2 + 2 layers at full "
+        f"width, {host['labels'].shape[0]} samples "
+        f"({int((host['labels'] >= 0).sum())} label tokens): loss card "
+        f"{lk:.6f} vs CPU plain {lp:.6f} (rel {rel:.2e}, limit "
+        f"{CLIP_GRAD_LOSS_TOL:g}); projector gradient cosine "
+        + ", ".join(f"{n} {c:.5f}" for n, c in cos.items())
+        + f" (limit {CLIP_GRAD_COS_MIN}); norm ratio card/CPU "
+        + ", ".join(f"{n} {r:.5f}" for n, r in ratio.items())
+        + f" (band {lo}-{hi}); CPU step {tp:.1f} s")
+    if (rel > CLIP_GRAD_LOSS_TOL or min(cos.values()) < CLIP_GRAD_COS_MIN
+            or not all(lo <= r <= hi for r in ratio.values())):
+        raise AssertionError(f"{phase}: gradient check failed")
+    return rel, min(cos.values())
+
+
+def clip_gradient_draws(seeds=range(5)):
+    """The CLIP gradient check's agreement over several draws (model seed
+    SEED + 20 + s, CLIP_GRAD_SAMPLES samples of the phase's shards drawn
+    from seed s): prints the loss difference and the lowest gradient
+    cosine a draw, from which CLIP_GRAD_LOSS_TOL / CLIP_GRAD_COS_MIN are
+    set. Run alone: ``python3 -c "import chip_smoke as c;
+    c.phase_device(); c.phase_build(); c.clip_gradient_draws()"``."""
+    import yaml
+
+    from thinkdiff_torch.data.builders import CCSBUBuilder
+    from thinkdiff_torch.core.config import ConfigNode
+
+    doc = yaml.safe_load(CLIP_TRAIN_CONFIG.read_text())
+    storage = clip_shards(CLIP_DIR / "draws", 64, SEED + 30)
+    ds = doc["datasets"]["cc_sbu"]
+    out = []
+    for s in seeds:
+        bundle = CCSBUBuilder(ConfigNode({**ds, "build_info": {
+            "storage": storage}}), model_cfg=doc["model"]).build()
+        bundle.set_tokenizers(clip_t5_tokenizer(), None)
+        it = iter(bundle.get_loader(batch_size=CLIP_GRAD_SAMPLES, seed=s))
+        host = next(it)
+        it.close()
+        rel, cos = clip_gradient_check(doc["model"], host, SEED + 20 + s,
+                                       phase="clip-draws")
+        out.append((rel, cos))
+    import shutil
+
+    shutil.rmtree(CLIP_DIR / "draws")
+    say("clip-draws", f"largest relative loss difference "
+        f"{max(r for r, _ in out):.3e}, lowest cosine "
+        f"{min(c for _, c in out):.5f} over {len(out)} draws")
+    return out
+
+
+def phase_clip_train():
+    """ThinkDiff-CLIP training from its CLI: thinkdiff_torch.train.main over
+    configs/train_thinkdiff_clip.yaml as written (BLIP-2 ViT-g, flan-t5-xxl
+    bf16 encoder 24 + decoder 24, batch 32, max_txt_len 128) on seeded
+    cc_sbu shards, only the storage, output directory and epoch length
+    overridden (2 epochs of 4 steps); the flan-t5 stand-in tokenizer
+    patched in. Losses and gradient norms finite, the projector updated,
+    the launches against clip_train_launches, the 2-layer gradient check,
+    a 10-step overfit, one profiled step. Returns (launches, rates)."""
+    import shutil
+    from unittest import mock
+
+    from thinkdiff_torch import kernels, train
+    from thinkdiff_torch.core.optim import tree_leaves
+    from thinkdiff_torch.engines.trainer import Trainer
+    from thinkdiff_torch.models.aligner_clip import (
+        BlipVisionT5Decoder, clip_train_launches)
+
+    t0 = time.perf_counter()
+    storage = clip_shards(CLIP_DIR / "shards", CLIP_IMAGES, SEED + 16)
+    shard_s = time.perf_counter() - t0
+    record, first = [], {}
+    step = Trainer.train_step
+
+    def recorded(self, state, batch, rng=None):
+        if not first:
+            first["params"] = {n: p.detach().clone()
+                               for n, p in tree_leaves(state["params"])}
+            first["batch"] = batch
+        t = time.perf_counter()
+        state, m = step(self, state, batch, rng)
+        record.append({"step": state["step"], "lr": m["lr"],
+                       "loss": m["loss"], "grad_norm": m["grad_norm"],
+                       "t": t})
+        return state, m
+
+    argv = ["--cfg-path", str(CLIP_TRAIN_CONFIG), "--job-id", "clip",
+            "--options", f"datasets.cc_sbu.build_info.storage={storage}",
+            f"run.output_dir={CLIP_DIR / 'train'}",
+            f"run.max_epoch={CLIP_EPOCHS}",
+            f"run.iters_per_epoch={CLIP_STEPS}"]
+    tok = clip_t5_tokenizer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(Trainer, "train_step", recorded), \
+            mock.patch.object(BlipVisionT5Decoder, "get_t5_tokenizer",
+                              lambda self: tok):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model, n = runner.model, CLIP_EPOCHS * CLIP_STEPS
+    losses, norms = check_finite("clip-train", record)
+    if len(record) != n:
+        raise AssertionError(f"clip-train: {len(record)} steps, not {n}")
+    moved = {k: float((p - first["params"][k]).abs().max())
+             for k, p in tree_leaves(runner.state["params"])}
+    if min(moved.values()) == 0:
+        raise AssertionError(f"clip-train: projector not updated: {moved}")
+    dec_len = int(first["batch"]["labels"].shape[1])
+    per_step = clip_train_launches(model, dec_len)
+    expect_launches("clip-train", launches, per_step, n, CLIP_TRAIN_KERNELS)
+    if launches["s8_matmul"] or launches["s8_matmul_bwd"]:
+        raise AssertionError("clip-train: a bf16 model launched s8 kernels")
+    out = Path(runner.output_dir)
+    lines = [json.loads(x) for x in (out / "log.txt").read_text().splitlines()]
+    if [e["epoch"] for e in lines if "train_loss" in e] != list(
+            range(CLIP_EPOCHS)) or not all(
+            (out / f"checkpoint_{e}.pth").exists() for e in range(CLIP_EPOCHS)):
+        raise AssertionError(f"clip-train: log.txt / checkpoints {lines[1:]}")
+    gaps = [b["t"] - a["t"] for a, b in zip(record, record[1:])
+            if b["step"] % CLIP_STEPS != 1]     # within an epoch
+    step_ms = statistics.median(gaps) * 1e3
+    b = first["batch"]
+    vc, tc5 = model.vit_cfg, model.t5_cfg
+    say("clip-train", f"train YAML as written (ViT-g {vc.num_layers} x "
+        f"{vc.hidden_size}, flan-t5-xxl {model.dtype} encoder "
+        f"{tc5.num_layers} + decoder {tc5.num_decoder_layers}, batch "
+        f"{b['pixel_values'].shape[0]}, pixels {tuple(b['pixel_values'].shape[1:])}, "
+        f"text {tuple(b['input_ids'].shape)} / labels {tuple(b['labels'].shape)}) "
+        f"on {CLIP_IMAGES} seeded images in cc_sbu shards ({shard_s:.1f} s to "
+        f"write), {CLIP_EPOCHS} epochs x {CLIP_STEPS} steps in {wall:.1f} s "
+        f"(model build and each epoch's shuffle-buffer fill included); "
+        f"{step_ms:.0f} ms a step through the runner (median gap within an "
+        f"epoch); losses " + " ".join(f"{x:.4f}" for x in losses.tolist())
+        + f"; grad norm {norms.min():.4g}-{norms.max():.4g}; peak "
+        f"{peak:.2f} GiB")
+    say("clip-train", f"launches over {n} steps "
+        f"{dict((k, launches[k]) for k in CLIP_TRAIN_KERNELS)} = steps x "
+        f"clip_train_launches {per_step} (ViT {vc.num_layers} and encoder "
+        f"{tc5.num_layers} flash forwards without gradient, then the "
+        "decoder's as the LVLM step counts them)")
+    host = {k: v[:CLIP_GRAD_SAMPLES].cpu().numpy() for k, v in b.items()}
+    grad = clip_gradient_check(model.cfg, host)
+    fit = Trainer(model, {"init_lr": 1e-3, "min_lr": 1e-3, "warmup_steps": 0,
+                          "weight_decay": 0.05})
+    fstate = fit.init_state()
+    fl = [fit.train_step(fstate, b)[1] for _ in range(10)]
+    fl, _ = check_finite("clip overfit", fl)
+    if not fl[-1] < fl[0]:
+        raise AssertionError(f"clip overfit: loss did not fall: {fl.tolist()}")
+    say("clip-train", "overfit, one batch, lr 1e-3, 10 steps: loss "
+        + " ".join(f"{x:.4f}" for x in fl.tolist()))
+    phase_profile_train(runner.trainer, runner.state, b,
+                        label="CLIP training step (batch 32: ViT-g, flan-t5-"
+                        "xxl bf16 encoder + decoder, 128 + 128 tokens)")
+    shutil.rmtree(CLIP_DIR)
+    return launches, {"step_ms": step_ms, "wall_s": wall, "peak_gib": peak,
+                      "grad": grad}
 
 
 def phase_dense_int8(base_cfg, params):
@@ -3634,7 +4219,12 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    flux, flux_rates = phase_lvlm_flux(embeds, embed_launches)
+    flux, flux_rates, pipe = phase_lvlm_flux(embeds, embed_launches)
+    clip_flux, clip_flux_rates = phase_clip_flux(pipe)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    clip_train, clip_train_rates = phase_clip_train()
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; "
         f"train-w8a8 {train['step_ms']:.1f} ms a step, "
         f"{train['samples_per_s']:.2f} samples/s per GPU, peak "
@@ -3647,7 +4237,11 @@ def main() -> int:
         f"(train-yaml {yaml_step_ms:.0f}); lvlm-flux {flux_rates['wall_s']:.2f} "
         f"s for a 1024² image, {flux_rates['ms_per_step']:.1f} ms a denoise "
         f"step, VAE {flux_rates['vae_s']:.2f} s, peak "
-        f"{flux_rates['peak_gib']:.2f} GiB")
+        f"{flux_rates['peak_gib']:.2f} GiB; clip-flux "
+        f"{clip_flux_rates['wall_s']:.2f} s for a 1024² image from one "
+        f"image, {clip_flux_rates['two_wall_s']:.2f} s from two; clip-train "
+        f"{clip_train_rates['step_ms']:.0f} ms a step, peak "
+        f"{clip_train_rates['peak_gib']:.2f} GiB")
     report = []
     for kname, (route, source, replaces) in TPU_KERNELS.items():
         rows = results[kname]
@@ -3667,6 +4261,8 @@ def main() -> int:
             "cli_stage2_launches": cli2["launches"][kname],
             "lvlm_flux_launches": flux[kname],
             "lvlm_flux_get_embed_launches": embed_launches[kname],
+            "clip_flux_launches": clip_flux[kname],
+            "clip_train_launches": clip_train[kname],
             "timed_shape": main_row["shape"],
             "shapes": [{k: v for k, v in r.items() if k != "main"}
                        for r in rows],

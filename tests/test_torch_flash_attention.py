@@ -291,6 +291,9 @@ def test_bias_gradient_is_refused():
 # (Tq, D, bias, kv_mask, segments) -> (block_q, block_k, stages)
 TILE_CHOICES = {
     "vision S1024 D80": ((1024, 80, None, False, False), (192, 64, 5)),
+    "vit-g T257 D88": ((257, 88, None, False, False), (192, 64, 5)),
+    "t5 encoder T128 bias mask": ((128, 64, "tile", True, False),
+                                  (128, 128, 2)),
     "lm prefill T283 D128 pad bias": ((283, 128, "row", False, False),
                                       (128, 64, 5)),
     "t5 train self T256": ((256, 64, "tile", False, True), (128, 128, 2)),
@@ -311,8 +314,8 @@ def test_forward_tile_choice_is_a_function_of_the_shapes(name):
     block_q, block_k, stages = got
     # an instantiated (D, block_k) pair, 64-row tiles for the decode's few
     # rows, and a plan that fits the shared memory of a block
-    assert (d, block_k) in {(64, 128), (80, 64), (128, 64)}
-    assert block_q == (64 if tq <= 64 else 192 if d == 80 else 128)
+    assert (d, block_k) in {(64, 128), (80, 64), (88, 64), (128, 64)}
+    assert block_q == (64 if tq <= 64 else 192 if d in (80, 88) else 128)
     assert tf.flash_fwd_smem(d, *got, *args[2:]) <= tf.SMEM_LIMIT
     # the deepest ring that fits
     assert 2 <= stages <= tf.MAX_STAGES
@@ -323,7 +326,7 @@ def test_forward_tile_choice_is_a_function_of_the_shapes(name):
 
 def test_forward_operand_checks_raise_before_any_launch():
     """The kernel's operand rules, held on CPU tensors (the checks run
-    before the library is touched): a head dim outside {64, 80, 128}, a
+    before the library is touched): a head dim outside {64, 80, 88, 128}, a
     head dim that is not contiguous, other strides that are not multiples
     of 16 bytes."""
     q = torch.zeros((1, 2, 8, 96), dtype=torch.bfloat16)

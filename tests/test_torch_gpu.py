@@ -84,6 +84,17 @@ FLASH_CASES = {
                                     d=128, strided=True, scaled=True),
     "clip_l_causal_t77": dict(b=1, hq=12, hkv=12, tq=77, tk=77, d=64,
                               strided=True, causal=True),
+    # BLIP-2's ViT-g: 16 heads of 88 over 257 tokens, as its block hands
+    # them over (head-transposed views of three 1408-wide projections, no
+    # copy: 176-byte head offsets, 2816-byte rows), and contiguous; block_q
+    # 64 and 128 at a few query rows
+    "vit_g_d88_t257": dict(b=2, hq=16, hkv=16, tq=257, tk=257, d=88),
+    "vit_g_d88_projection_views": dict(b=2, hq=16, hkv=16, tq=257, tk=257,
+                                       d=88, projection=True),
+    "d88_kv_mask_tq40": dict(b=2, hq=2, hkv=2, tq=40, tk=257, d=88,
+                             kv_mask=True),
+    "d88_causal_t130": dict(b=1, hq=4, hkv=4, tq=130, tk=130, d=88,
+                            causal=True),
 }
 
 
@@ -94,7 +105,11 @@ FLASH_CASES = {
 FLUX_FLASH_REL = 2e-2
 
 
-def _flash_inputs(cuda, b, hq, hkv, tq, tk, d, strided):
+def _flash_inputs(cuda, b, hq, hkv, tq, tk, d, strided, projection=False):
+    if projection:  # (B, T, H * D) projections seen as (B, H, T, D)
+        return tuple(_randn((b, t, h * d), s, cuda).reshape(b, t, h, d)
+                     .transpose(1, 2) for t, h, s in ((tq, hq, 0), (tk, hkv, 1),
+                                                       (tk, hkv, 2)))
     if not strided:
         return (_randn((b, hq, tq, d), 0, cuda), _randn((b, hkv, tk, d), 1, cuda),
                 _randn((b, hkv, tk, d), 2, cuda))
@@ -110,7 +125,8 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
 
     c = dict(FLASH_CASES[case])
     b, hq, hkv, tq, tk, d = (c.pop(k) for k in ("b", "hq", "hkv", "tq", "tk", "d"))
-    q, k, v = _flash_inputs(cuda, b, hq, hkv, tq, tk, d, c.get("strided"))
+    q, k, v = _flash_inputs(cuda, b, hq, hkv, tq, tk, d, c.get("strided"),
+                            c.get("projection", False))
     kw = dict(causal=c.get("causal", False), sm_scale=c.get("sm_scale"))
     if c.get("pad_bias"):
         lens = torch.tensor([tk, tk - 37], device=cuda)
@@ -147,6 +163,25 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     _, lse = _forward_cuda(q, k, v, *args, with_lse=True)
     lse_ref = logsumexp_reference(q, k, *args)
     assert float((lse - lse_ref).abs().max()) <= 3e-5
+
+
+def test_flash_attention_d88_refuses_an_unaligned_view(cuda):
+    """A D = 88 view whose start is 8 bytes off a 16-byte boundary is no
+    operand for the tensor maps: the kernel raises and launches nothing
+    (it never copies), while the aligned view next to it runs."""
+    from thinkdiff_torch.ops.flash_attention import _tma_fits
+
+    buf = _randn((1, 64, 4, 96), 0, cuda)
+    bad = buf[..., 4:92].transpose(1, 2)
+    good = buf[..., 8:96].transpose(1, 2)
+    assert not _tma_fits(bad) and _tma_fits(good)
+    before = kernels.launch_counts()["flash_attention_fwd"]
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention(bad, good, good)
+    assert kernels.launch_counts()["flash_attention_fwd"] == before
+    out = flash_attention(good, good, good)
+    ref = mha_reference(good, good, good)
+    assert float((out.float() - ref.float()).abs().max()) <= 2e-2
 
 
 @pytest.mark.parametrize("t", [4224, 4507])
@@ -198,7 +233,7 @@ def test_flash_attention_all_masked_rows(cuda):
 
 
 def test_flash_attention_kernel_rejects_what_tma_cannot_take(cuda):
-    """No fallback: a head dim outside {64, 80, 128}, a head dim that is not
+    """No fallback: a head dim outside {64, 80, 88, 128}, a head dim that is not
     contiguous, or a start that is not 16-byte aligned raises."""
     q = _randn((1, 2, 64, 96), 0, cuda)
     with pytest.raises(ValueError, match="head dim"):

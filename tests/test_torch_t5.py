@@ -260,3 +260,213 @@ def test_chunked_ce_matches_monolithic_and_jax(quant):
         dtype=jnp.float32, chunk=4)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=2e-5)
     assert (float(hit), float(count)) == (float(jhit), float(jcount))
+
+
+# ---------------------------------------------------------------------------
+# The encoder (ThinkDiff-CLIP's T5, FLUX's T5 text embedder)
+# ---------------------------------------------------------------------------
+
+def _jax_t5_full(fused: bool, quant, seed=0):
+    """A tiny JAX T5 with its encoder, and its tree (unfused f32 init,
+    quantized and fused as the aligner does)."""
+    cfg = jt.T5Config.tiny(fused_proj=fused, quant_int8=quant)
+    ids = jnp.zeros((1, 4), jnp.int32)
+    fp = jt.T5ForConditionalGeneration(dataclasses.replace(
+        cfg, quant_int8=False, fused_proj=False))
+    params = jax.tree.map(np.asarray, fp.init(
+        {"params": jax.random.PRNGKey(seed)}, input_ids=ids,
+        decoder_input_ids=ids)["params"])
+    if quant:
+        params = quantize_tree(params, min_size=0, w8a8=True)
+    if fused:
+        params = jt.fuse_t5_params(params)
+    return jt.T5ForConditionalGeneration(cfg), params
+
+
+def _encode_inputs(seed=5):
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(1, 128, (2, 9)).astype(np.int32)
+    mask = np.ones((2, 9), np.int32)
+    mask[1, 5:] = 0
+    extra = rs.randn(2, 3, 32).astype(np.float32)
+    extra_mask = np.ones((2, 3), np.int32)
+    extra_mask[0, 2] = 0
+    dec = rs.randint(1, 128, (2, 6)).astype(np.int32)
+    return ids, mask, extra, extra_mask, dec
+
+
+@pytest.mark.parametrize("extra", ["none", "extra", "extra_mask"])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("quant", [False, "w8a8"])
+def test_encode_and_forward_match_jax(quant, fused, extra):
+    """encode (the bidirectional relative bias, key validity through the
+    kernel's kv_mask, extra states BEFORE the text's with a mask of ones
+    unless given) and the full seq2seq forward against JAX. Tolerances as
+    the decoder's: f32 2e-5 (summation order), w8a8 2e-3 (an f32 rounding
+    before the per-row absmax quantization moves a quantum)."""
+    jm, params = _jax_t5_full(fused, quant)
+    tm = load_params(tt.T5ForConditionalGeneration(
+        tt.T5Config.tiny(fused_proj=fused, quant_int8=quant), encoder=True),
+        params)
+    ids, mask, ext, ext_mask, dec = _encode_inputs()
+    kw_j = dict(input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask))
+    kw_t = dict(input_ids=torch.from_numpy(ids),
+                attention_mask=torch.from_numpy(mask))
+    if extra != "none":
+        kw_j["extra_encoder_states"] = jnp.asarray(ext)
+        kw_t["extra_encoder_states"] = torch.from_numpy(ext)
+    if extra == "extra_mask":
+        kw_j["extra_attention_mask"] = jnp.asarray(ext_mask)
+        kw_t["extra_attention_mask"] = torch.from_numpy(ext_mask)
+    want_s, want_m = jm.apply({"params": params}, method=jm.encode, **kw_j)
+    want_logits = jm.apply({"params": params},
+                           decoder_input_ids=jnp.asarray(dec), **kw_j)
+    with torch.no_grad():
+        got_s, got_m = tm.encode(**kw_t)
+        got_logits = tm(decoder_input_ids=torch.from_numpy(dec), **kw_t)
+    tol = 2e-3 if quant else 2e-5
+    assert got_m.dtype == torch.int32
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=tol,
+                               rtol=tol)
+    np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits),
+                               atol=tol, rtol=tol)
+    if extra != "none":  # the extra states lead, untouched
+        np.testing.assert_array_equal(got_s[:, :3].numpy(), ext)
+
+
+def test_encode_without_mask_and_from_embeds_match_jax():
+    jm, params = _jax_t5_full(False, False, seed=2)
+    tm = load_params(tt.T5ForConditionalGeneration(tt.T5Config.tiny(),
+                                                   encoder=True), params)
+    ids = _encode_inputs(7)[0]
+    emb = params["shared"]["embedding"][ids]
+    want_s, want_m = jm.apply({"params": params}, method=jm.encode,
+                              input_embeds=jnp.asarray(emb))
+    with torch.no_grad():
+        got_s, got_m = tm.encode(input_embeds=torch.from_numpy(emb))
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_stack_builds_only_what_it_is_asked_for():
+    """The LVLM aligner's stack has no encoder (the JAX model deletes it),
+    the T5 text embedder's no decoder, ThinkDiff-CLIP's both."""
+    cfg = tt.T5Config.tiny()
+    dec_only = tt.T5ForConditionalGeneration(cfg)
+    assert not hasattr(dec_only, "encoder") and hasattr(dec_only, "lm_head")
+    enc_only = tt.T5ForConditionalGeneration(cfg, encoder=True, decoder=False)
+    assert not hasattr(enc_only, "decoder") and not hasattr(enc_only, "lm_head")
+    both = tt.T5ForConditionalGeneration(cfg, encoder=True)
+    names = {n.split(".")[0] for n, _ in both.named_parameters()}
+    assert names == {"shared", "encoder", "decoder", "lm_head"}
+
+
+def _golden_sd():
+    return dict(np.load(GOLDENS / "t5_ckpt.npz"))
+
+
+def test_convert_t5_identical_to_jax():
+    """The port's converter gives the JAX converter's tree, leaf for leaf,
+    in f32 and in bf16; fusing it too (encoder blocks included)."""
+    import ml_dtypes
+
+    from thinkdiff_torch.models.convert import convert_t5
+    from thinkdiff_tpu.models.convert import convert_t5 as jconvert
+
+    flat = lambda t: {"/".join(map(str, k)): np.asarray(v) for k, v in
+                      jax.tree_util.tree_flatten_with_path(t)[0]}
+    sd = _golden_sd()
+    for dtype in (None, np.dtype(ml_dtypes.bfloat16)):
+        a, b = flat(convert_t5(sd, dtype)), flat(jconvert(sd, dtype))
+        assert set(a) == set(b)
+        for k in b:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    a = flat(tt.fuse_t5_params(convert_t5(sd)))
+    b = flat(jt.fuse_t5_params(jconvert(sd)))
+    assert set(a) == set(b)
+    assert any("encoder" in k and "qkv" in k for k in a)
+    for k in b:
+        assert np.array_equal(a[k], b[k]), k
+
+
+def test_golden_full_logits_and_encoder_only_checkpoint():
+    """HF's tiny flan-t5 through the port's convert_t5: the full
+    encoder-decoder logits and the encoder-less decode reproduce HF's (the
+    golden pack's limits); an encoder-only state dict (FLUX's
+    text_encoder_2 layout) converts into an encoder-only stack whose
+    states equal the full model's."""
+    from thinkdiff_torch.models.convert import convert_t5
+
+    sd, io = _golden_sd(), np.load(GOLDENS / "t5_io.npz")
+    tm = load_params(tt.T5ForConditionalGeneration(tt.T5Config.tiny(),
+                                                   encoder=True),
+                     convert_t5(sd))
+    with torch.no_grad():
+        logits = tm(input_ids=torch.from_numpy(io["input_ids"]),
+                    attention_mask=torch.from_numpy(io["attention_mask"]),
+                    decoder_input_ids=torch.from_numpy(io["decoder_input_ids"]))
+        logits2 = tm.decode_with_encoder_states(
+            torch.from_numpy(io["decoder_input_ids2"]),
+            torch.from_numpy(io["encoder_states"]))
+        states, _ = tm.encode(torch.from_numpy(io["input_ids"]),
+                              torch.from_numpy(io["attention_mask"]))
+    np.testing.assert_allclose(logits.numpy(), io["logits"], atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(logits2.numpy(), io["logits2"], atol=ATOL,
+                               rtol=RTOL)
+    enc_sd = {k: v for k, v in sd.items()
+              if k.startswith(("shared.", "encoder."))}
+    enc = load_params(tt.T5ForConditionalGeneration(
+        tt.T5Config.tiny(), encoder=True, decoder=False), convert_t5(enc_sd))
+    with torch.no_grad():
+        got, _ = enc.encode(torch.from_numpy(io["input_ids"]),
+                            torch.from_numpy(io["attention_mask"]))
+    assert torch.equal(got, states)
+
+
+@pytest.mark.parametrize("quant", [None, "int8_dyn"])
+def test_lvlm_aligner_converts_a_local_flan_t5(tmp_path, quant):
+    """With a local HF flan-t5 directory on disk the LVLM aligner builds its
+    frozen decoder from it (no encoder: the JAX model deletes it), as the
+    JAX model does: the same tree, quantized and fused as configured, HF's
+    encoder-less logits reproduced, and the projector's t5_norm seeded by
+    the checkpoint's encoder final norm."""
+    from safetensors.numpy import save_file
+
+    from thinkdiff_torch.models.aligner_lvlm import MllamaT5EmbedDecoder
+    from thinkdiff_tpu.core.config import ConfigNode
+    from thinkdiff_tpu.models.aligner_lvlm import (
+        MllamaT5EmbedDecoder as JModel)
+
+    sd, io = _golden_sd(), np.load(GOLDENS / "t5_io.npz")
+    (tmp_path / "t5").mkdir()
+    save_file(sd, str(tmp_path / "t5" / "model.safetensors"))
+    cfg = {"dtype": "float32", "vlm_hidden_size": 16,
+           "text_pretrained_model_name_or_path": str(tmp_path / "t5"),
+           "layer_norm_reinit_weight_with_language_encoder": True,
+           "quantize_frozen": quant,
+           "t5_config": dict(vocab_size=128, d_model=32, d_kv=8, d_ff=64,
+                             num_layers=2, num_decoder_layers=2, num_heads=4,
+                             fused_proj=quant is not None)}
+    tm = MllamaT5EmbedDecoder(cfg, device="cpu")
+    jm = JModel(ConfigNode(cfg))
+    assert not hasattr(tm.frozen["t5"], "encoder")
+    got = params_of(tm.frozen["t5"])
+    flat = lambda t: {"/".join(map(str, k)): np.asarray(v) for k, v in
+                      jax.tree_util.tree_flatten_with_path(t)[0]}
+    a, b = flat(got), flat(jm.frozen["t5"])
+    assert set(a) == set(b)
+    for k in b:
+        np.testing.assert_allclose(a[k], b[k], rtol=1e-7, err_msg=k)
+    np.testing.assert_array_equal(
+        tm.trainable["projector"]["t5_norm"]["weight"].numpy(),
+        sd["encoder.final_layer_norm.weight"])
+    if quant is None:
+        with torch.no_grad():
+            logits = tm.frozen["t5"].decode_with_encoder_states(
+                torch.from_numpy(io["decoder_input_ids2"]),
+                torch.from_numpy(io["encoder_states"]))
+        np.testing.assert_allclose(logits.numpy(), io["logits2"], atol=ATOL,
+                                   rtol=RTOL)

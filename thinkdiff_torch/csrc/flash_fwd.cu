@@ -4,9 +4,10 @@
 // Replaces the Pallas TPU kernel thinkdiff_tpu/ops/flash_attention.py
 // `_fwd_kernel` (wrapper `_flash_attention_forward`): the Qwen2-VL vision
 // tower (D=80, 16 heads, 1024 patches per image), the language model's
-// one-shot prefill (D=128, 12 query / 2 kv heads, causal + key padding) and
+// one-shot prefill (D=128, 12 query / 2 kv heads, causal + key padding),
 // flan-t5's self- and cross-attention (D=64, 64 heads: relative bias,
-// segments, kv_mask) in training and in the greedy decode.
+// segments, kv_mask) in training, in its encoder and in the greedy decode,
+// and BLIP-2's ViT-g (D=88, 16 heads, 257 tokens an image).
 //
 // What bounds it on an H100: the QK^T and PV products (4*T^2*D flop per
 // head) on the bf16 tensor cores; the (T, T) scores never go to device
@@ -21,9 +22,10 @@
 //    so q, k and v may be head-transposed views (the fused qkv of the
 //    vision block, T5's (B, T, H, D) projections) and are never copied.
 //    Rows are cut in 64-column chunks of 128 bytes with the 128-byte
-//    swizzle; D = 80 takes two chunks, the second zero-filled past column
-//    80 by the map's bounds (zeros add nothing to QK^T, and the PV product
-//    is 80 wide). q is loaded once; k and v tiles of BK keys go through a
+//    swizzle; D = 80 and 88 take two chunks, the second zero-filled past
+//    column D by the map's bounds (zeros add nothing to QK^T, whose last
+//    k16 step at D = 88 spans columns 80-95, and the PV product is D
+//    wide: wgmma's N = 88 is a multiple of 8). q is loaded once; k and v tiles of BK keys go through a
 //    ring of 2-8 stages (as many as fit in shared memory) with full/empty
 //    mbarriers, so the copies run ahead of the math.
 //  - S = Q K^T: wgmma m64nBKk16 with both operands from shared memory.
@@ -269,13 +271,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         const uint8_t* sk = smem + plan.off_k + s * P::KV_BYTES;
         const uint8_t* sv = smem + plan.off_v + s * P::KV_BYTES;
 
-        // S = Q K^T over D in k16 steps, 4 to a 64-column chunk
+        // S = Q K^T over D in k16 steps (the last one zero-filled past D at
+        // D = 88), 4 to a 64-column chunk
         float sc[BK / 2];
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
+        for (int ks = 0; ks < (D + 15) / 16; ++ks) {
           const int c = ks / 4, kin = ks % 4;
           wgmma_ss<BK>(sc, wgmma_desc(sq + c * BQ * 128 + kin * 32, 16, 1024),
                        wgmma_desc(sk + c * BK * 128 + kin * 32, 16, 1024), ks > 0);
@@ -441,7 +444,8 @@ int launch(const Maps& maps, const Params& p, cudaStream_t stream) {
 // f32 (B, Hq, Tq) or null.
 // shape: B, Hq, Hkv, Tq, Tk, D, block_q, block_k, causal, stages. strides:
 // q, k, v, o, bias, three each. (D, block_k) in {(64, 128), (80, 64),
-// (128, 64)}; block_q in {64, 128} (or 192 at D = 80); stages in [2, 8],
+// (88, 64), (128, 64)}; block_q in {64, 128} (or 192 at D = 80 and 88);
+// stages in [2, 8],
 // within the 227 KB of shared memory a block may use.
 // Launches on `stream`; returns a CUDA error code, or 1000 + the CUresult
 // of a tensor map that cuTensorMapEncodeTiled refused.
@@ -491,14 +495,18 @@ extern "C" int thinkdiff_flash_fwd(
     return rc;
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (block_q == 192)  // three consumer warpgroups: the vision tower's D = 80
-    return D == 80 && block_k == 64 ? launch<80, 64, 3>(maps, p, st)
-                                    : (int)cudaErrorInvalidValue;
+  if (block_q == 192) {  // three consumer warpgroups: the vision towers
+    if (D == 80 && block_k == 64) return launch<80, 64, 3>(maps, p, st);
+    if (D == 88 && block_k == 64) return launch<88, 64, 3>(maps, p, st);
+    return (int)cudaErrorInvalidValue;
+  }
   const bool wide = block_q == 128;
   if (D == 64 && block_k == 128)
     return wide ? launch<64, 128, 2>(maps, p, st) : launch<64, 128, 1>(maps, p, st);
   if (D == 80 && block_k == 64)
     return wide ? launch<80, 64, 2>(maps, p, st) : launch<80, 64, 1>(maps, p, st);
+  if (D == 88 && block_k == 64)
+    return wide ? launch<88, 64, 2>(maps, p, st) : launch<88, 64, 1>(maps, p, st);
   if (D == 128 && block_k == 64)
     return wide ? launch<128, 64, 2>(maps, p, st) : launch<128, 64, 1>(maps, p, st);
   return (int)cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
-"""Dataset builders (the port's copy of the embedding builders of
-thinkdiff_tpu/data/builders.py).
+"""Dataset builders (the port's copy of thinkdiff_tpu/data/builders.py):
+ThinkDiff-CLIP's image-caption shards (``cc_sbu``), the precompute's
+indexed image shards and ThinkDiff-LVLM's embedding shards.
 
 A builder turns its config section into a ``DatasetBundle`` that the runner
 asks for batch loaders. The task injects the tokenizers after the model is
@@ -16,7 +17,7 @@ from typing import Any, Callable, Dict, Optional
 from thinkdiff_torch.core.config import ConfigNode
 from thinkdiff_torch.core.registry import registry
 from thinkdiff_torch.data.collators import (
-    EmbedShardCollator, WidsProcessCollator)
+    CaptionSplitCollator, EmbedShardCollator, WidsProcessCollator)
 from thinkdiff_torch.data.pipeline import (
     MapDatasetLoader, PrefetchLoader, WebDatasetPipeline)
 from thinkdiff_torch.data.processors import build_processor
@@ -87,6 +88,68 @@ class BaseDatasetBuilder:
         cfgs = self.config.get("vis_processor", {}) or {}
         vp_cfg = cfgs.get(split) or cfgs.get("eval")  # eval-only sections
         return build_processor(vp_cfg) if vp_cfg else None
+
+    def _text_processor(self, split: str = "train"):
+        cfgs = self.config.get("text_processor", {}) or {}
+        tp_cfg = cfgs.get(split) or cfgs.get("eval")
+        return build_processor(tp_cfg) if tp_cfg else None
+
+
+@registry.register_builder("cc_sbu")
+class CCSBUBuilder(BaseDatasetBuilder):
+    """Image-caption tar shards -> caption-split batches
+    (reference image_text_pair_builder.py:12-41, cc_sbu_dataset.py:11-25).
+
+    The port has no C++ batch JPEG decoder yet, so this is the path the JAX
+    builder takes when ``native.available()`` is false: each sample's image
+    is decoded by the pipeline (PIL), resized and normalized by the vision
+    processor, its caption cleaned by the text processor, and the
+    collator splits the captions."""
+
+    DEFAULT_CONFIG = {
+        "vis_processor": {"train": {"name": "blip2_image_train",
+                                    "image_size": 224}},
+        "text_processor": {"train": {"name": "blip_caption"}},
+    }
+
+    def build(self) -> DatasetBundle:
+        cfg = self.config
+        storage = cfg.build_info.storage
+        vis_proc = self._vis_processor()
+        text_proc = self._text_processor()
+        state: Dict[str, Any] = {"t5_tok": None}
+
+        def map_fn(sample):
+            img = sample.get("jpg") or sample.get("png")
+            if img is None or "json" not in sample:
+                return None
+            caption = sample["json"].get("caption", "")
+            if text_proc:
+                caption = text_proc(caption)
+            return {"image": vis_proc(img) if vis_proc else img,
+                    "answer": caption}
+
+        def make_loader(batch_size, rank, world_size, seed, epoch):
+            assert state["t5_tok"] is not None, "tokenizer not injected"
+            collator = CaptionSplitCollator(
+                state["t5_tok"],
+                max_txt_len=int(self.knob("max_txt_len", 128)),
+                use_biased_split=bool(self.knob("use_biased_random_split",
+                                                False)))
+            # resample=False -> one finite pass (eval sections set this)
+            resample = bool(cfg.get("resample", True))
+            pipe = WebDatasetPipeline(
+                storage, resample=resample,
+                shuffle_buffer=1000 if resample else 0, decode=True,
+                map_fns=[map_fn], batch_size=batch_size, collator=collator,
+                seed=seed + epoch, rank=rank, world_size=world_size)
+            return PrefetchLoader(pipe)
+
+        def set_tok(t5_tok, vlm_decode):
+            state["t5_tok"] = t5_tok
+
+        return DatasetBundle(make_loader, set_tokenizers=set_tok,
+                             batch_size=cfg.get("batch_size"))
 
 
 @registry.register_builder("cc_sbu_mllama_vllm_process_wids")

@@ -1,6 +1,7 @@
-"""Batch collators (the port's copy of the embed-shard and precompute parts
-of thinkdiff_tpu/data/collators.py): host numpy batches for the trainer,
-PIL images and prompts for the VLM engine.
+"""Batch collators (the port's copy of thinkdiff_tpu/data/collators.py):
+host numpy batches for the trainer (ThinkDiff-CLIP's caption splits,
+ThinkDiff-LVLM's embedding shards), PIL images and prompts for the VLM
+engine.
 
 Embeddings read from shards are torch tensors (bf16 as the engine writes
 them); the collator converts them to f32 with torch. Random splits and
@@ -70,6 +71,68 @@ def tokenize_batch(tokenizer, texts: List[str], max_len: int,
 def labels_from_ids(ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
     """Pad positions -> -100."""
     return np.where(mask > 0, ids, IGNORE_INDEX).astype(np.int32)
+
+
+def random_split_string(s: str, rng: Optional[random.Random] = None):
+    """A caption split at a uniformly drawn word boundary: (first half,
+    second half); a one-word caption gives ("", caption). Draws from
+    ``rng``, or from the module-level ``random`` without one."""
+    rng = rng or random
+    words = s.split(" ")
+    if len(words) <= 1:
+        return "", s
+    split_point = rng.randint(1, len(words) - 1)
+    return " ".join(words[:split_point]), " ".join(words[split_point:])
+
+
+def biased_random_split_string(s: str, std_factor: float = 6,
+                               rng: Optional[random.Random] = None):
+    """A split near the middle: the boundary drawn from N(n/2, n/std_factor)
+    words, clamped to [1, n - 1]."""
+    rng = rng or random
+    words = s.split(" ")
+    if len(words) <= 1:
+        return "", s
+    mean = len(words) / 2
+    stddev = len(words) / std_factor
+    split_point = int(rng.gauss(mean, stddev))
+    split_point = max(1, min(split_point, len(words) - 1))
+    return " ".join(words[:split_point]), " ".join(words[split_point:])
+
+
+class CaptionSplitCollator:
+    """ThinkDiff-CLIP training batches: each sample's image and its caption
+    split in two, the first half the T5 encoder's input and the second the
+    labels, both tokenized to ``max_txt_len`` (pad -> -100 in the labels).
+
+    samples: [{"image": HWC float array, "answer": caption str}]. Without
+    ``seed`` the splits draw from the module-level ``random`` (as the JAX
+    collator does: its builder passes no seed). The JAX collator's other
+    input, raw JPEG bytes for its C++ batch decoder, has no counterpart:
+    the port's builder hands over decoded images."""
+
+    def __init__(self, t5_tokenizer, max_txt_len: int = 128,
+                 use_biased_split: bool = False, seed: Optional[int] = None):
+        self.tok = t5_tokenizer
+        self.max_txt_len = max_txt_len
+        self.split_fn = (biased_random_split_string if use_biased_split
+                         else random_split_string)
+        self.rng = random.Random(seed) if seed is not None else None
+
+    def __call__(self, samples: List[Dict[str, Any]]) -> Dict[str, np.ndarray]:
+        images = np.stack([np.asarray(s["image"], np.float32)
+                           for s in samples])
+        firsts, seconds = [], []
+        for s in samples:
+            a, b = self.split_fn(s["answer"], rng=self.rng)
+            firsts.append(a)
+            seconds.append(b)
+        input_ids, input_mask = tokenize_batch(self.tok, firsts,
+                                               self.max_txt_len)
+        out_ids, out_mask = tokenize_batch(self.tok, seconds, self.max_txt_len)
+        return {"pixel_values": images, "input_ids": input_ids,
+                "input_mask": input_mask,
+                "labels": labels_from_ids(out_ids, out_mask)}
 
 
 def _f32(e) -> np.ndarray:

@@ -13,10 +13,11 @@ trainable projector is the tree ``trainable["projector"]`` of f32 tensors.
 ``loss_fn(trainable, frozen, batch, rng)`` is the JAX function's
 counterpart: the batch holds tensors on the model's device.
 
-Checkpoint conversion from HF (``convert_t5``) is not ported yet: with
-``load_pretrained`` set and a local flan-t5 checkpoint present the model
-refuses to build; without one it draws seeded random weights, as the JAX
-model does when no checkpoint is on disk.
+With ``load_pretrained`` set and a local flan-t5 checkpoint on disk the
+frozen decoder is converted from it (``convert_t5``; the encoder is left
+out, as the JAX model deletes it, after its final norm has seeded the
+projector's ``t5_norm`` when the config asks); otherwise it draws seeded
+random weights, as the JAX model does when no checkpoint is on disk.
 """
 
 from __future__ import annotations
@@ -28,20 +29,13 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from thinkdiff_torch import registry, resolve_device
-from thinkdiff_torch.core.config import model_default_config_path
-from thinkdiff_torch.core.optim import tree_map
-from thinkdiff_torch.models.bridge import (
-    local_hf_dir, local_hf_state_dict, to_numpy, to_tensor, unflatten)
-from thinkdiff_torch.models.projector import (
-    build_vision_projector, convert_projector_torch, export_projector_torch)
-from thinkdiff_torch.models.qdense import QDense
+from thinkdiff_torch import registry
+from thinkdiff_torch.models.aligner_base import AlignerBase
+from thinkdiff_torch.models.bridge import local_hf_dir, to_tensor
 from thinkdiff_torch.models.t5 import (
-    T5Config, T5ForConditionalGeneration, ce_stats, cross_entropy_loss,
-    shift_right)
+    T5Config, ce_stats, cross_entropy_loss, shift_right)
 from thinkdiff_torch.ops.chunked_ce import (
     chunked_head_ce_stats, chunked_head_cross_entropy)
-from thinkdiff_torch.ops.quant import quantize_weight
 
 logger = logging.getLogger(__name__)
 
@@ -50,41 +44,15 @@ _VLM_HIDDEN = {
     "Qwen/Qwen2-VL-2B-Instruct": 1536,
     "Qwen/Qwen2-VL-7B-Instruct": 3584,
 }
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
-INIT_STD = 0.05
-
-
-@torch.no_grad()
-def init_frozen_t5_(t5: T5ForConditionalGeneration,
-                    generator: torch.Generator) -> None:
-    """Seeded random weights on the module's device, as the JAX package's
-    ``quantize_leaves_on_device``: every float leaf N(0, 0.05); an int8
-    QDense draws its (K, N) kernel N(0, 0.05) in f32 and keeps only the
-    per-column quantization, one layer at a time, so the full-precision
-    tower never exists whole."""
-    for module in t5.modules():
-        if isinstance(module, QDense) and module.quant:
-            w = torch.randn((module.in_dim, module.features),
-                            generator=generator, device=generator.device)
-            qw = quantize_weight(w * INIT_STD)
-            module.kernel_q.copy_(qw["q"])
-            module.kernel_scale.copy_(qw["scale"])
-            module.sync_train_layout()
-            continue
-        for p in module.parameters(recurse=False):
-            p.copy_(torch.randn(p.shape, generator=generator,
-                                device=generator.device) * INIT_STD)
 
 
 @registry.register_model("mllama-vllm-t5-embed-decoder-2")
-class MllamaT5EmbedDecoder:
+class MllamaT5EmbedDecoder(AlignerBase):
     default_model_type = "pretrain_mllama_vllm_t5_embed_decoder_2"
     PRETRAINED_MODEL_CONFIG_DICT = {
         "pretrain_mllama_vllm_t5_embed_decoder_2":
             "configs/models/mllama_vllm_t5_embed_decoder_2.yaml",
     }
-    default_config_path = classmethod(model_default_config_path)
     DEFAULT_CONFIG = {
         "mm_projector_type": "mlp2x_gelu_t5_norm",
         "dtype": "bfloat16",
@@ -95,25 +63,12 @@ class MllamaT5EmbedDecoder:
 
     def __init__(self, cfg: Optional[Dict[str, Any]] = None, seed: int = 0,
                  device="cuda"):
-        self.device = resolve_device(device)
-        self.cfg = cfg = {**self.DEFAULT_CONFIG, **(cfg or {})}
-        self.dtype = _DTYPES[cfg.get("dtype", "bfloat16")]
-        qmode = cfg.get("quantize_frozen", None)
-        if qmode not in (None, "int8", "int8_dyn"):
-            raise ValueError(f"Unsupported quantize_frozen '{qmode}'")
-        self.quantize_frozen = qmode is not None
-        self.t5_cfg = T5Config(**{
-            **dict(dtype=self.dtype, dropout_rate=0.0,
-                   quant_int8={"int8": True, "int8_dyn": "w8a8"}.get(
-                       qmode, False)),
-            **dict(cfg.get("t5_config", {}))})
+        super().__init__(cfg, seed, device)
+        cfg = self.cfg
         self.vlm_hidden = int(
             cfg.get("vlm_hidden_size")
             or _VLM_HIDDEN.get(
                 cfg.get("mllama_pretrained_model_name_or_path", ""), 1536))
-        self.projector = build_vision_projector(
-            cfg.get("mm_projector_type", "mlp2x_gelu_t5_norm"),
-            self.t5_cfg.d_model, dtype=self.dtype)
         self.drop_rate = cfg.get("mllama_output_embeddings_drop_rate", None)
         self.forward_type = cfg.get("forward_type", None)
         if self.forward_type not in (None, "forward_inner"):
@@ -123,91 +78,14 @@ class MllamaT5EmbedDecoder:
         self._build_params(seed)
 
     def _build_params(self, seed: int) -> None:
-        path = self.cfg.get("text_pretrained_model_name_or_path",
-                            "google/flan-t5-xxl")
-        if (self.cfg.get("load_pretrained", True)
-                and local_hf_state_dict(path) is not None):
-            raise NotImplementedError(
-                f"a T5 checkpoint is on disk at {path}, but HF conversion is "
-                "not ported yet")
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        t5 = T5ForConditionalGeneration(self.t5_cfg, device=self.device)
-        init_frozen_t5_(t5, gen)
+        t5, encoder_norm = self._frozen_t5(gen, encoder=False)
         self.frozen = {"t5": t5}
+        params = self.projector.init_params(self.vlm_hidden, gen, self.device)
         # with random weights there is no encoder final norm to copy into
-        # t5_norm (layer_norm_reinit_weight_with_language_encoder): it
-        # keeps its init of ones
-        self.trainable = {"projector": self.projector.init_params(
-            self.vlm_hidden, gen, self.device)}
-
-    @classmethod
-    def from_config(cls, cfg, device="cuda"):
-        return cls(cfg, device=device)
-
-    def load_checkpoint_from_config(self, cfg) -> None:
-        """Loads the trainable weights the config's ``ckpt`` names."""
-        ckpt = cfg.get("ckpt", None) if cfg else None
-        if ckpt:
-            self.load_checkpoint(ckpt)
-
-    def load_checkpoint(self, path: str) -> None:
-        """Trainable weights from a ``.pth``: the port's checkpoint (its
-        ``model`` holds the trainable leaves under their JAX names) or the
-        reference's (``mm_projector.*`` entries, raw or under ``model``)."""
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
-            sd = sd["model"]
-        if any("mm_projector" in k for k in sd):
-            self.load_trainable(self.convert_reference_checkpoint(sd))
-        else:
-            self.load_trainable(unflatten(sd))
-        logger.info("Loaded trainable checkpoint from %s", path)
-
-    def trainable_params(self) -> Dict[str, Any]:
-        return self.trainable
-
-    def load_trainable(self, params: Dict[str, Any]) -> None:
-        """A JAX-layout trainable tree (numpy or torch leaves), copied."""
-        self.trainable = tree_map(
-            lambda x: to_tensor(x).to(self.device, copy=True), params)
-
-    def export_trainable(self) -> Dict[str, Any]:
-        """Inverse of ``load_trainable``: the trainable tree as numpy. The
-        frozen tower's is ``bridge.params_of(frozen["t5"])``."""
-        return tree_map(to_numpy, self.trainable)
-
-    def convert_reference_checkpoint(self, sd: Dict) -> Dict[str, Any]:
-        """The reference's trainable checkpoint (its ``mm_projector.*``
-        entries) -> the trainable tree, numpy leaves (``load_trainable``
-        takes it)."""
-        return {"projector": convert_projector_torch(
-            {k: v for k, v in sd.items() if "mm_projector" in k})}
-
-    def export_reference_checkpoint(self, trainable: Dict) -> Dict:
-        """Inverse of ``convert_reference_checkpoint``: a state dict the
-        reference's PyTorch stack loads."""
-        return export_projector_torch(
-            trainable["projector"],
-            self.cfg.get("mm_projector_type", "mlp2x_gelu_t5_norm"))
-
-    def get_t5_tokenizer(self):
-        """The T5 tokenizer from local files only; None when they are not on
-        disk (nothing is downloaded, and without local files transformers
-        is not even imported)."""
-        path = self.cfg.get("text_pretrained_model_name_or_path",
-                            "google/flan-t5-xxl")
-        local = local_hf_dir(path)
-        if local is None:
-            logger.warning("T5 tokenizer unavailable: %s is not on disk", path)
-            return None
-        try:
-            from transformers import AutoTokenizer
-
-            return AutoTokenizer.from_pretrained(local, local_files_only=True)
-        except (ImportError, OSError, ValueError) as e:
-            # no transformers, or incomplete files
-            logger.warning("T5 tokenizer unavailable for %s: %s", path, e)
-            return None
+        # t5_norm: it keeps its init of ones
+        self._reinit_t5_norm(params, encoder_norm)
+        self.trainable = {"projector": params}
 
     def get_vlm_decode_fn(self):
         """token ids -> text with the VLM tokenizer from local files, or the

@@ -124,20 +124,27 @@ def local_hf_dir(repo_or_path: str):
 
 
 def local_hf_state_dict(repo_or_path: str):
-    """A local HF checkpoint (directory or hub-cache snapshot) as a numpy
-    state dict, or None when it is not on disk. Never downloads."""
+    """A local HF checkpoint (directory or hub-cache snapshot: its
+    ``*.safetensors``, else its ``pytorch_model*.bin``) as a numpy state
+    dict, or None when it is not on disk. Never downloads."""
     import glob
     import os
 
     path = local_hf_dir(repo_or_path)
     if path is None:
         return None
+    out: Dict[str, np.ndarray] = {}
     files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    if files:
+        from safetensors.numpy import load_file
+
+        for f in files:
+            out.update(load_file(f))
+        return out
+    files = sorted(glob.glob(os.path.join(path, "pytorch_model*.bin")))
     if not files:
         return None
-    from safetensors.numpy import load_file
-
-    out: Dict[str, np.ndarray] = {}
     for f in files:
-        out.update(load_file(f))
+        sd = torch.load(f, map_location="cpu", weights_only=True)
+        out.update({k: to_numpy(v) for k, v in sd.items()})
     return out

@@ -1,9 +1,14 @@
-"""The flan-t5 decoder side (counterpart of thinkdiff_tpu/models/t5.py).
+"""flan-t5 (counterpart of thinkdiff_tpu/models/t5.py).
 
-What the LVLM aligner runs: the shared embedding, the encoder-less decoder
-(causal self-attention with the relative-position bias, cross-attention to
-any (B, S, D) states), the final norm and the untied lm_head, all frozen.
-The encoder (ThinkDiff-CLIP's) is not ported yet.
+What the aligners run, all frozen: the shared embedding; the encoder
+(bidirectional self-attention with its relative-position bias and key
+mask), which ThinkDiff-CLIP runs on the first caption half and which FLUX's
+T5 text embedder is; the decoder (causal self-attention with the relative
+bias, cross-attention to any (B, S, D) states), its final norm and the
+untied lm_head. ``encode`` puts extra states (projected image tokens)
+BEFORE the text's encoder states, their mask ones unless given. The LVLM
+aligner builds no encoder (the JAX model deletes it); the T5 text embedder
+builds no decoder.
 
 T5 quirks kept for parity: NO 1/sqrt(d) attention scaling (``sm_scale``
 1.0), one relative-position bias computed per forward and shared by every
@@ -247,6 +252,28 @@ class T5Block(nn.Module):
         return x + self.ffn(self.ffn_norm(x))
 
 
+class T5Encoder(nn.Module):
+    def __init__(self, cfg: T5Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.rel_bias = T5RelativeBias(cfg, bidirectional=True, device=device)
+        for i in range(cfg.num_layers):
+            setattr(self, f"block_{i}", T5Block(cfg, False, False, device))
+        self.final_norm = T5LayerNorm(cfg.d_model, cfg.layer_norm_epsilon,
+                                      cfg.dtype, device)
+
+    def forward(self, input_embeds, mask=None, segments=None):
+        """input_embeds (B, T, D); mask (B, T) 1/0 key validity (the
+        kernel's kv_mask, never a broadcast bias)."""
+        t = input_embeds.shape[1]
+        bias = kernel_bias(self.rel_bias(t, t))
+        x = input_embeds
+        for i in range(self.cfg.num_layers):
+            x = getattr(self, f"block_{i}")(x, None, bias, mask, None,
+                                            segments)
+        return self.final_norm(x)
+
+
 class T5Decoder(nn.Module):
     def __init__(self, cfg: T5Config, device=None):
         super().__init__()
@@ -272,19 +299,49 @@ class T5Decoder(nn.Module):
 
 
 class T5ForConditionalGeneration(nn.Module):
-    """The encoder-less decoder stack of the aligner: ``shared``,
-    ``decoder`` and (untied) ``lm_head``. Its w8a8 layers keep the weight
-    copy their input gradient reads (``QDense`` ``train_layout``)."""
+    """``shared``, the ``encoder`` when ``encoder`` is set, and the
+    ``decoder`` with its (untied) ``lm_head`` when ``decoder`` is set: the
+    LVLM aligner's stack is decoder-only, ThinkDiff-CLIP's has both, FLUX's
+    T5 text embedder only the encoder. Its w8a8 layers keep the weight copy
+    their input gradient reads (``QDense`` ``train_layout``)."""
 
-    def __init__(self, cfg: T5Config, device=None):
+    def __init__(self, cfg: T5Config, device=None, encoder: bool = False,
+                 decoder: bool = True):
         super().__init__()
         self.cfg = cfg
         self.shared = nn.Module()
         self.shared.embedding = _frozen((cfg.vocab_size, cfg.d_model),
                                         cfg.dtype, device)
-        self.decoder = T5Decoder(cfg, device)
-        if not cfg.tie_word_embeddings:
-            self.lm_head = _dense(cfg, cfg.d_model, cfg.vocab_size, device)
+        if encoder:
+            self.encoder = T5Encoder(cfg, device)
+        if decoder:
+            self.decoder = T5Decoder(cfg, device)
+            if not cfg.tie_word_embeddings:
+                self.lm_head = _dense(cfg, cfg.d_model, cfg.vocab_size, device)
+
+    def encode(self, input_ids=None, attention_mask=None, input_embeds=None,
+               extra_encoder_states=None, extra_attention_mask=None):
+        """(encoder states, their mask): the encoder over the text, with
+        ``extra_encoder_states`` (B, S, D) and their mask (ones unless
+        given) placed BEFORE the text's states."""
+        if input_embeds is None:
+            input_embeds = F.embedding(input_ids.long(), self.shared.embedding)
+        mask = attention_mask
+        if mask is not None:
+            mask = mask.to(torch.int32)
+        states = self.encoder(input_embeds, mask=mask)
+        if mask is None:
+            mask = torch.ones(states.shape[:2], dtype=torch.int32,
+                              device=states.device)
+        if extra_encoder_states is not None:
+            extra = extra_encoder_states.to(states.dtype)
+            if extra_attention_mask is None:
+                extra_attention_mask = torch.ones(
+                    extra.shape[:2], dtype=torch.int32, device=extra.device)
+            states = torch.cat([extra, states], dim=1)
+            mask = torch.cat([extra_attention_mask.to(torch.int32), mask],
+                             dim=1)
+        return states, mask
 
     def decode_hidden(self, decoder_input_ids, encoder_states,
                       cross_mask=None, decoder_mask=None,
@@ -312,6 +369,17 @@ class T5ForConditionalGeneration(nn.Module):
         return self.logits(self.decode_hidden(
             decoder_input_ids, encoder_states, cross_mask, decoder_mask,
             decoder_segments, encoder_segments))
+
+    def forward(self, input_ids=None, attention_mask=None,
+                decoder_input_ids=None, input_embeds=None,
+                extra_encoder_states=None, extra_attention_mask=None,
+                decoder_mask=None):
+        """The full seq2seq pass: ``encode``, then the decoder's logits."""
+        states, mask = self.encode(input_ids, attention_mask, input_embeds,
+                                   extra_encoder_states, extra_attention_mask)
+        return self.decode_with_encoder_states(
+            decoder_input_ids, states, cross_mask=mask,
+            decoder_mask=decoder_mask)
 
 
 def fuse_t5_params(params):

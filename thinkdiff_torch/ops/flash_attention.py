@@ -40,7 +40,7 @@ import torch
 from thinkdiff_torch import kernels
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (64, 80, 128)
+KERNEL_HEAD_DIMS = (64, 80, 88, 128)
 BACKWARD_HEAD_DIMS = (64, 128)
 
 
@@ -201,14 +201,14 @@ def flash_fwd_tiles(tq: int, d: int, bias: Optional[str] = None,
                     kv_mask: bool = False, segments: bool = False) -> tuple:
     """(block_q, block_k, stages) of the forward kernel for a call, from its
     shapes alone: 128 query rows (two consumer warpgroups), 192 (three) for
-    the vision tower's D = 80 past 128 rows, and 64 where the call has at
-    most 64 rows (T5's greedy decode, Tq <= 32); 128 keys a
-    tile at D = 64, else 64 (D = 128: the registers; D = 80: measured
-    faster on an H100, see PERF.md); as deep a
+    the vision towers' D = 80 and 88 past 128 rows, and 64 where the call
+    has at most 64 rows (T5's greedy decode, Tq <= 32); 128 keys a
+    tile at D = 64, else 64 (D = 128: the registers; D = 80 and 88:
+    measured faster on an H100, see PERF.md); as deep a
     ring of k/v stages as fits in shared memory, 2 to 8 (the copies run
     that far ahead of the math). ``bias`` is None, "row" (no query axis)
     or "tile"."""
-    block_q = 64 if tq <= 64 else 192 if d == 80 and tq > 128 else 128
+    block_q = 64 if tq <= 64 else 192 if d in (80, 88) and tq > 128 else 128
     block_k = 128 if d == 64 else 64
     stages = max([2] + [s for s in range(3, MAX_STAGES + 1) if flash_fwd_smem(
         d, block_q, block_k, s, bias, kv_mask, segments) <= SMEM_LIMIT])

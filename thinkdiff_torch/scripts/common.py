@@ -36,6 +36,7 @@ def bootstrap(args):
     import thinkdiff_torch.data.builders  # noqa: F401
     import thinkdiff_torch.data.processors  # noqa: F401
     import thinkdiff_torch.engines.embed_engine  # noqa: F401
+    import thinkdiff_torch.models.aligner_clip  # noqa: F401
     import thinkdiff_torch.models.aligner_lvlm  # noqa: F401
     import thinkdiff_torch.runners  # noqa: F401
     from thinkdiff_torch import resolve_device
