@@ -45,7 +45,10 @@ non-zero:
                 at BLIP-2's ViT-g (B1 and B32, H16 T257 D88, projection
                 views, cold L2, one launch a call) and at the flan-t5-xxl
                 encoder (B32 H64 T128 D64, bidirectional relative bias +
-                kv_mask), RMSNorm at the encoder's 4096 rows of 4096;
+                kv_mask), RMSNorm at the encoder's 4096 rows of 4096; the
+                flash forward at CogVideoX-5b's joint attention (B1 H48 D64,
+                T17776 and T1576, against mha_reference two heads at a
+                time, planted faults, cold L2, one launch a call);
   4. train-w8a8 — the LVLM aligner's training step: configs/
                 train_thinkdiff_lvlm_ccsbu.yaml's model and run sections with
                 bench.py's overrides (w8a8 frozen flan-t5-xxl decoder at full
@@ -126,7 +129,37 @@ non-zero:
                 at T4161 with its planted faults; then the _flux_text CLI
                 over configs/test_thinkdiff_clip_two_images.yaml on two
                 images (T4226);
- 16. clip-train — thinkdiff_torch.train.main over
+ 16. lvlm-flux-clis — the six remaining LVLM FLUX CLIs' main() over the
+                LVLM inference YAML as written but for their inputs and 4
+                FLUX steps, on lvlm-flux's pipeline, the LVLM model rebuilt
+                as lvlm-text builds it and the CLIP model's flan-t5-xxl
+                encoder as the text embedder: the multi-image CLI (two
+                448x448 images, 1024²), the single-image exporter, the
+                replay CLI on its export with extra T5 text, the text-only
+                embed probe, the CoBSAT multi-image exporter (one case of
+                two images) and batch exporter (two cases in one batch),
+                and the replay of one array of each;
+                every run's launches against get_embed_launches +
+                flux_launches (+ the T5 encoder's), images and PNGs, exports
+                read back, the peak with all three models on the card;
+ 17. clip-video — ThinkDiff-CLIP into CogVideoX-5b from its CLI:
+                test_blip_vision_t5_decoder_cogvideo.main over
+                configs/test_thinkdiff_clip_video_text.yaml with what the
+                script reads and the YAML lacks (run.image_path one 448x448
+                JPEG, run.text_input the YAML's question, run.num_frames 13
+                latent frames): 49 frames of 480x720, 15 DDIM steps (the
+                YAML's 50 cut for time, VIDEO_STEPS) of two forwards (42
+                blocks x 3072, bf16, seeded N(0, 0.02)), the 3D
+                VAE tiled at (32, 48) latents (9 tiles); on clip-flux's CLIP
+                model, its T5 encoder as the text embedder: frames uint8
+                and not constant, latents finite, the video read back by
+                VideoReader, launches against cogvideo_launches, one
+                forward at T17776 (the 226-token budget) with every flash
+                call held against mha_heads and the velocity against the
+                plain forward, planted faults (a key tile skipped, the
+                112-row tails of keys and queries) failing that check, one
+                profiled denoise step, the VAE's seconds and the peak;
+ 18. clip-train — thinkdiff_torch.train.main over
                 configs/train_thinkdiff_clip.yaml as written (ViT-g,
                 flan-t5-xxl bf16 encoder 24 + decoder 24, batch 32,
                 max_txt_len 128) on 256 seeded 448x448 JPEGs with captions in
@@ -146,7 +179,8 @@ lines are a JSON object with per-kernel results (launches of #1-#3 and
 #5-#7 from the train-w8a8 timed passes, #4 from the paged slice, #8 from
 the gumbel slice, #9 from lvlm-text, #10-#12 from the ops phase; each
 kernel's launches in the cli phase's two stages, in lvlm-flux, clip-flux
-(the single-image CLI's path) and clip-train beside them) and
+(the single-image CLI's path), lvlm-flux-clis (the multi-image CLI's
+path), clip-video and clip-train beside them) and
 {"ok": true, "device": {...}}.
 """
 
@@ -546,24 +580,38 @@ def flux_flash_limit(ref: torch.Tensor) -> float:
     return FLUX_FLASH_REL * float(ref.float().abs().max())
 
 
-def flash_flux_faults(q, k, v, sm_scale, limit):
-    """Faults planted in the plain version at a FLUX joint shape: one
-    128-key tile skipped (keys 2048-2175) and, where T is no multiple of
-    128, the ragged tail dropped. Each must err beyond ``limit`` against
-    the sound plain version; returns {fault: max |err|}."""
+def mha_heads(q, k, v, *args, heads=2):
+    """``mha_reference`` (f32) over ``heads`` heads at a time, for unmasked
+    calls whose whole score tensor would not fit (CogVideoX-5b's B1 H48
+    T17776: 61 GB of f32 scores; two heads take 2.5 GB)."""
     from thinkdiff_torch.ops.flash_attention import mha_reference
 
+    return torch.cat([mha_reference(q[:, i:i + heads], k[:, i:i + heads],
+                                    v[:, i:i + heads], *args)
+                      for i in range(0, q.shape[1], heads)], dim=1)
+
+
+def flash_flux_faults(q, k, v, sm_scale, limit, plain=None):
+    """Faults planted in the plain version at a joint shape: one 128-key
+    tile skipped (keys 2048-2175, or the last whole tile where T is
+    shorter) and, where T is no multiple of 128, the ragged tail dropped.
+    Each must err beyond ``limit`` against the sound plain version
+    (``plain``, mha_reference by default); returns {fault: max |err|}."""
+    from thinkdiff_torch.ops.flash_attention import mha_reference
+
+    plain = plain or mha_reference
     t = k.shape[2]
-    ref = mha_reference(q, k, v, None, None, False, sm_scale).float()
-    keep = {"tile 16 skipped": torch.cat([torch.arange(2048),
-                                          torch.arange(2176, t)])}
+    ref = plain(q, k, v, None, None, False, sm_scale).float()
+    tile = min(16, t // 128 - 1)
+    keep = {f"tile {tile} skipped": torch.cat([
+        torch.arange(128 * tile), torch.arange(128 * tile + 128, t)])}
     if t % 128:
         keep["ragged tail dropped"] = torch.arange(t - t % 128)
     errs = {}
     for fault, idx in keep.items():
         idx = idx.to(k.device)
-        out = mha_reference(q, k[:, :, idx], v[:, :, idx], None, None, False,
-                            sm_scale)
+        out = plain(q, k[:, :, idx], v[:, :, idx], None, None, False,
+                    sm_scale)
         errs[fault] = float((out.float() - ref).abs().max())
         if not errs[fault] > limit:
             raise AssertionError(f"flash T{t}: the planted fault {fault!r} "
@@ -620,6 +668,48 @@ def kernels_flash_flux(results):
                 + f", each beyond the limit {limit:.3g}")
         expect_one_launch("kernels", label, run, "flash_fwd")
         del q, k, v
+
+
+def kernels_flash_cogvideo(results):
+    """The flash forward at CogVideoX-5b's joint attention (B1, 48 heads of
+    64, unmasked, scale 1/8) over 226 text + 13 x 30 x 45 video tokens
+    (T17776: 139 tiles of 128 rows, the last one 112) and over 226 + one
+    latent frame's 1,350 (T1576, a 40-row tail); q/k/v as the block hands
+    them over: head-transposed views of contiguous (B, T, H, D) tensors.
+    Held at FLUX_FLASH_REL * max|ref| (q and k of std 1 give logits of std
+    1, as FLUX's rows) against mha_reference two heads at a time
+    (``mha_heads``), the planted faults shown to fail that limit; SDPA as
+    the library call; cold L2; one device launch a call."""
+    import torch.nn.functional as F
+
+    from thinkdiff_torch.ops.flash_attention import flash_attention
+
+    h, d = 48, 64
+    for t in (17776, 1576):
+        label = f"cogvideox joint B1 H{h} T{t} D{d}"
+        q, k, v = (randn((1, t, h, d), s).transpose(1, 2)
+                   for s in (113, 114, 115))
+        run = lambda q=q, k=k, v=v: flash_attention(q, k, v, None, None,
+                                                    False, d ** -0.5)
+        plain = lambda q=q, k=k, v=v: mha_heads(q, k, v, None, None, False,
+                                                d ** -0.5)
+        limit = flux_flash_limit(plain())
+        results.append(check(
+            "flash_attention_fwd", label + " (views of contiguous (B, T, H, "
+            "D))", run, plain, lambda e, r, limit=limit: e <= limit,
+            f"{FLUX_FLASH_REL:g} * max|ref| = {limit:.3g} (P rounded to "
+            "bf16; bf16 output)", (nbytes(q, k, v, q), 4 * h * t * t * d,
+                                   "bf16"),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, scale=d ** -0.5), cold="flash_fwd"))
+        faults = flash_flux_faults(q, k, v, d ** -0.5, limit, mha_heads)
+        results[-1]["planted_fault_errs"] = faults
+        say("kernels", f"{label}: planted faults in the plain version err "
+            + ", ".join(f"{f} {e:.3g}" for f, e in faults.items())
+            + f", each beyond the limit {limit:.3g}")
+        expect_one_launch("kernels", label, run, "flash_fwd")
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def kernels_rmsnorm_flux(results):
@@ -2053,6 +2143,7 @@ def phase_kernels():
     kernels_s8_train(results)
     kernels_flash_flux(results["flash_attention_fwd"])
     kernels_flash_clip(results["flash_attention_fwd"])
+    kernels_flash_cogvideo(results["flash_attention_fwd"])
     kernels_rmsnorm(results["rmsnorm"])
     kernels_rmsnorm_train(results)
     kernels_rmsnorm_flux(results["rmsnorm"])
@@ -3034,29 +3125,22 @@ def phase_cli(base_cfg, cfg, params, yaml_step_ms):
     return stage1, stage2
 
 
-def phase_lvlm_text():
-    """configs/test_thinkdiff_lvlm_ccsbu_image_text.yaml with the frozen T5
-    in weight-only int8: MllamaT5EmbedDecoderWithEngine.generate over
-    LVLM_REQUESTS image requests (Qwen2-VL-7B, w8a8, 128 tokens each ->
-    hidden states -> projector 3584 -> 4096 -> greedy flan-t5-xxl decode of
-    32 steps per sample), then get_text on LVLM_TEXT_ONLY text-only raw
-    prompts."""
+def build_lvlm_model():
+    """The LVLM inference YAML's model with LVLM_OVERRIDES (Qwen2-VL-7B w8a8
+    from seeded weights, the stand-in tokenizer, the frozen flan-t5-xxl
+    decoder weight-only int8) on the card."""
     import copy
 
     import yaml
 
-    from thinkdiff_torch import kernels
     from thinkdiff_torch.engines.embed_engine import EmbedEngine, engine_kwargs
     from thinkdiff_torch.engines.standin_tokenizer import StandInTokenizer
     from thinkdiff_torch.models.aligner_lvlm import (
-        MllamaT5EmbedDecoderWithEngine, lvlm_text_launches)
+        MllamaT5EmbedDecoderWithEngine)
 
     model_cfg = copy.deepcopy(yaml.safe_load(LVLM_CONFIG.read_text())["model"])
     model_cfg.update(LVLM_OVERRIDES)
-    vcfg = model_cfg["vllm_config"]
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    cfg, params = load_7b_weights(vcfg)
+    cfg, params = load_7b_weights(model_cfg["vllm_config"])
     tok = StandInTokenizer()
     eos = [tok.eos_token_id, tok.convert_tokens_to_ids("<|im_end|>")]
     engine = EmbedEngine(cfg, params, tok, eos_ids=eos,
@@ -3065,6 +3149,24 @@ def phase_lvlm_text():
     model = MllamaT5EmbedDecoderWithEngine(model_cfg, seed=SEED,
                                            engine=engine)
     torch.cuda.synchronize()
+    return model
+
+
+def phase_lvlm_text():
+    """configs/test_thinkdiff_lvlm_ccsbu_image_text.yaml with the frozen T5
+    in weight-only int8: MllamaT5EmbedDecoderWithEngine.generate over
+    LVLM_REQUESTS image requests (Qwen2-VL-7B, w8a8, 128 tokens each ->
+    hidden states -> projector 3584 -> 4096 -> greedy flan-t5-xxl decode of
+    32 steps per sample), then get_text on LVLM_TEXT_ONLY text-only raw
+    prompts."""
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.models.aligner_lvlm import lvlm_text_launches
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_lvlm_model()
+    engine, cfg = model.engine, model.engine.cfg
+    vcfg = model.cfg["vllm_config"]
     t5c = model.t5_cfg
     say("lvlm-text", f"Qwen2-VL-7B ({cfg.num_layers} layers, hidden "
         f"{cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads}, vocab "
@@ -3706,7 +3808,7 @@ def phase_clip_flux(pipe):
     launches against clip_flux_launches, the ViT check, the FLUX velocity
     check at T4161 (65 tokens); then the _flux_text CLI once on two images
     (130 tokens, T4226). Returns (the single-image path's launches,
-    rates)."""
+    rates, the CLIP model: clip-video and lvlm-flux-clis run on it)."""
     import shutil
     from unittest import mock
 
@@ -3825,9 +3927,8 @@ def phase_clip_flux(pipe):
         f"{two_launches} = clip_flux_launches(images=2, CLIP-L pooled "
         "cached)")
     shutil.rmtree(CLIP_DIR)
-    del model
     return launches, {"wall_s": wall, "two_wall_s": two_wall,
-                      "peak_gib": peak, "vit_cos": vit_cos, "vel": vel}
+                      "peak_gib": peak, "vit_cos": vit_cos, "vel": vel}, model
 
 
 def _clip_two_layer_copy(model_cfg, seed):
@@ -4031,6 +4132,553 @@ def phase_clip_train():
                       "grad": grad}
 
 
+# ---------------------------------------------------------------------------
+# ThinkDiff-CLIP into a CogVideoX-5b video
+# ---------------------------------------------------------------------------
+
+VIDEO_DIR = Path(__file__).resolve().parent / "build" / "clip_video"
+CLIP_VIDEO_CONFIG = (Path(__file__).resolve().parent / "configs"
+                     / "test_thinkdiff_clip_video_text.yaml")
+# the video CLI reads run.num_frames as LATENT frames (the JAX script's
+# reading); 13 latent frames are the YAML's 49 output frames
+VIDEO_LATENT_FRAMES = 13
+# the YAML's 50 DDIM steps cut to 15, the one cut: a step takes 3.65 s on
+# an H100 (NVIDIA H100 80GB HBM3, 700 W; two forwards at T17623, #1 ~27 ms
+# a call, 84 calls, 62% of the step), and the script's phases read 625.0 s
+# with 25 steps on a slow host. Every step runs the same two forwards; the
+# launches count the steps run
+VIDEO_STEPS = 15
+# one CogVideoX-5b forward at full shape (T17776: the 65 vision tokens and
+# 161 text tokens of the 226-token budget, 13 x 30 x 45 video tokens)
+# through the flash forward against the same forward through mha_heads
+# (f32): the velocity cosine at least COG_VEL_COS_MIN, every call held on
+# its own inputs at FLUX_FLASH_REL * max|ref| and at COG_FLASH_FRO *
+# ||ref|| (the Frobenius norm of its error). The second is what sees a lost
+# key tile here: the model's v has a mean over the keys that a key's loss
+# barely moves, so max|err| stays a small part of max|ref|. Measured on
+# the card (NVIDIA H100 80GB HBM3, 700 W) on seeded weights, over the 42
+# calls: sound ||err|| / ||ref|| 5.6e-4-8.0e-4 (the bf16 output's rounding),
+# max|err| / max|ref| <= 0.0075, velocity cosine 0.999888; a key tile
+# skipped 2.0e-3-9.8e-3 (9.8e-3 at the first call), the keys' 112-row tail
+# cut 2.0e-3-9.6e-3, the queries' tail left zero 0.079, a uniform softmax
+# >= 0.075, cosines 0.999880 / 0.999881 / 0.99906 / 0.99659. The limits sit
+# near twice the sound readings (1.5e-3; 0.9995, 4x the sound distance
+# from 1, as FLUX_VEL_COS_MIN): every fault fails at its first call; no
+# cosine tells a lost tile or tail from sound rounding
+COG_VEL_COS_MIN = 0.9995
+COG_FLASH_FRO = 1.5e-3
+
+
+class _Caught(Exception):
+    """A planted fault's first call beyond its limit (ends that forward)."""
+
+
+def build_cogvideo(phase):
+    """CogVideoX-5b (42 blocks, hidden 3072, bf16) in a CogVideoXSampler and
+    its VAE decoder (bf16) on the card from seeded random weights (FLUX's
+    initializer: kernels N(0, 0.02), biases 0, LayerNorm and GroupNorm
+    scales 1)."""
+    from thinkdiff_torch.models.cogvideox import (
+        CogVideoXConfig, CogVideoXSampler, CogVideoXTransformer)
+    from thinkdiff_torch.models.cogvideox_vae import (
+        CogVideoXVAEConfig, CogVideoXVAEDecoder)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    cfg = CogVideoXConfig.cogvideox_5b()
+    transformer = CogVideoXTransformer(cfg, device="cuda")
+    init_random_(transformer, gen)
+    vcfg = CogVideoXVAEConfig.cogvideox_5b()
+    decoder = CogVideoXVAEDecoder(vcfg, device="cuda")
+    init_random_(decoder, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in transformer.parameters())
+    say(phase, f"CogVideoX-5b ({cfg.num_layers} blocks, hidden "
+        f"{cfg.hidden_size}, {cfg.num_heads} heads of {cfg.head_dim}, "
+        f"{n_params / 1e9:.2f} B params, bf16) and its 3D VAE decoder "
+        f"(channels {tuple(reversed(vcfg.block_out_channels))}, bf16) from "
+        f"seeded random weights (std {FLUX_INIT_STD}) in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB in all")
+    return CogVideoXSampler(cfg, transformer), decoder
+
+
+def cogvideo_forward(sampler, cond, latents, timestep, attention):
+    """One transformer forward at full shape with ``attention`` in place of
+    the flash forward at its call site in models/cogvideox.py: the f32
+    velocity."""
+    from unittest import mock
+
+    from thinkdiff_torch.models import cogvideox as cog_mod
+
+    ts = torch.full((latents.shape[0],), timestep, dtype=torch.int32,
+                    device=latents.device)
+    with torch.no_grad(), \
+            mock.patch.object(cog_mod, "flash_attention", attention):
+        out = sampler.transformer(latents, cond, ts).float()
+    if not torch.isfinite(out).all():
+        raise AssertionError("cogvideox forward: non-finite velocity")
+    return out
+
+
+def cogvideo_velocity_check(sampler, cond, latents, timestep,
+                            phase="clip-video"):
+    """The CogVideoX forward through the kernel against its plain version
+    (mha_heads): the velocity cosine, and every flash call held against
+    mha_heads on its own inputs at FLUX_FLASH_REL * max|ref| and
+    COG_FLASH_FRO * ||ref|| (``ratio``: the larger error over its limit,
+    at most 1). Then planted faults in place of the kernel: a key tile
+    skipped (keys 2048-2175), the keys' ragged tail cut to a multiple of
+    128, and the queries' ragged tail left zero; each must fail the
+    per-call check (the forward ends at its first failing call). Returns
+    {run: ...}."""
+    from thinkdiff_torch.ops.flash_attention import flash_attention
+
+    t = cond.shape[1] + latents.shape[1] * latents.shape[2] \
+        * latents.shape[3] // 4
+    cut = t - t % 128
+    skip = torch.cat([torch.arange(2048), torch.arange(2176, t)]).cuda()
+
+    def query_tail_zero(q, k, v, *a):
+        o = flash_attention(q, k, v, *a)
+        o[:, :, cut:] = 0
+        return o
+
+    t0 = time.perf_counter()
+    want = cogvideo_forward(sampler, cond, latents, timestep, mha_heads)
+    plain_s = time.perf_counter() - t0
+    runs = {"sound": flash_attention,
+            "key tile 16 skipped": lambda q, k, v, *a: flash_attention(
+                q, k[:, :, skip], v[:, :, skip], *a),
+            f"keys' {t - cut}-row tail cut": lambda q, k, v, *a:
+                flash_attention(q, k[:, :, :cut], v[:, :, :cut], *a),
+            f"queries' {t - cut}-row tail left zero": query_tail_zero}
+    out = {}
+    for run, attention in runs.items():
+        worst = {"calls": 0, "ratio": 0.0, "fro": 0.0}
+
+        def checked(q, k, v, *a, attention=attention, run=run):
+            o = attention(q, k, v, *a)
+            ref = mha_heads(q, k, v, *a).float()
+            err = o.float() - ref
+            worst["calls"] += 1
+            worst["fro"] = max(worst["fro"], float(err.norm() / ref.norm()))
+            worst["ratio"] = max(worst["ratio"], float(
+                err.abs().max()) / flux_flash_limit(ref),
+                worst["fro"] / COG_FLASH_FRO)
+            if run != "sound" and worst["ratio"] > 1.0:
+                raise _Caught()
+            return o
+
+        try:
+            got = cogvideo_forward(sampler, cond, latents, timestep, checked)
+            out[run] = {"cos": cosine(got, want), **worst}
+            say(phase, f"velocity at joint length {t} (B1 H48 D64), {run}: "
+                f"cosine {out[run]['cos']:.6f} against the plain forward "
+                f"(limit {COG_VEL_COS_MIN}; the plain forward "
+                f"{plain_s:.1f} s); {worst['calls']} flash calls, the worst "
+                f"at {worst['ratio']:.3g} of its limits (||err|| / ||ref|| "
+                f"{worst['fro']:.3g}, limit {COG_FLASH_FRO})")
+        except _Caught:
+            out[run] = {"cos": None, **worst}
+            say(phase, f"velocity at joint length {t}, planted fault {run}: "
+                f"caught by the per-call check at call {worst['calls']} "
+                f"({worst['ratio']:.3g} of its limits, ||err|| / ||ref|| "
+                f"{worst['fro']:.3g})")
+        if run == "sound" and (worst["ratio"] > 1.0 or worst["calls"]
+                               != sampler.cfg.num_layers
+                               or not out[run]["cos"] >= COG_VEL_COS_MIN):
+            raise AssertionError(f"{phase}: velocity check failed {out}")
+        if run != "sound" and out[run]["cos"] is not None:
+            raise AssertionError(f"{phase}: the planted fault {run!r} passes "
+                                 f"the per-call check {out[run]}")
+    return out
+
+
+def profile_cogvideo_step(sampler, cond, latents):
+    """One DDIM step at full shape (two transformer forwards, cond and
+    uncond, and the f32 update) under torch.profiler: wall time, device-busy
+    share and the kernels that take the time."""
+    from torch.autograd import DeviceType
+    from torch.utils.flop_counter import FlopCounterMode
+
+    step = lambda: sampler.denoise(latents, cond, 1, 6.0)
+    with FlopCounterMode(display=False) as fc:
+        step()
+    torch.cuda.synchronize()
+    proj_flops = fc.get_total_flops()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3
+    cfg = sampler.cfg
+    t = cond.shape[1] + latents[0].numel() // cfg.in_channels // 4
+    say("profile", f"CogVideoX-5b denoise step (cond + uncond), joint length "
+        f"{t}: {wall_ms:.1f} ms unprofiled; device kernel time "
+        + (f"{busy_ms:.1f} ms, busy {busy_ms / wall_ms:.0%}" if by_name
+           else "not measured (no device events in the trace)"))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say("profile", f"  {us / 1e3:.3f} ms/step  {name[:100]}")
+    say_total(by_name, "flash_fwd", "the flash forward (#1)", 1)
+    say_total(by_name, "nvjet", "cuBLAS (the projections)", 1)
+    say_total(by_name, "elementwise", "PyTorch's elementwise kernels", 1)
+    say_total(by_name, "copy", "PyTorch's copies", 1)
+    say_total(by_name, "reduce", "PyTorch's reductions (LayerNorm)", 1)
+    attn_flops = 2 * cfg.num_layers * 4 * cfg.num_heads * t * t * cfg.head_dim
+    say("profile", f"  the step's work: projections {proj_flops / 1e12:.2f} "
+        f"TFLOP (torch.utils.flop_counter), "
+        f"{bound_ms(0, proj_flops, 'bf16')[0]:.1f} ms at the bf16 peak; joint "
+        f"attention {attn_flops / 1e12:.2f} TFLOP, "
+        f"{bound_ms(0, attn_flops, 'bf16')[0]:.1f} ms")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "flash_ms": sum(v for k, v in by_name.items()
+                            if "flash_fwd" in k) / 1e3}
+
+
+def _video_read_back(path, frames):
+    """The video at ``path`` through the port's VideoReader against the
+    uint8 frames (T, H, W, 3): (container, frames read, mean and max |diff|
+    in levels)."""
+    from thinkdiff_torch.data.video_io import VideoReader
+
+    reader = VideoReader(str(path))
+    back = reader.get_batch(range(len(reader))).astype(np.int32)
+    if back.shape != frames.shape:
+        raise AssertionError(f"clip-video: read back {back.shape} against "
+                             f"{frames.shape}")
+    diff = np.abs(back - frames.astype(np.int32))
+    return Path(path).suffix, len(reader), float(diff.mean()), int(diff.max())
+
+
+# the video read back through VideoReader against the frames written: mean
+# |diff| in levels at most this. On the card the CLI's mp4 goes through
+# cv2's MPEG-4 Part 2 encoder (lossy): measured 6.61 levels mean (max 126)
+# on the random-weight frames (std 16.9; NVIDIA H100 80GB HBM3, 700 W); an
+# AVI (no encoder) is MJPEG at quality 92, closer. Frames read back in the
+# wrong order or from another video differ by ~19 levels (two frames of
+# that std)
+VIDEO_READ_MEAN_MAX = 10.0
+
+
+def phase_clip_video(model):
+    """ThinkDiff-CLIP into a CogVideoX-5b video from its CLI on seeded
+    random weights: test_blip_vision_t5_decoder_cogvideo.main over
+    configs/test_thinkdiff_clip_video_text.yaml as written but for what the
+    script reads and the YAML lacks (run.image_path: one 448x448 JPEG;
+    run.text_input: the YAML's question; run.num_frames: 13 latent frames),
+    so 49 frames of 480x720, guidance 6, seed 42, with num_inference_steps
+    cut from 50 to VIDEO_STEPS (the time budget); ``model`` (the
+    CLIP model of clip-flux: ViT-g + flan-t5-xxl) injected where
+    build_model would read files, its T5 encoder as the text embedder (the
+    flan-t5 stand-in tokenizer), CogVideoX-5b and its VAE from seeded
+    weights in place of the checkpoint. The frames, the latents, the video
+    read back, the launches against cogvideo_launches, the velocity check
+    at T17776 with its planted faults, one profiled step."""
+    import shutil
+    from unittest import mock
+
+    import yaml
+
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.engines import pipeline as pipeline_mod
+    from thinkdiff_torch.models import cogvideox_vae as vae_mod
+    from thinkdiff_torch.models.aligner_clip import cogvideo_launches
+    from thinkdiff_torch.scripts import (
+        test_blip_vision_t5_decoder_cogvideo as script)
+    from thinkdiff_torch.tasks import base_task
+
+    run = yaml.safe_load(CLIP_VIDEO_CONFIG.read_text())["run"]
+    steps, seed = VIDEO_STEPS, int(run["seed"])
+    hgt, wdt = int(run["video_height"]), int(run["video_width"])
+    torch.cuda.reset_peak_memory_stats()
+    sampler, decoder = build_cogvideo("clip-video")
+    embedder = pipeline_mod.T5TextEmbedder(model.frozen["t5"],
+                                           clip_t5_tokenizer())
+    VIDEO_DIR.mkdir(parents=True, exist_ok=True)
+    image = VIDEO_DIR / "animal.jpg"
+    requests(1, SEED + 17)[0][0].save(image)
+    seen, times = {}, {}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t
+            seen[name] = (a, out)
+            return out
+        return wrapper
+
+    sampler.denoise = timed("denoise", sampler.denoise)
+    decode = timed("decode", vae_mod.decode_latents)
+    with mock.patch.object(base_task.BaseTask, "build_model",
+                           lambda self, cfg: model), \
+            mock.patch.object(pipeline_mod.T5TextEmbedder, "from_pretrained",
+                              classmethod(lambda cls, *a, **k: embedder)), \
+            mock.patch.object(script, "load_cogvideo",
+                              lambda path, device: (sampler, decoder)), \
+            mock.patch.object(vae_mod, "decode_latents", decode):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = script.main([
+            "--cfg-path", str(CLIP_VIDEO_CONFIG), "--options",
+            f"run.image_path={image}", f"run.text_input={run['questions'][0]}",
+            f"run.num_frames={VIDEO_LATENT_FRAMES}",
+            f"run.num_inference_steps={steps}",
+            f"run.output_dir={VIDEO_DIR / 'out'}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    del sampler.denoise
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (lat0, cond), lat = seen["denoise"][0][:2], seen["denoise"][1]
+    frames = seen["decode"][1][0].cpu().numpy()
+    n_out = (VIDEO_LATENT_FRAMES - 1) * 4 + 1
+    if tuple(frames.shape) != (n_out, hgt, wdt, 3) or frames.dtype != np.uint8 \
+            or frames.std() == 0:
+        raise AssertionError(f"clip-video: frames {frames.shape} "
+                             f"{frames.dtype} or constant")
+    if not torch.isfinite(lat).all():
+        raise AssertionError("clip-video: non-finite final latents")
+    n_txt = cond.shape[1] - script.VISION_TOKEN_BUDGET
+    if not (cond.shape[0] == 1 and 1 <= n_txt <= 161):
+        raise AssertionError(f"clip-video: condition {tuple(cond.shape)}")
+    want = cogvideo_launches(model, model.t5_cfg, sampler.cfg, steps)
+    if launches != {k: want.get(k, 0) for k in launches}:
+        raise AssertionError(f"clip-video: launches {launches} != "
+                             f"cogvideo_launches {want}")
+    kind, n_read, mean_diff, max_diff = _video_read_back(path, frames)
+    if n_read != n_out or not mean_diff <= VIDEO_READ_MEAN_MAX:
+        raise AssertionError(f"clip-video: {path} read back {n_read} frames, "
+                             f"mean |diff| {mean_diff}")
+    t_joint = cond.shape[1] + lat[0].numel() // sampler.cfg.in_channels // 4
+    say("clip-video", f"test_blip_vision_t5_decoder_cogvideo.main over the "
+        f"video YAML (run.num_frames={VIDEO_LATENT_FRAMES} latent frames): one "
+        f"448x448 JPEG -> ViT-g -> pool -> projector -> "
+        f"{script.VISION_TOKEN_BUDGET} tokens + {n_txt} T5 text tokens = "
+        f"{tuple(cond.shape)} (joint T{t_joint}), latents "
+        f"{tuple(lat.shape)}, {steps} steps (the YAML's "
+        f"{run['num_inference_steps']} cut, VIDEO_STEPS), guidance "
+        f"{run['guidance_scale']}, seed {seed}: {wall:.2f} s for the video; "
+        f"denoise {times['denoise']:.2f} s "
+        f"({times['denoise'] / steps * 1e3:.1f} ms a step), VAE decode "
+        f"{times['decode']:.2f} s ({len(frames)} frames of {hgt}x{wdt}); "
+        f"frames mean {frames.mean():.2f} std {frames.std():.2f}; final "
+        f"latents |max| {float(lat.abs().max()):.3f}; peak {peak:.2f} GiB")
+    say("clip-video", f"{Path(path).name}: {kind} container, {n_read} frames "
+        f"read back by VideoReader, mean |diff| {mean_diff:.3f} levels (limit "
+        f"{VIDEO_READ_MEAN_MAX}), max {max_diff}; launches {launches} = "
+        "cogvideo_launches")
+    # the full 226-token budget: the path's vision tokens and 161 text tokens
+    long_text = " ".join([run["questions"][0]] * 40)
+    full = torch.cat([cond[0, :script.VISION_TOKEN_BUDGET].float(),
+                      embedder(long_text, max_len=161)[0]], 0)[None]
+    vel = cogvideo_velocity_check(sampler, full, lat0, 999)
+    prof = profile_cogvideo_step(sampler, cond, lat0)
+    shutil.rmtree(VIDEO_DIR)
+    del sampler, decoder
+    return launches, {"wall_s": wall, "denoise_s": times["denoise"],
+                      "ms_per_step": times["denoise"] / steps * 1e3,
+                      "vae_s": times["decode"], "peak_gib": peak,
+                      "read_mean_diff": mean_diff, "vel": vel, **prof}
+
+
+# ---------------------------------------------------------------------------
+# The six remaining LVLM FLUX CLIs
+# ---------------------------------------------------------------------------
+
+CLIS_DIR = Path(__file__).resolve().parent / "build" / "lvlm_flux_clis"
+# each FLUX CLI samples 4 steps (the 28-step path is timed in lvlm-flux)
+CLIS_FLUX_STEPS = 4
+
+
+def phase_lvlm_flux_clis(pipe, clip_model):
+    """The six remaining LVLM FLUX CLIs' main() over the LVLM inference YAML
+    as written but for what each reads and the YAML lacks (its image,
+    prompt, case or export paths) and num_inference_steps 4: the
+    multi-image CLI (two 448x448 images), the single-image exporter, the
+    replay CLI on that export with extra T5 text, the text-only embed probe,
+    the CoBSAT multi-image exporter (one case of two images) and its batch
+    exporter (two cases, one batch), and the replay CLI on one array of
+    each CoBSAT export. The LVLM model (Qwen2-VL-7B w8a8, flan-t5-xxl int8,
+    as lvlm-text builds it) and ``pipe`` (lvlm-flux's FLUX.1-dev, CLIP-L,
+    VAE) are injected where build_model and from_pretrained would read
+    files; the text embedder is ``clip_model``'s flan-t5-xxl encoder.
+    Each run's launches (counts set to 0 before it) against
+    get_embed_launches + flux_launches (+ the T5 encoder's for the extra
+    text); images finite, in [0, 1], not constant, their PNGs read back
+    equal; exports read back. Returns (the multi-image CLI's launches,
+    rates)."""
+    import importlib
+    import json as _json
+    import shutil
+    from collections import Counter
+    from unittest import mock
+
+    import yaml
+
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.engines import pipeline as pipeline_mod
+    from thinkdiff_torch.models.aligner_lvlm import (
+        flux_launches, get_embed_launches)
+    from thinkdiff_torch.tasks import base_task
+
+    run = yaml.safe_load(LVLM_CONFIG.read_text())["run"]
+    hgt, wdt = int(run["image_height"]), int(run["image_width"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_lvlm_model()
+    say("lvlm-flux-clis", f"the LVLM model (Qwen2-VL-7B w8a8, flan-t5-xxl "
+        f"int8) rebuilt in {time.perf_counter() - t0:.1f} s beside FLUX and "
+        f"the CLIP model: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    embedder = pipeline_mod.T5TextEmbedder(clip_model.frozen["t5"],
+                                           clip_t5_tokenizer())
+    CLIS_DIR.mkdir(parents=True, exist_ok=True)
+    images, _ = requests(4, SEED + 18)
+    paths = []
+    for i, im in enumerate(images):
+        paths.append(CLIS_DIR / f"img{i}.jpg")
+        im.save(paths[-1])
+    # two CoBSAT cases of two images: both for the batch exporter (one
+    # batch), the first alone for the multi-image exporter
+    cases, one_case = CLIS_DIR / "cases", CLIS_DIR / "one_case"
+    for d in (cases, one_case):
+        d.mkdir()
+    for i in range(2):
+        spec = _json.dumps({
+            "text_inputs": [f"red apple{i}", f"blue ball{i}"],
+            "image_inputs": [str(paths[2 * i]), str(paths[2 * i + 1])]})
+        for d in (cases, one_case)[:2 - i]:
+            (d / f"case{i}.json").write_text(spec)
+    seen = {"gen": [], "images": []}
+    get_embed, generate = model.get_embed, pipe.generate
+
+    def recorded_embed(*a, **kw):
+        out = get_embed(*a, **kw)
+        seen["gen"].append(out[1])
+        return out
+
+    def recorded_generate(*a, **kw):
+        seen["images"].append(generate(*a, **kw))
+        return seen["images"][-1]
+
+    t5 = clip_model.t5_cfg
+    t5_launches = {"flash_attention_fwd": t5.num_layers,
+                   "rmsnorm": 2 * t5.num_layers + 1}
+    max_tokens = int(run["max_new_tokens"])
+    flux_cfg = pipe.sampler.cfg
+    out, rates = {}, {}
+    steps = [f"run.num_inference_steps={CLIS_FLUX_STEPS}"]
+    plan = [
+        ("multi_image", steps + [f"run.image_paths=[{paths[0]}, {paths[1]}]",
+                                 "run.text_inputs=[red, blue]"]),
+        ("embed", [f"run.image_path={paths[2]}",
+                   "run.text_input=describe this picture"]),
+        ("multi_image_input", steps + [
+            f"run.embed_path={CLIS_DIR / 'embed' / 'img2.npy'}",
+            "run.extra_text_input=in the style of a watercolour"]),
+        ("multi_image_input_embed", steps + [
+            "run.prompts=[a red apple on a wooden table]"]),
+        ("embed_multi_image", [f"run.image_folder={one_case}",
+                               "run.prompt=Look at the pictures. "]),
+        ("embed_multi_image_batch", [f"run.cobsat_json_dir={cases}"]),
+        ("multi_image_input", steps + [
+            f"run.embed_path={CLIS_DIR / 'embed_multi_image' / 'case0.pth'}"]),
+        ("multi_image_input", steps + [
+            f"run.embed_path={CLIS_DIR / 'embed_multi_image_batch' / 'case1.npy'}"]),
+    ]
+    with mock.patch.object(base_task.BaseTask, "build_model",
+                           lambda self, cfg: model), \
+            mock.patch.object(pipeline_mod.ThinkDiffPipeline, "from_pretrained",
+                              classmethod(lambda cls, *a, **k: pipe)), \
+            mock.patch.object(pipeline_mod.T5TextEmbedder, "from_pretrained",
+                              classmethod(lambda cls, *a, **k: embedder)), \
+            mock.patch.object(model, "get_embed", recorded_embed), \
+            mock.patch.object(pipe, "generate", recorded_generate):
+        for name, options in plan:
+            cli = importlib.import_module(
+                f"thinkdiff_torch.scripts.test_mllama_t5_decoder_flux_{name}")
+            seen["gen"].clear()
+            seen["images"].clear()
+            cached = ("", 1) in pipe._pooled_cache
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            result = cli.main(["--cfg-path", str(LVLM_CONFIG), "--options",
+                               *options, f"run.output_dir={CLIS_DIR / name}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = kernels.launch_counts()
+            want = Counter()
+            for gen in seen["gen"]:  # the text-only probe has no vision pass
+                want.update(get_embed_launches(
+                    model, [len(p) for p in gen.prompt_token_ids], max_tokens,
+                    0 if name == "multi_image_input_embed" else 1))
+            if seen["images"]:
+                want.update(flux_launches(
+                    flux_cfg, CLIS_FLUX_STEPS,
+                    0 if cached else pipe.clip_encoder.cfg.num_layers))
+            if any("extra_text_input" in o for o in options):
+                want.update(t5_launches)
+            if launches != {k: want.get(k, 0) for k in launches}:
+                raise AssertionError(f"lvlm-flux-clis {name}: launches "
+                                     f"{launches} != {want}")
+            note = ""
+            for img in seen["images"]:
+                x = img.float()
+                if tuple(img.shape) != (1, hgt, wdt, 3) or not (
+                        torch.isfinite(x).all() and float(x.min()) >= 0.0
+                        and float(x.max()) <= 1.0 and float(x.std()) > 0.0):
+                    raise AssertionError(f"lvlm-flux-clis {name}: image "
+                                         f"{tuple(img.shape)} not finite, "
+                                         "outside [0, 1] or constant")
+            pngs = ([result] if isinstance(result, str) else result) \
+                if seen["images"] else []
+            for png, img in zip(pngs, seen["images"]):
+                _png_check("lvlm-flux-clis", png, img)
+                note = f"{Path(png).name} {hgt}x{wdt} read back equal"
+            if name.startswith("embed"):
+                files = [result] if isinstance(result, str) else result
+                for f in files:
+                    arr = (np.load(f) if f.endswith(".npy") else
+                           torch.load(f, weights_only=True).numpy())
+                    if not (arr.dtype == np.float32 and arr.ndim == 2
+                            and arr.shape[1] == model.t5_cfg.d_model
+                            and np.isfinite(arr).all()):
+                        raise AssertionError(f"lvlm-flux-clis {name}: "
+                                             f"export {f} {arr.shape}")
+                note = (f"{len(files)} exports ("
+                        + ", ".join(Path(f).name for f in files)
+                        + f", {arr.shape} f32) read back")
+            key = name if name not in out else f"{name} ({Path(options[-1]).name})"
+            out[key] = launches
+            rates[key] = wall
+            say("lvlm-flux-clis", f"test_mllama_t5_decoder_flux_{name}.main "
+                f"({', '.join(o.split('=')[0] for o in options)}): "
+                f"{wall:.2f} s; {len(seen['gen'])} get_embed call(s), "
+                f"{len(seen['images'])} FLUX image(s) of {CLIS_FLUX_STEPS} "
+                f"steps; {note}; launches {launches} = derived")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("lvlm-flux-clis", f"six CLIs, {len(plan)} runs in "
+        f"{sum(rates.values()):.2f} s; peak {peak:.2f} GiB with the LVLM "
+        "model, FLUX and the CLIP model on the card")
+    shutil.rmtree(CLIS_DIR)
+    del model
+    return out["multi_image"], {"walls": rates, "peak_gib": peak}
+
+
 def phase_dense_int8(base_cfg, params):
     """The dense slice with ``quantization: int8``: the 2B LM weight-only
     (the same seeded int8 weights without the w8a8 input scales), so every
@@ -4220,8 +4868,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     flux, flux_rates, pipe = phase_lvlm_flux(embeds, embed_launches)
-    clip_flux, clip_flux_rates = phase_clip_flux(pipe)
+    clip_flux, clip_flux_rates, clip_model = phase_clip_flux(pipe)
+    clis, clis_rates = phase_lvlm_flux_clis(pipe, clip_model)
     del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    clip_video, video_rates = phase_clip_video(clip_model)
+    del clip_model
     gc.collect()
     torch.cuda.empty_cache()
     clip_train, clip_train_rates = phase_clip_train()
@@ -4239,7 +4892,15 @@ def main() -> int:
         f"step, VAE {flux_rates['vae_s']:.2f} s, peak "
         f"{flux_rates['peak_gib']:.2f} GiB; clip-flux "
         f"{clip_flux_rates['wall_s']:.2f} s for a 1024² image from one "
-        f"image, {clip_flux_rates['two_wall_s']:.2f} s from two; clip-train "
+        f"image, {clip_flux_rates['two_wall_s']:.2f} s from two; "
+        f"lvlm-flux-clis {sum(clis_rates['walls'].values()):.2f} s for "
+        f"{len(clis_rates['walls'])} runs of the six CLIs, peak "
+        f"{clis_rates['peak_gib']:.2f} GiB; clip-video "
+        f"{video_rates['wall_s']:.2f} s a 49-frame 480x720 video, "
+        f"{video_rates['ms_per_step']:.1f} ms a denoise step (busy "
+        f"{video_rates['busy_ms'] / video_rates['wall_ms']:.0%}), VAE "
+        f"{video_rates['vae_s']:.2f} s, peak {video_rates['peak_gib']:.2f} "
+        f"GiB; clip-train "
         f"{clip_train_rates['step_ms']:.0f} ms a step, peak "
         f"{clip_train_rates['peak_gib']:.2f} GiB")
     report = []
@@ -4262,6 +4923,8 @@ def main() -> int:
             "lvlm_flux_launches": flux[kname],
             "lvlm_flux_get_embed_launches": embed_launches[kname],
             "clip_flux_launches": clip_flux[kname],
+            "clip_video_launches": clip_video[kname],
+            "lvlm_flux_clis_launches": clis[kname],
             "clip_train_launches": clip_train[kname],
             "timed_shape": main_row["shape"],
             "shapes": [{k: v for k, v in r.items() if k != "main"}

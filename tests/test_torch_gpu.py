@@ -95,6 +95,16 @@ FLASH_CASES = {
                              kv_mask=True),
     "d88_causal_t130": dict(b=1, hq=4, hkv=4, tq=130, tk=130, d=88,
                             causal=True),
+    # CogVideoX-5b's joint attention at D64, q/k/v views of contiguous
+    # (B, T, H, D) tensors: 226 text tokens + one latent frame's 1,350
+    # (T1576, a 40-row tail) at its 48 heads, and the 49-frame length
+    # (T17776, a 112-row tail) at two heads (the full 48:
+    # test_cogvideox_joint_attention_full_shape)
+    "cogvideox_joint_t1576_d64": dict(b=1, hq=48, hkv=48, tq=1576, tk=1576,
+                                      d=64, projection=True, scaled=True),
+    "cogvideox_joint_t17776_d64_h2": dict(b=1, hq=2, hkv=2, tq=17776,
+                                          tk=17776, d=64, projection=True,
+                                          scaled=True),
 }
 
 
@@ -201,6 +211,30 @@ def test_flux_flash_limit_rejects_planted_faults(cuda, t):
         keep = keep.to(cuda)
         out = mha_reference(q, k[:, :, keep], v[:, :, keep]).float()
         assert float((out - ref).abs().max()) > limit
+
+
+def test_cogvideox_joint_attention_full_shape(cuda):
+    """B1 H48 T17776 D64 as the CogVideoX block hands it over: one launch,
+    within FLUX_FLASH_REL * max|ref| of mha_reference taken two heads at a
+    time (the whole f32 score tensor would take 61 GB), and that limit
+    rejects a skipped 128-key tile and the dropped 112-key tail."""
+    t, h = 17776, 48
+    q, k, v = _flash_inputs(cuda, 1, h, h, t, t, 64, False, projection=True)
+    plain = lambda q, k, v: torch.cat([mha_reference(
+        q[:, i:i + 2], k[:, i:i + 2], v[:, i:i + 2]) for i in range(0, h, 2)],
+        dim=1).float()
+    before = kernels.launch_counts()["flash_attention_fwd"]
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_fwd"] == before + 1
+    ref = plain(q, k, v)
+    limit = FLUX_FLASH_REL * float(ref.abs().max())
+    assert float((out.float() - ref).abs().max()) <= limit
+    for keep in (torch.cat([torch.arange(2048), torch.arange(2176, t)]),
+                 torch.arange(t - t % 128)):
+        keep = keep.to(cuda)
+        bad = plain(q, k[:, :, keep], v[:, :, keep])
+        assert float((bad - ref).abs().max()) > limit
 
 
 def test_flash_attention_all_masked_rows(cuda):

@@ -170,3 +170,19 @@ def clip_flux_launches(model: BlipVisionT5Decoder, flux_cfg, steps: int,
     out["rmsnorm"] += images * int(getattr(model.projector, "use_t5_norm",
                                            False))
     return out
+
+
+def cogvideo_launches(model: BlipVisionT5Decoder, text_cfg, video_cfg,
+                      steps: int) -> Dict[str, int]:
+    """Flash forward and RMSNorm launches of ThinkDiff-CLIP inference into
+    CogVideoX: one ViT forward (a flash forward a block) and the projector
+    (its trailing t5_norm one RMSNorm), the text embedder's T5 encoder
+    ``text_cfg`` (a flash forward and two RMSNorms a block, and its final
+    norm), then ``steps`` DDIM steps of two transformer forwards (cond and
+    uncond), each a flash forward a block; CogVideoX's q/k norms are
+    LayerNorms, plain PyTorch."""
+    vit = model.vit_cfg.num_layers
+    return {"flash_attention_fwd": (vit + text_cfg.num_layers
+                                    + 2 * video_cfg.num_layers * steps),
+            "rmsnorm": (int(getattr(model.projector, "use_t5_norm", False))
+                        + 2 * text_cfg.num_layers + 1)}
