@@ -90,6 +90,25 @@ non-zero:
                 the shards, 2 epochs of 4 steps), then resumed from
                 checkpoint_0.pth: epoch 1's steps and lr equal, losses within
                 2.2e-4 relative, projector cosine >= 0.995;
+     ddp      — then both stages again on several ranks, each a process
+                of its own (chip_smoke.py --ddp-child) started by python -m
+                torch.distributed.run: stage 2 at world 1 with an NCCL
+                group (losses, projector bit for bit the cli run's, its
+                launches equal); at two ranks on the one card over gloo
+                (NCCL refuses a shared card), no --job-id, the batches each
+                rank took saved, against the world-1 run on their
+                concatenation in this process (each step's loss within
+                2.2e-4 relative and gradient norm ratio 0.995-1.005; the
+                projector rank 0 saved, each leaf cosine >= 0.995 and norm
+                ratio 0.995-1.005), one job directory, checkpoints by rank
+                0 only, the last step profiled (the all-reduce's share);
+                resumed at two ranks from checkpoint_0.pth; with two cards
+                or more also at two cards over NCCL; stage 1 at two ranks
+                (each its own 2B engine, 256 slots): shards from r x 100000
+                on, disjoint, every key of the world-1 run once, every
+                embedding checked, one sample a rank read back, #1-#4
+                launched on each rank. Two ranks sharing one card measure
+                correctness, not scaling;
  13. lvlm-text — this slice's main path: configs/test_thinkdiff_lvlm_ccsbu_
                 image_text.yaml (Qwen2-VL-7B, w8a8 LM, bf16 vision, T 0.6,
                 top_p 0.9, 128 tokens, ignore_eos) with the frozen flan-t5-xxl
@@ -168,7 +187,11 @@ non-zero:
                 updated, launches against clip_train_launches, a 2-layer
                 full-width copy (ViT 2 blocks, T5 2 + 2) on 4 samples
                 against the same step on the CPU's plain versions, 10 steps
-                on one batch at lr 1e-3 lower the loss, one profiled step.
+                on one batch at lr 1e-3 lower the loss, one profiled step;
+                then ddp clip: two steps of the same YAML at two ranks on
+                the one card (gloo), both T5 stacks cut to 12 layers (two
+                full ranks would not fit one card), against the world-1
+                run on the concatenated batches, the ddp limits.
 Every serving slice runs at full width and depth on seeded random weights
 and the stand-in tokenizer, on the engine's default device: Qwen2-VL-2B
 (w8a8 LM with fused projections, weight-only int8 vision) in 7-12, 7B in 13.
@@ -180,7 +203,9 @@ lines are a JSON object with per-kernel results (launches of #1-#3 and
 the gumbel slice, #9 from lvlm-text, #10-#12 from the ops phase; each
 kernel's launches in the cli phase's two stages, in lvlm-flux, clip-flux
 (the single-image CLI's path), lvlm-flux-clis (the multi-image CLI's
-path), clip-video and clip-train beside them) and
+path), clip-video and clip-train beside them, and the ddp phase's per
+rank: ddp_train_launches (two ranks, gloo), ddp_stage1_launches,
+ddp_world1_launches, ddp_clip_launches) and
 {"ok": true, "device": {...}}.
 """
 
@@ -188,6 +213,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2829,10 +2855,11 @@ def cli_image_index():
     return index, ShardListDataset(index)
 
 
-def check_embed_shards(tars, width):
+def check_embed_shards(tars, width, expect=CLI_IMAGES):
     """Every sample of the stage-1 shards: bf16, finite embeddings whose rows
     equal the token counts, each .pth at most 1.01 x rows x width x 2 bytes
-    plus torch.save's header. Returns (samples, the last one read back)."""
+    plus torch.save's header; ``expect`` samples, each key once. Returns
+    (samples, the last one read back, the keys)."""
     import io
 
     from thinkdiff_torch.data.tario import tar_sample_iterator
@@ -2862,9 +2889,10 @@ def check_embed_shards(tars, width):
                 sample[kind] = e
             keys.add(raw["__key__"])
             n, last = n + 1, sample
-    if n != CLI_IMAGES or len(keys) != n:
-        raise AssertionError(f"cli stage 1: {n} samples, {len(keys)} keys")
-    return n, last
+    if n != expect or len(keys) != n:
+        raise AssertionError(f"stage 1: {n} samples, {len(keys)} keys, "
+                             f"{expect} expected")
+    return n, last, sorted(keys)
 
 
 def cli_stage1(base_cfg, cfg, params):
@@ -2917,7 +2945,7 @@ def cli_stage1(base_cfg, cfg, params):
     missing = [k for k in CLI_STAGE1_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"cli stage 1: kernels not launched: {missing}")
-    n, last = check_embed_shards(tars, engine.cfg.hidden_size)
+    n, last, keys = check_embed_shards(tars, engine.cfg.hidden_size)
     say("cli", f"stage 1: {n} samples into {len(tars)} shards, "
         f"{mb:.1f} MB, in {wall:.2f} s: {n / wall:.2f} imgs/s (image "
         f"shard reads and JPEG decode, serving and shard writing); every "
@@ -2930,7 +2958,8 @@ def cli_stage1(base_cfg, cfg, params):
     teacher_forcing_check("cli", engine, out,
                           [images[int(last["__key__"])]["jpg"]], 0)
     return {"dir": embed_dir, "tars": len(tars), "mb": mb,
-            "imgs_per_s": n / wall, "launches": launches}
+            "imgs_per_s": n / wall, "launches": launches, "index": index,
+            "keys": keys, "width": engine.cfg.hidden_size}
 
 
 def cli_train(argv, record):
@@ -3008,19 +3037,6 @@ def cli_stage2(stage1, yaml_step_ms):
     checkpoint_0.pth: epoch 1 again."""
     import gc
 
-    from thinkdiff_torch.core.optim import tree_leaves
-    from thinkdiff_torch.engines.standin_tokenizer import StandInTokenizer
-    from thinkdiff_torch.models.aligner_lvlm import MllamaT5EmbedDecoder
-
-    # no tokenizer files: flan-t5's 32128 ids through a stand-in, and the
-    # VLM ids decoded by the stand-in the engine served with
-    t5_tok = StandInTokenizer({"<pad>": 0, "</s>": 1, "<unk>": 2}, word_lo=3,
-                              word_hi=32100, eos_token="</s>")
-    vlm_decode = StandInTokenizer().decode
-    saved = (MllamaT5EmbedDecoder.get_t5_tokenizer,
-             MllamaT5EmbedDecoder.get_vlm_decode_fn)
-    MllamaT5EmbedDecoder.get_t5_tokenizer = lambda self: t5_tok
-    MllamaT5EmbedDecoder.get_vlm_decode_fn = lambda self: vlm_decode
     out_dir = CLI_DIR / "train"
     storage = f"{stage1['dir']}/{{000000..{stage1['tars'] - 1:06d}}}.tar"
     argv = ["--cfg-path", str(TRAIN_CONFIG), "--options",
@@ -3029,7 +3045,7 @@ def cli_stage2(stage1, yaml_step_ms):
             f"run.output_dir={out_dir}", "run.max_epoch=2",
             "run.iters_per_epoch=4"]
     runs = {}
-    try:
+    with standin_tokenizers():
         for name, extra in (("straight", []), ("resumed", [
                 f"run.resume_ckpt_path={out_dir / 'straight' / 'checkpoint_0.pth'}"])):
             record = []
@@ -3053,9 +3069,6 @@ def cli_stage2(stage1, yaml_step_ms):
             del runner
             gc.collect()
             torch.cuda.empty_cache()
-    finally:
-        (MllamaT5EmbedDecoder.get_t5_tokenizer,
-         MllamaT5EmbedDecoder.get_vlm_decode_fn) = saved
     st, rs = runs["straight"], runs["resumed"]
     lines = [json.loads(x) for x in (st["dir"] / "log.txt").read_text().splitlines()]
     if [e["epoch"] for e in lines if "train_loss" in e] != [0, 1]:
@@ -3109,10 +3122,13 @@ def cli_stage2(stage1, yaml_step_ms):
         f"{parts['prepare_ms']:.1f} ms, train_step alone "
         f"{parts['step_ms']:.1f} ms a step ({parts['dispatch_ms']:.1f} ms of "
         f"host time inside the call); through the runner {step_ms:.0f} ms")
-    return {"launches": st["launches"], "step_ms": step_ms}
+    return {"launches": st["launches"], "step_ms": step_ms,
+            "losses": st["losses"], "dir": st["dir"]}
 
 
 def phase_cli(base_cfg, cfg, params, yaml_step_ms):
+    """The cli phase's two stages, then the ddp phase on their images and
+    shards."""
     import shutil
 
     shutil.rmtree(CLI_DIR, ignore_errors=True)
@@ -3120,9 +3136,11 @@ def phase_cli(base_cfg, cfg, params, yaml_step_ms):
         stage1 = cli_stage1(base_cfg, cfg, params)
         torch.cuda.empty_cache()
         stage2 = cli_stage2(stage1, yaml_step_ms)
+        torch.cuda.empty_cache()
+        ddp = phase_ddp(stage1, stage2)
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
-    return stage1, stage2
+    return stage1, stage2, ddp
 
 
 def build_lvlm_model():
@@ -4026,8 +4044,8 @@ def phase_clip_train():
     overridden (2 epochs of 4 steps); the flan-t5 stand-in tokenizer
     patched in. Losses and gradient norms finite, the projector updated,
     the launches against clip_train_launches, the 2-layer gradient check,
-    a 10-step overfit, one profiled step. Returns (launches, rates)."""
-    import shutil
+    a 10-step overfit, one profiled step. Returns (launches, rates); the
+    shards stay for the ddp phase's CLIP step."""
     from unittest import mock
 
     from thinkdiff_torch import kernels, train
@@ -4127,9 +4145,8 @@ def phase_clip_train():
     phase_profile_train(runner.trainer, runner.state, b,
                         label="CLIP training step (batch 32: ViT-g, flan-t5-"
                         "xxl bf16 encoder + decoder, 128 + 128 tokens)")
-    shutil.rmtree(CLIP_DIR)
     return launches, {"step_ms": step_ms, "wall_s": wall, "peak_gib": peak,
-                      "grad": grad}
+                      "grad": grad, "storage": storage}
 
 
 # ---------------------------------------------------------------------------
@@ -4832,6 +4849,581 @@ def phase_profile(engine, n_slots=256, steps=8):
     del pools
 
 
+# ---------------------------------------------------------------------------
+# ddp: stages 1 and 2 over several ranks, through torch.distributed.run
+# ---------------------------------------------------------------------------
+
+DDP_DIR = Path(__file__).resolve().parent / "build" / "ddp"
+DDP_WORLD = 2
+DDP_TIMEOUT = 420        # seconds one launch of the ranks may take
+# the limits of the cli phase's resume check and of the gradient check
+# (PERF.md section 2): a rank's loss against the world-1 run on the
+# concatenated global batch, and each projector leaf's cosine and norm
+# ratio; here also each step's gradient norm, the reduced gradient's
+DDP_LOSS_TOL, DDP_COSINE, DDP_NORM_RATIO = (CLI_LOSS_TOL, CLI_COSINE,
+                                            GRAD_NORM_RATIO)
+# ThinkDiff-CLIP's step takes 37.7 GiB at batch 32 (clip-train's peak): two
+# ranks of the full flan-t5-xxl (encoder 24 + decoder 24) would not fit one
+# 80 GB card beside each other, so its two-rank step cuts both T5 stacks to
+# this depth (widths and ViT-g as written)
+CLIP_DDP_T5_LAYERS = 12
+CLIP_DDP_STEPS = 2
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(phase, nproc, child_args, timeout=DDP_TIMEOUT):
+    """``python -m torch.distributed.run --nproc_per_node nproc
+    chip_smoke.py --ddp-child ...`` as the leader of a POSIX process group:
+    a non-zero exit raises, and at the timeout the launcher and every rank
+    are killed together. Returns the wall seconds."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           str(nproc), "--master_addr", "127.0.0.1", "--master_port",
+           str(free_port()), str(Path(__file__).resolve()), "--ddp-child",
+           *map(str, child_args)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(Path(__file__).resolve().parent),
+                            start_new_session=True)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if rc is None:
+        raise AssertionError(f"{phase}: the ranks did not end within "
+                             f"{timeout} s (killed)")
+    if rc:
+        raise AssertionError(f"{phase}: torch.distributed.run exited {rc}")
+    return time.perf_counter() - t0
+
+
+def rank_results(out, world):
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def standin_tokenizers():
+    """The stand-in tokenizers patched into the aligners' classes, as a
+    context (there are no tokenizer files): flan-t5's 32128 ids through a
+    stand-in, and the VLM ids decoded by the stand-in the engine served
+    with."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from thinkdiff_torch.engines.standin_tokenizer import StandInTokenizer
+    from thinkdiff_torch.models.aligner_clip import BlipVisionT5Decoder
+    from thinkdiff_torch.models.aligner_lvlm import MllamaT5EmbedDecoder
+
+    t5_tok = clip_t5_tokenizer()
+    vlm_decode = StandInTokenizer().decode
+    stack = ExitStack()
+    for cls, name, fn in (
+            (MllamaT5EmbedDecoder, "get_t5_tokenizer", lambda self: t5_tok),
+            (MllamaT5EmbedDecoder, "get_vlm_decode_fn",
+             lambda self: vlm_decode),
+            (BlipVisionT5Decoder, "get_t5_tokenizer", lambda self: t5_tok)):
+        stack.enter_context(mock.patch.object(cls, name, fn))
+    return stack
+
+
+def ddp_child(argv):
+    """One rank, started by launch_ranks: ``train OUT [--nccl-group]
+    [--profile] -- <train CLI argv>`` or ``stage1 OUT INDEX EMBED_DIR``.
+    Writes OUT/rank{r}.json."""
+    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                          % torch.cuda.device_count())
+    mode, out = argv[0], Path(argv[1])
+    out.mkdir(parents=True, exist_ok=True)
+    if mode == "train":
+        split = argv.index("--")
+        result = ddp_child_train(argv[2:split], argv[split + 1:])
+    elif mode == "stage1":
+        result = ddp_child_stage1(*argv[2:])
+    else:
+        raise ValueError(f"unknown --ddp-child mode {mode}")
+    (out / f"rank{result['rank']}.json").write_text(json.dumps(result))
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+def ddp_child_train(flags, train_argv):
+    """thinkdiff_torch.train.main(train_argv) on this rank, each step's
+    loss, gradient norm and lr recorded, the launch counters set to 0 just
+    before and read just after. Flags: --nccl-group (the rank first makes
+    an NCCL process group itself; init_distributed_mode then uses it),
+    --dump DIR (each host batch the trainer takes is saved there, for the
+    world-1 reference), --profile-step N (step N runs under
+    torch.profiler)."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from thinkdiff_torch import kernels, train
+    from thinkdiff_torch.core import distributed as td
+    from thinkdiff_torch.engines.trainer import Trainer
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--nccl-group", action="store_true")
+    parser.add_argument("--dump", default=None)
+    parser.add_argument("--profile-step", type=int, default=0)
+    opts = parser.parse_args(flags)
+    if opts.nccl_group:
+        dist.init_process_group("nccl", device_id=torch.device(
+            "cuda", torch.cuda.current_device()))
+    record, profile = [], {}
+    step, prepare = Trainer.train_step, Trainer.prepare_batch
+
+    def recorded(self, state, batch, rng=None):
+        prof = None
+        if len(record) + 1 == opts.profile_step:
+            torch.cuda.synchronize()
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+        t = time.perf_counter()
+        state, m = step(self, state, batch, rng)
+        if prof is not None:
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+            prof.stop()
+            profile.update(allreduce_share(prof, wall_ms))
+        record.append({"step": state["step"], "lr": m["lr"],
+                       "loss": m["loss"], "grad_norm": m["grad_norm"],
+                       "t": t})
+        return state, m
+
+    def dumped(self, batch):
+        path = Path(opts.dump) / (f"rank{os.environ.get('RANK', '0')}_"
+                                  f"{len(record):03d}.npz")
+        np.savez(path, **batch)
+        return prepare(self, batch)
+
+    Trainer.train_step = recorded
+    if opts.dump:
+        Path(opts.dump).mkdir(parents=True, exist_ok=True)
+        Trainer.prepare_batch = dumped
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with standin_tokenizers():
+            runner = train.main(train_argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        Trainer.train_step, Trainer.prepare_batch = step, prepare
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    iters = runner.iters_per_epoch
+    # the gaps between step starts within an epoch (the profiled step, if
+    # the last, starts the last gap and so lengthens none)
+    gaps = [b["t"] - a["t"] for a, b in zip(record, record[1:])
+            if b["step"] % iters != 1]
+    return {
+        "rank": td.get_rank(), "world": td.get_world_size(),
+        "backend": dist.get_backend() if dist.is_initialized() else None,
+        "device": str(runner.trainer.device), "wall_s": wall,
+        "steps": [r["step"] for r in record], "lrs": [r["lr"] for r in record],
+        "losses": [float(r["loss"]) for r in record],
+        "grad_norms": [float(r["grad_norm"]) for r in record],
+        "step_ms": statistics.median(gaps) * 1e3 if gaps else None,
+        "peak_gib": peak, "launches": launches, "profile": profile or None,
+        "output_dir": str(runner.output_dir),
+        "t5_layers": [runner.model.t5_cfg.num_layers,
+                      runner.model.t5_cfg.num_decoder_layers]}
+
+
+def allreduce_share(prof, wall_ms):
+    """From one profiled step: the longest host span of the gradient
+    all-reduce (gloo: the collective with its copies through the host and
+    the wait for the other rank) against the step's wall ms, and the
+    device time of NCCL's all-reduce kernels."""
+    from torch.autograd import DeviceType
+
+    host, device_ms = {}, 0.0
+    for e in prof.events():
+        name = e.name.lower()
+        if "allreduce" not in name and "all_reduce" not in name:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            device_ms += e.time_range.elapsed_us() / 1e3
+        else:
+            host[e.name] = max(host.get(e.name, 0.0),
+                               e.time_range.elapsed_us() / 1e3)
+    ar_ms = max(host.values()) if host else None
+    return {"wall_ms": wall_ms, "allreduce_ms": ar_ms,
+            "allreduce_device_ms": device_ms, "events": sorted(host),
+            "share": ar_ms / wall_ms if ar_ms is not None else None}
+
+
+def ddp_child_stage1(index, embed_dir):
+    """The precompute CLI's bootstrap, task and runner_process_data over
+    configs/qwen2_vl_embed_ccsbu.yaml as written on this rank, its own
+    seeded 2B engine on its card (the cli phase's stop lengths and shard
+    size); its shards checked, one sample read back through the
+    teacher-forced check."""
+    import torch.distributed as dist
+
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.core import distributed as td
+    from thinkdiff_torch.data.wids_reader import ShardListDataset
+    from thinkdiff_torch.scripts.common import (
+        bootstrap, build_runner, parse_args)
+    from thinkdiff_torch.tasks import image_text_process_data
+
+    args = parse_args("stage 1", [
+        "--cfg-path", str(CONFIG), "--options",
+        f"datasets.cc_sbu_mllama_vllm_process_wids.build_info.storage={index}",
+        f'run.output_shard_path=["{embed_dir}", "%06d.tar", 0]'])
+    run_cfg, task = bootstrap(args)
+    rank = td.get_rank()
+    base_cfg, cfg, params = load_weights()
+    model = build_model(base_cfg, cfg, params, {})
+    runner = build_runner(run_cfg, task, model, task.build_datasets(run_cfg),
+                          None, "runner_process_data")
+    lengths = stop_lengths(CLI_IMAGES, SEED + 1)
+    model.engine.stop_len_fn = lambda req, m: m >= lengths[req]
+    image_text_process_data.SHARD_MAXSIZE = CLI_SHARD_BYTES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = runner.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.engine.stop_len_fn = None
+    tars = sorted(p for p in Path(embed_dir).glob("*.tar")
+                  if int(p.stem) // 100000 == rank)
+    n, last, keys = check_embed_shards(tars, cfg.hidden_size,
+                                       expect=stats["num_samples"])
+    out = {"prompt_token_ids": [last["json"]["input_prompt_token_ids"]],
+           "output_token_ids": [last["json"]["output_token_ids"]],
+           "prompt_hidden_states": [last["input"]],
+           "hidden_states": [last["output"]]}
+    teacher_forcing_check(f"ddp rank {rank}", model.engine, out,
+                          [ShardListDataset(index)[int(last["__key__"])][
+                              "jpg"]], 0)
+    return {"rank": rank, "world": td.get_world_size(),
+            "backend": dist.get_backend() if dist.is_initialized() else None,
+            "stats": stats, "wall_s": wall, "imgs_per_s": n / wall,
+            "launches": launches, "keys": keys,
+            "tars": [p.name for p in tars], "peak_gib": peak}
+
+
+def concat_padded(parts):
+    """The ranks' host batches as one global batch: each array padded at
+    the end of every axis but the first to the widest rank's (labels with
+    -100, everything else with 0: ignored labels and masked condition
+    rows, which change no loss), then concatenated."""
+    out = {}
+    for k in parts[0]:
+        arrs = [np.asarray(p[k]) for p in parts]
+        width = np.max([a.shape for a in arrs], axis=0)
+        fill = -100 if k == "labels" else 0
+        arrs = [np.pad(a, [(0, 0)] + [(0, int(w - s)) for w, s in
+                                      zip(width[1:], a.shape[1:])],
+                       constant_values=fill) for a in arrs]
+        out[k] = np.concatenate(arrs)
+    return out
+
+
+def ddp_reference(argv, dump, world):
+    """What GSPMD computes over a data axis of ``world``: the training
+    CLI's bootstrap, task, model and Trainer in this process (a world of
+    one), each step fed the concatenation of the batches the ``world``
+    ranks took at that step (``dump``, saved by the ranks). Returns each
+    step's loss and gradient norm, and the projector before and after."""
+    from thinkdiff_torch.core.optim import tree_leaves
+    from thinkdiff_torch.engines.trainer import Trainer
+    from thinkdiff_torch.scripts.common import bootstrap, parse_args
+
+    cfg, task = bootstrap(parse_args("ddp reference", argv))
+    model = task.build_model(cfg)
+    trainer = Trainer(model, cfg.run_cfg, device=model.device)
+    state = trainer.init_state()
+    init = {k: t.detach().cpu().clone() for k, t in tree_leaves(state["params"])}
+    steps = len(list(Path(dump).glob("rank0_*.npz")))
+    losses, norms, rows = [], [], []
+    for i in range(steps):
+        parts = []
+        for r in range(world):
+            with np.load(Path(dump) / f"rank{r}_{i:03d}.npz") as f:
+                parts.append(dict(f))
+        host = concat_padded(parts)
+        rows.append(int(host["labels"].shape[0]))
+        state, m = trainer.train_step(state, trainer.prepare_batch(host),
+                                      int(cfg.run_cfg.seed))
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    final = {k: t.detach().cpu().clone()
+             for k, t in tree_leaves(state["params"])}
+    return {"losses": [float(x) for x in losses],
+            "grad_norms": [float(x) for x in norms], "rows": rows,
+            "init": init, "final": final}
+
+
+def ddp_compare(phase, ranks, ref, ckpt):
+    """The ranks against the world-1 run on the concatenated batches:
+    every rank reports the same global losses and gradient norms; each
+    step's loss within DDP_LOSS_TOL relative and gradient norm within
+    DDP_NORM_RATIO; the projector rank 0 saved, leaf by leaf, cosine >=
+    DDP_COSINE and norm ratio in DDP_NORM_RATIO (the update from the
+    common start is printed beside)."""
+    first = ranks[0]
+    for r in ranks[1:]:
+        if r["losses"] != first["losses"] or \
+                r["grad_norms"] != first["grad_norms"]:
+            raise AssertionError(f"{phase}: ranks disagree: {r['losses']} "
+                                 f"vs {first['losses']}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(first["losses"], ref["losses"])]
+    ratio = [a / b for a, b in zip(first["grad_norms"], ref["grad_norms"])]
+    if len(rel) != len(ref["losses"]) or max(rel) > DDP_LOSS_TOL or not all(
+            DDP_NORM_RATIO[0] <= x <= DDP_NORM_RATIO[1] for x in ratio):
+        raise AssertionError(
+            f"{phase}: losses {first['losses']} vs {ref['losses']} (rel "
+            f"{rel}), grad norm ratios {ratio}")
+    got = torch.load(ckpt, weights_only=True)["model"]
+    cos = {k: cosine(got[k], ref["final"][k]) for k in ref["final"]}
+    norm = {k: float(got[k].double().norm() / ref["final"][k].double().norm())
+            for k in ref["final"]}
+    upd = {k: cosine(got[k] - ref["init"][k], ref["final"][k] - ref["init"][k])
+           for k in ref["final"]}
+    if min(cos.values()) < DDP_COSINE or not all(
+            DDP_NORM_RATIO[0] <= x <= DDP_NORM_RATIO[1] for x in norm.values()):
+        raise AssertionError(f"{phase}: projector cosines {cos}, norm "
+                             f"ratios {norm}")
+    say(phase, f"against the world-1 run on the concatenated batches "
+        f"({ref['rows'][0]} rows a step): losses max rel err {max(rel):.3g} "
+        f"(<= {DDP_LOSS_TOL}); gradient norm ratio {min(ratio):.6f}-"
+        f"{max(ratio):.6f}; projector cosine min {min(cos.values()):.6f} "
+        f"(>= {DDP_COSINE}), norm ratio {min(norm.values()):.6f}-"
+        f"{max(norm.values()):.6f} over {len(cos)} leaves; the update's "
+        f"cosine min {min(upd.values()):.6f}")
+
+
+def ddp_train(phase, out, world, flags, argv, timeout=DDP_TIMEOUT):
+    """The training CLI's main on ``world`` ranks through the launcher:
+    the ranks' results."""
+    wall = launch_ranks(phase, world, ["train", out, *flags, "--", *argv],
+                        timeout)
+    ranks = rank_results(out, world)
+    for r in ranks:
+        if not all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]):
+            raise AssertionError(f"{phase} rank {r['rank']}: {r['losses']}")
+    say(phase, f"{world} rank(s), {ranks[0]['backend'] or 'no process group'}"
+        f", launched and ended in {wall:.1f} s; per rank: " + "; ".join(
+            f"rank {r['rank']} on {r['device']}: {len(r['losses'])} steps in "
+            f"{r['wall_s']:.1f} s, {r['step_ms']:.0f} ms a step (median gap "
+            f"within an epoch), peak {r['peak_gib']:.2f} GiB" for r in ranks)
+        + "; global losses " + " ".join(f"{x:.4f}" for x in ranks[0]["losses"]))
+    return ranks
+
+
+def ddp_stage2(stage1, stage2):
+    """Stage 2 of the cli phase (the training YAML as written, 2B width,
+    its shards, 2 epochs of 4 steps) on more than one rank: at world 1
+    under the launcher with an NCCL group of one (bit for bit the cli
+    phase's run), at two ranks on the one card over gloo against the
+    world-1 run on the concatenated batches, resumed at two ranks, and at
+    two cards over NCCL where there are two."""
+    storage = f"{stage1['dir']}/{{000000..{stage1['tars'] - 1:06d}}}.tar"
+    opts = ["--cfg-path", str(TRAIN_CONFIG), "--options",
+            "model.mllama_pretrained_model_name_or_path=Qwen/Qwen2-VL-2B-Instruct",
+            f"datasets.llava_instruct_mllama_embed_2.build_info.storage={storage}",
+            "run.max_epoch=2", "run.iters_per_epoch=4"]
+    # world 1, an NCCL group of one: bit for bit the cli phase's run
+    w1 = ddp_train("ddp world-1", DDP_DIR / "w1", 1, ["--nccl-group"],
+                   opts + [f"run.output_dir={DDP_DIR / 'w1'}", "--job-id",
+                           "w1"])[0]
+    if w1["backend"] != "nccl" or w1["losses"] != stage2["losses"]:
+        raise AssertionError(f"ddp world-1: {w1['backend']}, losses "
+                             f"{w1['losses']} vs {stage2['losses']}")
+    a = torch.load(stage2["dir"] / "checkpoint_1.pth", weights_only=True)
+    b = torch.load(DDP_DIR / "w1" / "w1" / "checkpoint_1.pth",
+                   weights_only=True)
+    if sorted(a["model"]) != sorted(b["model"]) or not all(
+            torch.equal(a["model"][k], b["model"][k]) for k in a["model"]):
+        raise AssertionError("ddp world-1: the projector differs from the "
+                             "cli phase's")
+    same = {k: (w1["launches"][k], stage2["launches"][k])
+            for k in CLI_STAGE2_KERNELS}
+    if any(x != y for x, y in same.values()):
+        raise AssertionError(f"ddp world-1: launches {same}")
+    say("ddp world-1", f"NCCL group of one: losses and projector bit for bit "
+        f"the cli phase's run without a launcher; launches equal {same}")
+
+    # two ranks on the one card (gloo), no --job-id: rank 0's id for both;
+    # the last step profiled
+    out = DDP_DIR / "gloo"
+    ranks = ddp_train("ddp gloo", out, DDP_WORLD, [
+        "--dump", out / "batches", "--profile-step", 8],
+        opts + [f"run.output_dir={out}"])
+    ref = ddp_reference(opts + [f"run.output_dir={DDP_DIR / 'ref'}"],
+                        out / "batches", DDP_WORLD)
+    torch.cuda.empty_cache()
+    jobs = [p for p in out.iterdir() if p.is_dir() and p.name != "batches"]
+    if len(jobs) != 1 or len({r["output_dir"] for r in ranks}) != 1:
+        raise AssertionError(f"ddp gloo: job directories {jobs}")
+    job = jobs[0]
+    written = sorted(p.name for p in job.iterdir())
+    if written != ["checkpoint_0.config.json", "checkpoint_0.pth",
+                   "checkpoint_1.config.json", "checkpoint_1.pth", "log.txt",
+                   "result"]:
+        raise AssertionError(f"ddp gloo: {job} holds {written}")
+    ddp_compare("ddp gloo", ranks, ref, job / "checkpoint_1.pth")
+    missing = [(r["rank"], k) for r in ranks for k in CLI_STAGE2_KERNELS
+               if r["launches"][k] == 0]
+    if missing or any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"ddp gloo: backends "
+                             f"{[r['backend'] for r in ranks]}, not launched "
+                             f"{missing}")
+    for r in ranks:
+        p = r["profile"]
+        say("ddp gloo", f"rank {r['rank']} profiled step 8: "
+            f"{p['wall_ms']:.1f} "
+            f"ms, of which the gradient all-reduce "
+            + (f"{p['allreduce_ms']:.1f} ms ({p['share']:.0%}; events "
+               f"{p['events']})" if p["allreduce_ms"] is not None
+               else "not found in the trace"))
+
+    # resumed on two ranks from the checkpoint rank 0 wrote
+    res = DDP_DIR / "resumed"
+    resumed = ddp_train("ddp resume", res, DDP_WORLD, [], opts + [
+        f"run.output_dir={res}",
+        f"run.resume_ckpt_path={job / 'checkpoint_0.pth'}", "--job-id",
+        "resumed"])
+    again = ranks[0]
+    for r in resumed:
+        if r["steps"] != again["steps"][4:] or r["lrs"] != again["lrs"][4:] \
+                or max(abs(x - y) / abs(y) for x, y in zip(
+                    r["losses"], again["losses"][4:])) > DDP_LOSS_TOL:
+            raise AssertionError(f"ddp resume rank {r['rank']}: steps "
+                                 f"{r['steps']} losses {r['losses']} vs "
+                                 f"{again['losses'][4:]}")
+    ca = torch.load(job / "checkpoint_1.pth", weights_only=True)["model"]
+    cb = torch.load(res / "resumed" / "checkpoint_1.pth",
+                    weights_only=True)["model"]
+    cos = min(cosine(ca[k], cb[k]) for k in ca)
+    if cos < DDP_COSINE:
+        raise AssertionError(f"ddp resume: projector cosine {cos}")
+    say("ddp resume", f"both ranks resumed from checkpoint_0.pth: steps "
+        f"{resumed[0]['steps']}, lr equal, losses within {DDP_LOSS_TOL} of "
+        f"the straight run's epoch 1, projector cosine min {cos:.6f}")
+    nccl2 = None
+    if torch.cuda.device_count() >= DDP_WORLD:
+        out2 = DDP_DIR / "nccl"
+        nccl2 = ddp_train("ddp nccl", out2, DDP_WORLD, [],
+                          opts + [f"run.output_dir={out2}", "--job-id", "n"])
+        if any(r["backend"] != "nccl" for r in nccl2):
+            raise AssertionError("ddp nccl: not NCCL")
+        ddp_compare("ddp nccl", nccl2, ref, out2 / "n" / "checkpoint_1.pth")
+    return {"w1": w1, "gloo": ranks, "resumed": resumed, "nccl": nccl2}
+
+
+def ddp_stage1(stage1):
+    """Stage 1 at two ranks on the cli phase's JPEGs: each rank its own 2B
+    engine on the card, 256 slots as written; the shard ranges disjoint
+    (rank r from r x 100000 on), every sample of the world-1 run once,
+    every embedding checked, one sample a rank read back, #1-#4 launched
+    on each rank."""
+    embed = DDP_DIR / "embed"
+    wall = launch_ranks("ddp stage 1", DDP_WORLD, [
+        "stage1", DDP_DIR / "stage1", stage1["index"], embed])
+    ranks = rank_results(DDP_DIR / "stage1", DDP_WORLD)
+    keys = [k for r in ranks for k in r["keys"]]
+    starts = [{int(Path(t).stem) // 100000 for t in r["tars"]} for r in ranks]
+    if len(keys) != len(set(keys)) or set(keys) != set(stage1["keys"]) or \
+            starts != [{r} for r in range(DDP_WORLD)]:
+        raise AssertionError(f"ddp stage 1: {len(keys)} keys ({len(set(keys))}"
+                             f" distinct, world-1 {len(stage1['keys'])}), "
+                             f"shards {[r['tars'] for r in ranks]}")
+    missing = [(r["rank"], k) for r in ranks for k in CLI_STAGE1_KERNELS
+               if r["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"ddp stage 1: not launched {missing}")
+    n, _, _ = check_embed_shards(sorted(embed.glob("*.tar")),
+                                 stage1["width"])
+    say("ddp stage 1", f"{DDP_WORLD} ranks ({ranks[0]['backend']}) in "
+        f"{wall:.1f} s: " + "; ".join(
+            f"rank {r['rank']} {r['stats']['num_samples']} samples into "
+            f"{r['tars']} in {r['wall_s']:.1f} s ({r['imgs_per_s']:.2f} "
+            f"imgs/s), peak {r['peak_gib']:.2f} GiB" for r in ranks)
+        + f"; {n} samples, disjoint, the world-1 run's keys each once")
+    return ranks
+
+
+def phase_ddp(stage1, stage2):
+    """Stages 1 and 2 of the cli phase over several ranks, through
+    ``python -m torch.distributed.run`` and the CLIs' entry points, each
+    rank in a process of its own (chip_smoke.py --ddp-child)."""
+    import shutil
+
+    shutil.rmtree(DDP_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    try:
+        train = ddp_stage2(stage1, stage2)
+        torch.cuda.empty_cache()
+        first = ddp_stage1(stage1)
+    finally:
+        shutil.rmtree(DDP_DIR, ignore_errors=True)
+    return {"train": train, "stage1": first}
+
+
+def phase_ddp_clip(storage):
+    """ThinkDiff-CLIP's training YAML at two ranks on the one card (gloo)
+    on clip-train's shards, CLIP_DDP_STEPS steps, both T5 stacks cut to
+    CLIP_DDP_T5_LAYERS layers, against the world-1 run on the concatenated
+    batches at the same depth."""
+    import shutil
+
+    out = DDP_DIR / "clip"
+    opts = ["--cfg-path", str(CLIP_TRAIN_CONFIG), "--options",
+            f"datasets.cc_sbu.build_info.storage={storage}",
+            "run.max_epoch=1", f"run.iters_per_epoch={CLIP_DDP_STEPS}",
+            f"model.t5_config.num_layers={CLIP_DDP_T5_LAYERS}",
+            f"model.t5_config.num_decoder_layers={CLIP_DDP_T5_LAYERS}"]
+    say("ddp clip", f"the CLIP YAML cut for two ranks on one card: flan-t5-"
+        f"xxl encoder and decoder {CLIP_DDP_T5_LAYERS} + "
+        f"{CLIP_DDP_T5_LAYERS} layers (of 24 + 24), widths and ViT-g as "
+        f"written, {CLIP_DDP_STEPS} steps")
+    try:
+        ranks = ddp_train("ddp clip", out, DDP_WORLD, [
+            "--dump", out / "batches"], opts + [
+            f"run.output_dir={out}", "--job-id", "clip"])
+        ref = ddp_reference(opts + [f"run.output_dir={out / 'ref'}"],
+                            out / "batches", DDP_WORLD)
+        if ranks[0]["t5_layers"] != [CLIP_DDP_T5_LAYERS] * 2:
+            raise AssertionError(f"ddp clip: T5 {ranks[0]['t5_layers']}")
+        ddp_compare("ddp clip", ranks, ref, out / "clip" / "checkpoint_0.pth")
+        missing = [(r["rank"], k) for r in ranks for k in CLIP_TRAIN_KERNELS
+                   if r["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"ddp clip: not launched {missing}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return ranks
+
+
 def main() -> int:
     name, _ = phase_device()
     t_start = time.perf_counter()
@@ -4855,7 +5447,7 @@ def main() -> int:
     launches["fused_lm_sample"] = phase_gumbel_slice(
         base_cfg, cfg, params)["fused_lm_sample"]
     torch.cuda.empty_cache()
-    cli1, cli2 = phase_cli(base_cfg, cfg, params, yaml_step_ms)
+    cli1, cli2, ddp = phase_cli(base_cfg, cfg, params, yaml_step_ms)
     del params
     torch.cuda.empty_cache()
     lvlm, lvlm_rates, lvlm_model = phase_lvlm_text()
@@ -4877,7 +5469,16 @@ def main() -> int:
     del clip_model
     gc.collect()
     torch.cuda.empty_cache()
-    clip_train, clip_train_rates = phase_clip_train()
+    try:
+        clip_train, clip_train_rates = phase_clip_train()
+        gc.collect()
+        torch.cuda.empty_cache()
+        ddp_clip = phase_ddp_clip(clip_train_rates["storage"])
+    finally:
+        import shutil
+
+        shutil.rmtree(CLIP_DIR, ignore_errors=True)
+    gloo, first = ddp["train"]["gloo"], ddp["stage1"]
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; "
         f"train-w8a8 {train['step_ms']:.1f} ms a step, "
         f"{train['samples_per_s']:.2f} samples/s per GPU, peak "
@@ -4902,7 +5503,14 @@ def main() -> int:
         f"{video_rates['vae_s']:.2f} s, peak {video_rates['peak_gib']:.2f} "
         f"GiB; clip-train "
         f"{clip_train_rates['step_ms']:.0f} ms a step, peak "
-        f"{clip_train_rates['peak_gib']:.2f} GiB")
+        f"{clip_train_rates['peak_gib']:.2f} GiB; ddp (two ranks sharing "
+        f"one card: correctness, not scaling) stage 2 "
+        + ", ".join(f"rank {r['rank']} {r['step_ms']:.0f} ms a step, peak "
+                    f"{r['peak_gib']:.2f} GiB" for r in gloo)
+        + "; stage 1 " + ", ".join(f"rank {r['rank']} {r['imgs_per_s']:.2f} "
+                                   f"imgs/s" for r in first)
+        + "; clip " + ", ".join(f"rank {r['rank']} {r['step_ms']:.0f} ms a "
+                                f"step" for r in ddp_clip))
     report = []
     for kname, (route, source, replaces) in TPU_KERNELS.items():
         rows = results[kname]
@@ -4926,6 +5534,10 @@ def main() -> int:
             "clip_video_launches": clip_video[kname],
             "lvlm_flux_clis_launches": clis[kname],
             "clip_train_launches": clip_train[kname],
+            "ddp_train_launches": [r["launches"][kname] for r in gloo],
+            "ddp_stage1_launches": [r["launches"][kname] for r in first],
+            "ddp_world1_launches": ddp["train"]["w1"]["launches"][kname],
+            "ddp_clip_launches": [r["launches"][kname] for r in ddp_clip],
             "timed_shape": main_row["shape"],
             "shapes": [{k: v for k, v in r.items() if k != "main"}
                        for r in rows],
@@ -4938,4 +5550,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-child"]:
+        sys.exit(ddp_child(sys.argv[2:]))
     sys.exit(main())

@@ -56,7 +56,8 @@ def test_every_module_imports_without_jax():
                  "models.clip_text", "models.flux_vae",
                  "engines.flux_sampler", "engines.pipeline",
                  "scripts.test_mllama_t5_decoder_flux",
-                 "scripts.test_mllama_t5_decoder_text"):
+                 "scripts.test_mllama_t5_decoder_text", "parallel",
+                 "parallel.mesh"):
         assert f"thinkdiff_torch.{name}" in _submodules()
 
 

@@ -15,7 +15,9 @@ __version__ = "0.1.0"
 
 def resolve_device(device):
     """The device an entry point runs on. A CUDA device needs a card:
-    without one this raises instead of running on the CPU."""
+    without one this raises instead of running on the CPU. ``cuda`` with
+    no index is the current card: the rank's own card once
+    ``core.distributed.init_distributed_mode`` has made it current."""
     import torch
 
     dev = torch.device(device)
@@ -24,4 +26,6 @@ def resolve_device(device):
             "no CUDA card is available: the port runs on the GPU by default; "
             "pass device='cpu' to run the plain PyTorch versions of its "
             "kernels on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -13,7 +13,8 @@ from collections import defaultdict, deque
 
 import numpy as np
 
-from thinkdiff_torch.core.distributed import get_rank
+from thinkdiff_torch.core.distributed import (
+    all_reduce_sum, comm_device, get_rank, get_world_size)
 
 
 class SmoothedValue:
@@ -30,6 +31,18 @@ class SmoothedValue:
         self.deque.append(float(value))
         self.count += n
         self.total += float(value) * n
+
+    def synchronize_between_processes(self):
+        """[count, total] summed over the ranks, in float64 on the process
+        group's device (the window stays this rank's)."""
+        if get_world_size() == 1:
+            return
+        import torch
+
+        t = torch.tensor([self.count, self.total], dtype=torch.float64,
+                         device=comm_device())
+        all_reduce_sum(t)
+        self.count, self.total = int(t[0].item()), float(t[1].item())
 
     @property
     def median(self):
@@ -85,6 +98,10 @@ class MetricLogger:
 
     def __str__(self):
         return self.delimiter.join(f"{n}: {m}" for n, m in self.meters.items())
+
+    def synchronize_between_processes(self):
+        for m in self.meters.values():
+            m.synchronize_between_processes()
 
     def add_meter(self, name, meter):
         self.meters[name] = meter

@@ -92,7 +92,17 @@ def ptr(t) -> Optional[int]:
 
 
 def stream_of(t) -> int:
-    """The raw handle of the current CUDA stream of t's device."""
+    """The raw handle of the current CUDA stream of t's device, which must
+    be the current device: the launchers set each kernel's shared-memory
+    opt-in and read the SM count on the current device only, so a tensor
+    on another card raises here, before any launch, rather than switching
+    device or falling back to the plain version."""
     import torch
 
+    current = torch.cuda.current_device()
+    if t.device.index != current:
+        raise RuntimeError(
+            f"a kernel's operand is on {t.device}, but the current device is "
+            f"cuda:{current}: call torch.cuda.set_device({t.device.index}) "
+            f"first (init_distributed_mode does, for a rank's own card)")
     return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -170,6 +170,13 @@ class AlignerBase:
     def trainable_params(self) -> Dict[str, Any]:
         return self.trainable
 
+    @staticmethod
+    def label_count(batch) -> torch.Tensor:
+        """The label tokens ``loss_fn``'s token mean divides by (labels
+        other than -100), on the batch's device: over several ranks the
+        trainer weighs each rank's loss by it to form the global mean."""
+        return (batch["labels"] != -100).sum()
+
     def load_trainable(self, params: Dict[str, Any]) -> None:
         """A JAX-layout trainable tree (numpy or torch leaves), copied."""
         self.trainable = tree_map(

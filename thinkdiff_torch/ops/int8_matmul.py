@@ -143,7 +143,7 @@ def _s8_outputs(a, rows, k, cols):
     """The plan of a w8a8 kernel call with an (rows, cols) output over a
     contraction of k, its bf16 output, and its split's int32 workspace
     (None without a split)."""
-    plan = s8_gemm_plan(rows, k, cols, _sm_count(a.device.index or 0))
+    plan = s8_gemm_plan(rows, k, cols, _sm_count(a.device.index))
     out = torch.empty((rows, cols), dtype=torch.bfloat16, device=a.device)
     ws = (torch.empty((plan[3], rows, cols), dtype=torch.int32,
                       device=a.device) if plan[3] > 1 else None)
@@ -366,7 +366,7 @@ def _int8_matmul_cuda(x, w_q, scale, out_dtype):
     r = x2.shape[0]
     y = torch.empty((r, n), dtype=out_dtype, device=x.device)
     f32 = x.dtype == torch.float32
-    sms = _sm_count(x.device.index or 0)
+    sms = _sm_count(x.device.index)
     stream = kernels.stream_of(x)
     lib = kernels.library()
     for r0 in range(0, r, GEMV_ROWS):
@@ -487,7 +487,7 @@ def _int8_wide_cuda(name, a, w_q, scale, out_dtype, backward):
     scale = scale.float().contiguous()
     _aligned(name, ("input", a2), ("w_q", wt), ("scale", scale))
     rows, cols = a2.shape[0], (k if backward else n)
-    plan = wide_plan(rows, a2.shape[1], cols, _sm_count(a.device.index or 0),
+    plan = wide_plan(rows, a2.shape[1], cols, _sm_count(a.device.index),
                      f32 and backward, backward)
     out = torch.empty((rows, cols), dtype=out_dtype, device=a.device)
     fn = (kernels.library().thinkdiff_int8_wide_bwd if backward
@@ -594,7 +594,7 @@ def _s8_matmul_qx_cuda(x, w_q, scale, out_dtype):
     scale = scale.float().contiguous()
     _aligned("s8_matmul_qx", ("x", x), ("w_q", wt))
     y = torch.empty((r, n), dtype=out_dtype, device=x.device)
-    plan = s8_qx_plan(r, k, n, _sm_count(x.device.index or 0))
+    plan = s8_qx_plan(r, k, n, _sm_count(x.device.index))
     stream = kernels.stream_of(x)
     ws = _qx_workspace(x.device, stream, r, k, plan[0])
     rc = kernels.library().thinkdiff_s8_gemm_qx(

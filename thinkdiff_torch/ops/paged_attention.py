@@ -129,7 +129,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, page_table, lengths, sm_scale):
     from thinkdiff_torch.ops.int8_matmul import _sm_count
 
     ppu, splits = _paged_args(q, k_pool, v_pool, page_table, lengths,
-                              _sm_count(q.device.index or 0))
+                              _sm_count(q.device.index))
     s, h, d = q.shape
     p, hkv, page, _ = k_pool.shape
     q = q.contiguous()

@@ -5,8 +5,11 @@ per-epoch evaluation and the best checkpoint, the final test-split
 evaluation from the best, resume, and ``log.txt`` (one JSON object a
 line).
 
-One process on one card: ``run.mesh`` is read only to refuse a mesh of
-more than one device.
+Over several ranks (``run.mesh``'s data axis is the world; fsdp and model
+sharding are refused): rank 0 makes the output directory before any rank
+writes under it and alone writes the checkpoints and ``log.txt``; every
+rank reads its slice of each split, resumes onto its own card, and waits
+for the others after each epoch.
 """
 
 from __future__ import annotations
@@ -17,24 +20,14 @@ import time
 from typing import Any, Dict, Optional
 
 from thinkdiff_torch.core.distributed import (
-    get_rank, get_world_size, is_main_process)
+    barrier, get_rank, get_world_size, is_main_process)
 from thinkdiff_torch.core.registry import registry
 from thinkdiff_torch.core.utils import append_json_line
 from thinkdiff_torch.engines.checkpoint import CheckpointManager
 from thinkdiff_torch.engines.trainer import Trainer
+from thinkdiff_torch.parallel.mesh import mesh_from_config
 
 logger = logging.getLogger(__name__)
-
-
-def check_one_device_mesh(run_cfg) -> None:
-    """``run.mesh`` ({data, fsdp, model}; data -1 takes what is left) must
-    name one device."""
-    mesh = run_cfg.get("mesh", {}) or {}
-    axes = {k: int(mesh.get(k, d)) for k, d in
-            (("data", -1), ("fsdp", 1), ("model", 1))}
-    if any(v not in (1, -1) for v in axes.values()) or axes["fsdp"] != 1 \
-            or axes["model"] != 1:
-        raise ValueError(f"run.mesh {axes}: the port trains on one device")
 
 
 @registry.register_runner("runner_base")
@@ -62,8 +55,12 @@ class RunnerBase:
         self.output_dir = os.path.join(root, str(run.get("output_dir",
                                                          "output")),
                                        self.job_id)
+        self.result_dir = os.path.join(self.output_dir, "result")
+        if is_main_process():
+            os.makedirs(self.result_dir, exist_ok=True)
+        barrier()
 
-        check_one_device_mesh(run)
+        self.mesh = mesh_from_config(run)
         self.trainer = Trainer(model, run, device=model.device)
         self.ckpt = CheckpointManager(self.output_dir)
         self.start_epoch = 0
@@ -145,10 +142,13 @@ class RunnerBase:
                         continue
                     val = self._evaluate_split(split, splits[split], epoch)
                     self.log_stats(val, split_name=split, epoch=epoch)
-                    if val["agg_metrics"] > best_agg and is_main_process():
+                    # agg_metrics is the same on every rank
+                    if val["agg_metrics"] > best_agg:
                         best_agg = val["agg_metrics"]
-                        self.ckpt.save(self.state, epoch, is_best=True,
-                                       config=self.config.to_dict())
+                        if is_main_process():
+                            self.ckpt.save(self.state, epoch, is_best=True,
+                                           config=self.config.to_dict())
+            barrier()
             if self.evaluate_only:
                 break
 
@@ -173,6 +173,7 @@ class RunnerBase:
                 val = self._evaluate_split(split, splits[split], 0)
                 self.log_stats(val, split_name=split, epoch=cur_epoch)
                 results[split] = val
+        barrier()
         return results
 
     def _reload_best_model(self) -> bool:
@@ -190,8 +191,11 @@ class RunnerBase:
 
     # -- checkpoint ---------------------------------------------------------
     def _load_checkpoint(self, path: str):
+        """Every rank loads the checkpoint onto its own card; rank 0's
+        state is then broadcast, so the replicas are equal."""
         restored = self.ckpt.load(path, self.trainer.device)
-        self.state = {k: restored[k] for k in ("params", "opt_state", "step")}
+        self.state = self.trainer.sync_state(
+            {k: restored[k] for k in ("params", "opt_state", "step")})
         self.start_epoch = restored["epoch"] + 1
 
     # -- logging ------------------------------------------------------------

@@ -30,9 +30,10 @@ def setup_seeds(seed: int) -> None:
 
 
 def bootstrap(args):
-    """-> (cfg, task). The imports fill the port's registry; the device is
-    resolved before anything is built, so a run without a card stops here
-    unless it asks for the CPU."""
+    """-> (cfg, task). The imports fill the port's registry; the launcher's
+    world is joined (its rank's card made current) and the device resolved
+    before anything is built, so ``cuda`` is rank r's card r, and a run
+    without a card stops here unless it asks for the CPU."""
     import thinkdiff_torch.data.builders  # noqa: F401
     import thinkdiff_torch.data.processors  # noqa: F401
     import thinkdiff_torch.engines.embed_engine  # noqa: F401
@@ -45,9 +46,9 @@ def bootstrap(args):
     from thinkdiff_torch.core.logging import setup_logger
     from thinkdiff_torch.tasks import setup_task
 
-    device = resolve_device(args.device)
     cfg = Config(args)
-    init_distributed_mode(cfg.run_cfg)
+    init_distributed_mode(cfg.run_cfg, args.device)
+    device = resolve_device(args.device)
     setup_seeds(int(cfg.run_cfg.get("seed", 42)) + get_rank())
     setup_logger()
     cfg.pretty_print()

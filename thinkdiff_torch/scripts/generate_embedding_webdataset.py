@@ -4,6 +4,10 @@ wids-indexed image dataset, written out as WebDataset embedding shards.
     python -m thinkdiff_torch.scripts.generate_embedding_webdataset \\
         --cfg-path configs/qwen2_vl_embed_ccsbu.yaml [--options k=v ...] \\
         [--device cpu]
+
+On N cards, ``python -m torch.distributed.run --nproc_per_node N -m
+thinkdiff_torch.scripts.generate_embedding_webdataset ...``: rank r reads
+its share of the images and writes its own shard range.
 """
 
 from __future__ import annotations

@@ -7,17 +7,27 @@ step late: right after a step is queued its loss starts a non-blocking
 copy into pinned memory behind an event, and that copy is read after the
 next step is queued, so the host never waits for the step it has just
 queued.
+
+Over several ranks the step's loss is already the global one (the
+trainer's all-reduce), the epoch's meters are summed over the ranks at its
+end, evaluation reduces each batch's loss and accuracy counts over the
+ranks, which run the same number of eval batches, and ``save_result``
+merges the ranks' result files on rank 0.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from thinkdiff_torch.core.distributed import get_rank, is_main_process
+from thinkdiff_torch.core.distributed import (
+    all_reduce_min, all_reduce_sum, barrier, get_rank, get_world_size,
+    is_main_process)
 from thinkdiff_torch.core.logging import MetricLogger, SmoothedValue
 from thinkdiff_torch.core.registry import registry
 
@@ -114,11 +124,12 @@ class BaseTask:
                     profile_dir: Optional[str] = None):
         """``iters_per_epoch`` micro-steps; returns (state, the epoch's
         averaged metrics as strings). Accumulation happens in the
-        optimizer; wandb is logged once an optimizer step."""
-        if profile_dir:
-            raise NotImplementedError(
-                "run.profile_dir: the port's training trace is not written "
-                "yet")
+        optimizer; wandb is logged once an optimizer step. With
+        ``profile_dir``, epoch 0's iterations are traced by torch.profiler
+        into ``profile_dir/trace_rank{rank}.json`` (a Chrome trace)."""
+        prof = None
+        if profile_dir and epoch == 0:
+            prof = _start_profile(trainer.device)
         metric_logger = MetricLogger(delimiter="  ")
         metric_logger.add_meter("lr", SmoothedValue(window_size=50,
                                                     fmt="{value:.6f}"))
@@ -147,6 +158,9 @@ class BaseTask:
             pending, pending_i = late, i
         if pending is not None:
             flush(pending, pending_i)
+        if prof is not None:
+            _stop_profile(prof, profile_dir)
+        metric_logger.synchronize_between_processes()
         logger.info("Averaged stats: %s", metric_logger.global_avg())
         stats = {k: "{:.6f}".format(m.global_avg)
                  for k, m in metric_logger.meters.items()}
@@ -164,29 +178,106 @@ class BaseTask:
                    best_metric: str = "loss"):
         """An eval pass. ``agg_metrics`` (the runner keeps the checkpoint
         with the highest) is -mean(loss), or with ``best_metric:
-        token_acc`` the token-weighted teacher-forced accuracy."""
+        token_acc`` the token-weighted teacher-forced accuracy. Over
+        several ranks each batch's loss is the token mean of the global
+        batch and the accuracy counts are summed, so every rank returns
+        the same metrics; before each batch the ranks agree to go on only
+        while every one of them has a batch (one rank's loader may run
+        out first), so their collectives stay in step."""
         losses = []
         correct = total = 0.0
         want_acc = best_metric == "token_acc"
-        for i, batch in enumerate(data_loader):
-            if max_batches is not None and i >= max_batches:
+        distributed = get_world_size() > 1
+        data_iter = iter(data_loader)
+        i = 0
+        while max_batches is None or i < max_batches:
+            batch = next(data_iter, None)
+            if distributed and not all_reduce_min(batch is not None):
                 break
+            if batch is None:
+                break
+            i += 1
             batch = trainer.prepare_batch(batch)
             stats = trainer.eval_metrics_step(state, batch) if want_acc else None
-            if stats is not None:
-                loss, n_ok, n_tok = (float(x) for x in stats)
-                losses.append(loss)
-                correct += n_ok
-                total += n_tok
-            else:
+            if stats is None:
                 want_acc = False
-                losses.append(float(trainer.eval_step(state, batch)))
+                loss = trainer.eval_step(state, batch)
+                stats = (loss, torch.zeros_like(loss),
+                         trainer.model.label_count(batch))
+            if distributed:
+                stats = _global_eval_stats(*stats)
+            loss, n_ok, n_tok = (float(x) for x in stats)
+            losses.append(loss)
+            correct += n_ok
+            total += n_tok
         out = {"agg_metrics": -float(np.mean(losses)) if losses else 0.0,
                "loss": float(np.mean(losses)) if losses else 0.0}
         if want_acc and total:
             out["token_acc"] = correct / total
             out["agg_metrics"] = out["token_acc"]
         return out
+
+
+def _global_eval_stats(loss, n_ok, n_tok):
+    """(the global batch's token-mean loss, correct, tokens) from this
+    rank's: one all-reduce of [loss x tokens, correct, tokens]."""
+    n_tok = n_tok.float()
+    t = torch.stack([loss.float() * n_tok, n_ok.float(), n_tok])
+    all_reduce_sum(t)
+    return t[0] / t[2].clamp(min=1.0), t[1], t[2]
+
+
+def _start_profile(device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str) -> str:
+    """Ends the trace and writes it as profile_dir/trace_rank{rank}.json."""
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_rank{get_rank()}.json")
+    prof.export_chrome_trace(path)
+    logger.info("training trace of epoch 0 written to %s", path)
+    return path
+
+
+def save_result(result, result_dir: str, filename: str,
+                remove_duplicate: str = "") -> str:
+    """The ranks' results merged: each rank writes
+    ``{filename}_rank{r}.json``; after a barrier rank 0 concatenates them
+    in rank order (keeping the first item of each ``remove_duplicate``
+    key) into ``{filename}.json``; a second barrier lets no rank read it
+    early. Returns the merged file's path."""
+    os.makedirs(result_dir, exist_ok=True)
+    with open(os.path.join(result_dir, f"{filename}_rank{get_rank()}.json"),
+              "w") as f:
+        json.dump(result, f)
+    barrier()
+    final_file = os.path.join(result_dir, f"{filename}.json")
+    if is_main_process():
+        merged = []
+        for rank in range(get_world_size()):
+            with open(os.path.join(result_dir,
+                                   f"{filename}_rank{rank}.json")) as f:
+                merged += json.load(f)
+        if remove_duplicate:
+            seen, deduped = set(), []
+            for item in merged:
+                key = item.get(remove_duplicate)
+                if key not in seen:
+                    seen.add(key)
+                    deduped.append(item)
+            merged = deduped
+        with open(final_file, "w") as f:
+            json.dump(merged, f)
+        logger.info("result file saved to %s", final_file)
+    barrier()
+    return final_file
 
 
 @registry.register_task("image_text_pretrain")
