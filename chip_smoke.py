@@ -48,7 +48,11 @@ non-zero:
                 kv_mask), RMSNorm at the encoder's 4096 rows of 4096; the
                 flash forward at CogVideoX-5b's joint attention (B1 H48 D64,
                 T17776 and T1576, against mha_reference two heads at a
-                time, planted faults, cold L2, one launch a call);
+                time, planted faults, cold L2, one launch a call); the
+                flash forward at the CoBSAT scorer's CLIP-L ViT (B32 H16
+                T257 D64, cold L2, one launch a call) and, with dq and
+                dk/dv, at a Llama-2-7B LoRA step's B4 H32 T512 D128 causal,
+                and RMSNorm at its 2048 rows of 4096;
   4. train-w8a8 — the LVLM aligner's training step: configs/
                 train_thinkdiff_lvlm_ccsbu.yaml's model and run sections with
                 bench.py's overrides (w8a8 frozen flan-t5-xxl decoder at full
@@ -60,6 +64,11 @@ non-zero:
                 2-layer copy's loss and projector gradients against the same
                 step on the CPU's plain versions; 10 steps on one batch at
                 lr 1e-3 must lower the loss; one step under torch.profiler;
+     calibrate — SmoothQuant calibration of the same w8a8 flan-t5-xxl
+                decoder (full width and depth): calibrate_w8a8 over 4 of
+                bench.py's packed batches (launches, input_scales changed,
+                seconds), then the gradient check on a 2-layer copy
+                calibrated alike;
   5. train-yaml — the shipped YAML as written (bf16 frozen T5, unfused,
                 CE chunk 32) on 4 padded batches of 32 (bench.py's buckets);
   6. ops      — the ops no model path runs, through their entry points:
@@ -90,6 +99,12 @@ non-zero:
                 the shards, 2 epochs of 4 steps), then resumed from
                 checkpoint_0.pth: epoch 1's steps and lr equal, losses within
                 2.2e-4 relative, projector cosine >= 0.995;
+     native   — between the two stages, on stage 1's 256 JPEGs: the C++
+                batch decode (data/native.py) to 224² against the PIL
+                processor within JAX's bounds, both paths' imgs/s; where
+                the machine lacks jpeglib.h or libjpeg it prints
+                "native: unavailable (<reason>)" and times the PIL path
+                (where they exist, a library that does not build fails);
      ddp      — then both stages again on several ranks, each a process
                 of its own (chip_smoke.py --ddp-child) started by python -m
                 torch.distributed.run: stage 2 at world 1 with an NCCL
@@ -191,7 +206,20 @@ non-zero:
                 then ddp clip: two steps of the same YAML at two ranks on
                 the one card (gloo), both T5 stacks cut to 12 layers (two
                 full ranks would not fit one card), against the world-1
-                run on the concatenated batches, the ddp limits.
+                run on the concatenated batches, the ddp limits; every
+                cc_sbu loader's path (the C++ decode where the library
+                builds) checked from its log line;
+ 19. cobsat  — the CoBSAT CLIP scorer at CLIP-L's full width (bf16,
+                seeded): 32 448x448 images against 2 x 8 candidates, the
+                launches, every flash call against mha_reference, the
+                embeddings against the plain attention (with two
+                yardsticks), then the score_cobsat CLI on PNGs;
+ 20. lora    — Llama-2-7B's geometry in bf16 with LoRA r 8 on q/v: the
+                merged logits at init equal the base's, 4 AdamW steps at
+                B4 T512 (launches, ms a step, peak), the full-depth loss and
+                adapter gradients against the plain versions (printed, with
+                SDPA's beside them), and the gradient check on a 2-layer
+                copy.
 Every serving slice runs at full width and depth on seeded random weights
 and the stand-in tokenizer, on the engine's default device: Qwen2-VL-2B
 (w8a8 LM with fused projections, weight-only int8 vision) in 7-12, 7B in 13.
@@ -205,13 +233,14 @@ kernel's launches in the cli phase's two stages, in lvlm-flux, clip-flux
 (the single-image CLI's path), lvlm-flux-clis (the multi-image CLI's
 path), clip-video and clip-train beside them, and the ddp phase's per
 rank: ddp_train_launches (two ranks, gloo), ddp_stage1_launches,
-ddp_world1_launches, ddp_clip_launches) and
-{"ok": true, "device": {...}}.
+ddp_world1_launches, ddp_clip_launches; calibrate_launches,
+cobsat_launches and lora_launches) and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import re
@@ -406,13 +435,18 @@ def expect_one_launch(phase: str, label: str, fn, kernel: str) -> None:
     """Fail unless one call of ``fn`` (after a warm call) puts exactly one
     operation on the card, torch.profiler's count: the kernel named
     ``kernel`` (no copy, fill, second pass or allocation's memset). A trace
-    with no device event at all (torch.profiler lost them: seen once in a
-    full run on an H100) is taken again, up to three times."""
+    with no device event at all (torch.profiler lost them: seen on an H100,
+    once three traces in a row) is taken again after a pause, up to five
+    traces, and the retakes are printed."""
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace that caught no event at all is taken again
+    for attempt in range(5):  # a trace that caught no event is taken again
+        if attempt:
+            say(phase, f"{label}: trace {attempt} caught no device event; "
+                "taken again")
+            time.sleep(1.0)
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1651,6 +1685,17 @@ def attention_cases():
 
 
 def kernels_attention_train(results):
+    for i, (label, q, k, v, do, kw) in enumerate(attention_cases()):
+        check_attention(results, "train " + label, q, k, v, do, kw,
+                        main=i == 0)
+
+
+def check_attention(results, label, q, k, v, do, kw, main=False):
+    """The flash forward (#1) with its lse, and the backward's dq (#5) and
+    dk/dv (#6), on one training attention against their plain versions,
+    with SDPA as the library yardstick; views of (B, T, H, D) memory are
+    checked to be taken without copies, and pad query rows to add
+    nothing."""
     import torch.nn.functional as F
 
     from thinkdiff_torch.ops import flash_attention as fa
@@ -1663,102 +1708,101 @@ def kernels_attention_train(results):
     fwd_tol = "2e-2 + 2e-2*|ref| (P rounded to bf16; bf16 output)"
     bwd_tol = f"{BWD_TOL:g} * max|ref| per tensor (P, dS rounded to bf16)"
     bwd_ok = lambda e, r: e <= BWD_TOL * r.abs().max()
-    for i, (label, q, k, v, do, kw) in enumerate(attention_cases()):
-        args = [kw[n] for n in names]
-        ok = fa._allowed(q, k, kw["kv_mask"], kw["causal"],
-                         kw["q_segment_ids"], kw["kv_segment_ids"])
-        full = (q.shape[0], 1, q.shape[2], k.shape[2])
-        ok = torch.ones(full, dtype=torch.bool, device="cuda") if ok is None \
-            else ok.expand(full)
-        pairs = int(ok.sum()) * q.shape[1]
-        dead = ~ok.any(-1)                                   # (B, 1, Tq)
-        d = q.shape[-1]
-        side = nbytes(*[x for x in (kw["bias"], kw["kv_mask"],
-                                    kw["q_segment_ids"], kw["kv_segment_ids"])
-                        if x is not None])
-        lse_bytes = q.shape[0] * q.shape[1] * q.shape[2] * 4
-        mask = torch.where(ok, 0.0, -1e30)
-        if kw["bias"] is not None:
-            mask = mask + kw["bias"]
-        mask = mask.to(torch.bfloat16)
-        gqa = q.shape[1] != k.shape[1]
+    args = [kw[n] for n in names]
+    ok = fa._allowed(q, k, kw["kv_mask"], kw["causal"],
+                     kw["q_segment_ids"], kw["kv_segment_ids"])
+    full = (q.shape[0], 1, q.shape[2], k.shape[2])
+    ok = torch.ones(full, dtype=torch.bool, device="cuda") if ok is None \
+        else ok.expand(full)
+    pairs = int(ok.sum()) * q.shape[1]
+    dead = ~ok.any(-1)                                   # (B, 1, Tq)
+    d = q.shape[-1]
+    side = nbytes(*[x for x in (kw["bias"], kw["kv_mask"],
+                                kw["q_segment_ids"], kw["kv_segment_ids"])
+                    if x is not None])
+    lse_bytes = q.shape[0] * q.shape[1] * q.shape[2] * 4
+    mask = torch.where(ok, 0.0, -1e30)
+    if kw["bias"] is not None:
+        mask = mask + kw["bias"]
+    mask = mask.to(torch.bfloat16)
+    gqa = q.shape[1] != k.shape[1]
 
-        out, lse = fa._forward_cuda(q, k, v, *args, with_lse=True)
-        lse_ref = fa.logsumexp_reference(q, k, *args)
-        lse_err = float((lse - lse_ref).abs().max())
-        if not lse_err <= LSE_TOL:
-            raise AssertionError(f"flash forward lse {label}: max |err| "
-                                 f"{lse_err} > {LSE_TOL:g}")
-        say("kernels", f"flash_attention_fwd lse {label}: max|err| "
-            f"{lse_err:.3g} within {LSE_TOL:g} of the plain logsumexp")
-        results["flash_attention_fwd"].append(check(
-            "flash_attention_fwd", "train " + label,
-            lambda: fa._forward_cuda(q, k, v, *args, with_lse=True)[0],
-            lambda: fa.mha_reference(q, k, v, *args),
-            lambda e, r: e <= 2e-2 + 2e-2 * r.abs(), fwd_tol,
-            (nbytes(q, k, v, q) + side + lse_bytes, 4 * pairs * d, "bf16"),
-            library=lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, scale=kw["sm_scale"],
-                enable_gqa=gqa),
-            main=i == 0))
+    out, lse = fa._forward_cuda(q, k, v, *args, with_lse=True)
+    lse_ref = fa.logsumexp_reference(q, k, *args)
+    lse_err = float((lse - lse_ref).abs().max())
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash forward lse {label}: max |err| "
+                             f"{lse_err} > {LSE_TOL:g}")
+    say("kernels", f"flash_attention_fwd lse {label}: max|err| "
+        f"{lse_err:.3g} within {LSE_TOL:g} of the plain logsumexp")
+    results["flash_attention_fwd"].append(check(
+        "flash_attention_fwd", label,
+        lambda: fa._forward_cuda(q, k, v, *args, with_lse=True)[0],
+        lambda: fa.mha_reference(q, k, v, *args),
+        lambda e, r: e <= 2e-2 + 2e-2 * r.abs(), fwd_tol,
+        (nbytes(q, k, v, q) + side + lse_bytes, 4 * pairs * d, "bf16"),
+        library=lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=kw["sm_scale"],
+            enable_gqa=gqa),
+        main=main))
 
-        # the SDPA backward (dq, dk and dv in one call) as the yardstick
-        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                              scale=kw["sm_scale"],
-                                              enable_gqa=gqa)
-        library = lambda: torch.autograd.grad(sdpa, (qg, kg, vg), do,
-                                              retain_graph=True)
-        bargs = (q, k, v, *args, lse, do)
-        _, delta = fa.flash_dq_cuda(*bargs)
-        results["flash_attention_dq"].append(check(
-            "flash_attention_dq", label,
-            lambda: fa.flash_dq_cuda(*bargs)[0],
-            lambda: fa.flash_dq_reference(*bargs)[0], bwd_ok, bwd_tol,
-            (nbytes(q, k, v, do, q) + side + 2 * lse_bytes, 6 * pairs * d,
-             "bf16"), library=library, main=i == 0))
-        results["flash_attention_dkv"].append(check(
-            "flash_attention_dkv", label,
-            lambda: fa.flash_dkv_cuda(*bargs, delta),
-            lambda: fa.flash_dkv_reference(*bargs, delta), bwd_ok, bwd_tol,
-            (nbytes(q, k, v, do, k, v) + side + 2 * lse_bytes,
-             8 * pairs * d, "bf16"), library=library, main=i == 0))
-        if "T5 layout" in label:
-            # the training path's layout: no copy of q, k, v or dO (the
-            # backward allocates dq, dk, dv and delta, nothing more), and
-            # dq/dk/dv come back as views of (B, T, H, D) memory
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            got = fa.flash_attention_backward(q, k, v, *args, lse, do)
-            torch.cuda.synchronize()
-            extra = torch.cuda.max_memory_allocated() - base
-            outs = nbytes(*got) + lse_bytes
-            if not (all(g.transpose(1, 2).is_contiguous() for g in got)
-                    and extra <= outs + 65536):
-                raise AssertionError(
-                    f"flash backward {label}: {extra} B allocated for "
-                    f"{outs} B of outputs, layouts "
-                    f"{[tuple(g.stride()) for g in got]}")
-            say("kernels", f"flash backward {label}: {extra} B allocated for "
-                f"{outs} B of dq, dk, dv and delta (no operand copy); dq, dk, "
-                "dv are views of (B, T, H, D) memory")
-        if dead.any():
-            # pad query rows: finite, dq 0, and dk/dv bit-identical whether
-            # their dO is poisoned or zero
-            poisoned = torch.where(dead[..., None], torch.full_like(do, 1e4),
-                                   do)
-            zeroed = do * (~dead)[..., None].to(do.dtype)
-            a = fa.flash_attention_backward(q, k, v, *args, lse, poisoned)
-            z = fa.flash_attention_backward(q, k, v, *args, lse, zeroed)
-            torch.cuda.synchronize()
-            if not (all(torch.isfinite(x.float()).all() for x in a)
-                    and float((a[0].float() * dead[..., None]).abs().max()) == 0
-                    and torch.equal(a[1], z[1]) and torch.equal(a[2], z[2])):
-                raise AssertionError(f"flash backward {label}: pad rows leak")
-            say("kernels", f"flash backward {label}: {int(dead.sum())} pad "
-                "query rows per head with dO poisoned (1e4): gradients "
-                "finite, dq 0 there, dk/dv bit-identical to zeroed dO")
+    # the SDPA backward (dq, dk and dv in one call) as the yardstick
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                          scale=kw["sm_scale"],
+                                          enable_gqa=gqa)
+    library = lambda: torch.autograd.grad(sdpa, (qg, kg, vg), do,
+                                          retain_graph=True)
+    bargs = (q, k, v, *args, lse, do)
+    _, delta = fa.flash_dq_cuda(*bargs)
+    results["flash_attention_dq"].append(check(
+        "flash_attention_dq", label,
+        lambda: fa.flash_dq_cuda(*bargs)[0],
+        lambda: fa.flash_dq_reference(*bargs)[0], bwd_ok, bwd_tol,
+        (nbytes(q, k, v, do, q) + side + 2 * lse_bytes, 6 * pairs * d,
+         "bf16"), library=library, main=main))
+    results["flash_attention_dkv"].append(check(
+        "flash_attention_dkv", label,
+        lambda: fa.flash_dkv_cuda(*bargs, delta),
+        lambda: fa.flash_dkv_reference(*bargs, delta), bwd_ok, bwd_tol,
+        (nbytes(q, k, v, do, k, v) + side + 2 * lse_bytes,
+         8 * pairs * d, "bf16"), library=library, main=main))
+    if "T5 layout" in label:
+        # the training path's layout: no copy of q, k, v or dO (the
+        # backward allocates dq, dk, dv and delta, nothing more), and
+        # dq/dk/dv come back as views of (B, T, H, D) memory
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = fa.flash_attention_backward(q, k, v, *args, lse, do)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        outs = nbytes(*got) + lse_bytes
+        if not (all(g.transpose(1, 2).is_contiguous() for g in got)
+                and extra <= outs + 65536):
+            raise AssertionError(
+                f"flash backward {label}: {extra} B allocated for "
+                f"{outs} B of outputs, layouts "
+                f"{[tuple(g.stride()) for g in got]}")
+        say("kernels", f"flash backward {label}: {extra} B allocated for "
+            f"{outs} B of dq, dk, dv and delta (no operand copy); dq, dk, "
+            "dv are views of (B, T, H, D) memory")
+    if dead.any():
+        # pad query rows: finite, dq 0, and dk/dv bit-identical whether
+        # their dO is poisoned or zero
+        poisoned = torch.where(dead[..., None], torch.full_like(do, 1e4),
+                               do)
+        zeroed = do * (~dead)[..., None].to(do.dtype)
+        a = fa.flash_attention_backward(q, k, v, *args, lse, poisoned)
+        z = fa.flash_attention_backward(q, k, v, *args, lse, zeroed)
+        torch.cuda.synchronize()
+        if not (all(torch.isfinite(x.float()).all() for x in a)
+                and float((a[0].float() * dead[..., None]).abs().max()) == 0
+                and torch.equal(a[1], z[1]) and torch.equal(a[2], z[2])):
+            raise AssertionError(f"flash backward {label}: pad rows leak")
+        say("kernels", f"flash backward {label}: {int(dead.sum())} pad "
+            "query rows per head with dO poisoned (1e4): gradients "
+            "finite, dq 0 there, dk/dv bit-identical to zeroed dO")
 
 
 TRAIN_PROJECTIONS = ((1024, 4096, 12288, "qkv"),
@@ -2179,6 +2223,8 @@ def phase_kernels():
     kernels_int8_gemv(results["int8_matmul"])
     kernels_int8_wide(results)
     kernels_s8_qx(results["s8_matmul_qx"])
+    kernels_cobsat(results["flash_attention_fwd"])
+    kernels_lora(results)
     torch.cuda.empty_cache()
     return results
 
@@ -2246,9 +2292,10 @@ def _grad_step(model, frozen, row, dev):
             time.perf_counter() - t0)
 
 
-def _two_layer_copy(model_cfg, seed):
-    """The w8a8 model cut to 2 decoder layers at full width, and the same
-    frozen T5 on the CPU (plain versions)."""
+def _two_layer_copy(model_cfg, seed, calibrate=None):
+    """The w8a8 model cut to 2 decoder layers at full width (calibrated on
+    the card with ``calibrate_w8a8(calibrate)`` when batches are given),
+    and the same frozen T5 on the CPU (plain versions)."""
     from thinkdiff_torch.models.aligner_lvlm import MllamaT5EmbedDecoder
     from thinkdiff_torch.models.bridge import load_params, tree_of
     from thinkdiff_torch.models.t5 import T5ForConditionalGeneration
@@ -2256,6 +2303,8 @@ def _two_layer_copy(model_cfg, seed):
     cfg = dict(model_cfg)
     cfg["t5_config"] = {**cfg["t5_config"], "num_decoder_layers": 2}
     model = MllamaT5EmbedDecoder(cfg, seed=seed)
+    if calibrate is not None:
+        model.calibrate_w8a8(calibrate)
     cpu_t5 = T5ForConditionalGeneration(model.t5_cfg, device="cpu")
     load_params(cpu_t5, tree_of(model.frozen["t5"], lambda _, t: t))
     return model, {"t5": cpu_t5}
@@ -2310,11 +2359,12 @@ def gradient_draws(seeds=range(5)):
     return worst
 
 
-def gradient_check(model_cfg, batch):
-    """A 2-layer copy of the w8a8 model at full width: loss and projector
-    gradients of one packed row on the card (the kernels) against the same
-    step through the plain versions on the CPU."""
-    model, cpu = _two_layer_copy(model_cfg, SEED + 5)
+def gradient_check(model_cfg, batch, calibrate=None, phase="train-w8a8"):
+    """A 2-layer copy of the w8a8 model at full width (equalized by
+    ``calibrate_w8a8(calibrate)`` when batches are given): loss and
+    projector gradients of one packed row on the card (the kernels)
+    against the same step through the plain versions on the CPU."""
+    model, cpu = _two_layer_copy(model_cfg, SEED + 5, calibrate)
     row = {k: v[:1] for k, v in batch.items()}
     lk, gk, _ = _grad_step(model, model.frozen, row, model.device)
     lp, gp, tp = _grad_step(model, cpu, row, torch.device("cpu"))
@@ -2324,7 +2374,8 @@ def gradient_check(model_cfg, batch):
     ratio = {n: float(gk[n].double().norm() / gp[n].double().norm())
              for n in gk}
     lo, hi = GRAD_NORM_RATIO
-    say("train-w8a8", f"gradient check, 2 decoder layers at full width, one "
+    say(phase, f"gradient check, 2 decoder layers at full width"
+        + (", calibrated," if calibrate is not None else ",") + " one "
         f"packed row ({int((row['labels'] >= 0).sum())} label tokens): loss "
         f"card {lk:.6f} vs CPU plain {lp:.6f} (rel {rel:.2e}, limit "
         f"{GRAD_LOSS_TOL:g}); projector gradient cosine "
@@ -2334,7 +2385,7 @@ def gradient_check(model_cfg, batch):
         + f" (band {lo}-{hi}); CPU step {tp:.1f} s")
     if (rel > GRAD_LOSS_TOL or min(cos.values()) < GRAD_COS_MIN
             or not all(lo <= r <= hi for r in ratio.values())):
-        raise AssertionError("train-w8a8: gradient check failed")
+        raise AssertionError(f"{phase}: gradient check failed")
     return rel, min(cos.values())
 
 
@@ -3135,6 +3186,7 @@ def phase_cli(base_cfg, cfg, params, yaml_step_ms):
     try:
         stage1 = cli_stage1(base_cfg, cfg, params)
         torch.cuda.empty_cache()
+        stage1["native"] = phase_native(stage1["index"])
         stage2 = cli_stage2(stage1, yaml_step_ms)
         torch.cuda.empty_cache()
         ddp = phase_ddp(stage1, stage2)
@@ -3325,6 +3377,11 @@ class ClipStandInTokenizer:
             ids = ([self.BOS] + words)[:max_length - 1] + [self.EOS]
             rows.append(ids + [self.EOS] * (max_length - len(ids)))
         return {"input_ids": np.asarray(rows, np.int64)}
+
+    def encode(self, text):
+        """One text's ids, unpadded (the CoBSAT scorer pads with EOS)."""
+        return [int(i) for i in self([text], max_length=77)["input_ids"][0]
+                if i != self.EOS] + [self.EOS]
 
 
 @torch.no_grad()
@@ -4082,7 +4139,8 @@ def phase_clip_train():
     torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(Trainer, "train_step", recorded), \
             mock.patch.object(BlipVisionT5Decoder, "get_t5_tokenizer",
-                              lambda self: tok):
+                              lambda self: tok), CapturedLog(
+                "thinkdiff_torch.data.builders", CC_SBU_LOG) as data_log:
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         runner = train.main(argv)
@@ -4145,8 +4203,10 @@ def phase_clip_train():
     phase_profile_train(runner.trainer, runner.state, b,
                         label="CLIP training step (batch 32: ViT-g, flan-t5-"
                         "xxl bf16 encoder + decoder, 128 + 128 tokens)")
+    data_path = check_data_path("clip-train", data_log.lines)
     return launches, {"step_ms": step_ms, "wall_s": wall, "peak_gib": peak,
-                      "grad": grad, "storage": storage}
+                      "grad": grad, "storage": storage,
+                      "data_path": data_path}
 
 
 # ---------------------------------------------------------------------------
@@ -5023,7 +5083,8 @@ def ddp_child_train(flags, train_argv):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        with standin_tokenizers():
+        with standin_tokenizers(), CapturedLog(
+                "thinkdiff_torch.data.builders", CC_SBU_LOG) as data_log:
             runner = train.main(train_argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -5045,7 +5106,7 @@ def ddp_child_train(flags, train_argv):
         "grad_norms": [float(r["grad_norm"]) for r in record],
         "step_ms": statistics.median(gaps) * 1e3 if gaps else None,
         "peak_gib": peak, "launches": launches, "profile": profile or None,
-        "output_dir": str(runner.output_dir),
+        "output_dir": str(runner.output_dir), "data_path": data_log.lines,
         "t5_layers": [runner.model.t5_cfg.num_layers,
                       runner.model.t5_cfg.num_decoder_layers]}
 
@@ -5419,9 +5480,635 @@ def phase_ddp_clip(storage):
                    if r["launches"][k] == 0]
         if missing:
             raise AssertionError(f"ddp clip: not launched {missing}")
+        for r in ranks:
+            check_data_path(f"ddp clip rank {r['rank']}", r["data_path"])
     finally:
         shutil.rmtree(out, ignore_errors=True)
     return ranks
+
+
+# ---------------------------------------------------------------------------
+# The modules of the last slice: native IO, SmoothQuant calibration, the
+# CoBSAT scorer, Llama with LoRA
+# ---------------------------------------------------------------------------
+
+NATIVE_IMAGES = 256
+NATIVE_SIZE = 224
+# JAX's bounds for the C++ decode against the PIL processor
+# (tests/test_native_io.py): per image, median |diff| and correlation
+NATIVE_MEDIAN_MAX, NATIVE_CORR_MIN = 0.05, 0.99
+# a cc_sbu loader's log line that names the path it took
+CC_SBU_LOG = "cc_sbu:"
+
+
+def jpeg_toolchain():
+    """None when g++ compiles against jpeglib.h and ldconfig lists
+    libjpeg (the native library can build here), else the reason."""
+    src = "#include <cstddef>\n#include <cstdio>\n#include <jpeglib.h>\n"
+    try:
+        cc = subprocess.run(["g++", "-x", "c++", "-fsyntax-only", "-"],
+                            input=src, capture_output=True, text=True,
+                            timeout=60)
+        libs = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                              text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"{type(e).__name__}: {e}"
+    if cc.returncode != 0:
+        err = [x for x in cc.stderr.splitlines() if "error" in x] or [
+            cc.stderr.strip()]
+        return err[0].replace("<stdin>:3:10: ", "")[:200]
+    if "libjpeg.so" not in libs:
+        return "ldconfig lists no libjpeg.so"
+    return None
+
+
+def native_expected(phase):
+    """Whether the native IO library must be taken on this machine: it
+    must when the JPEG toolchain is here (then a library that fails to
+    build fails the phase); otherwise the phase prints why it is
+    unavailable and checks the decoded path only."""
+    from thinkdiff_torch.data import native
+
+    missing = jpeg_toolchain()
+    if native.available():
+        say(phase, f"native IO library {native.library_path().name} (g++ "
+            f"{' '.join(native.CXX_FLAGS + native.LINK_FLAGS)})")
+        return True
+    if missing is None:
+        raise AssertionError(f"{phase}: jpeglib.h and libjpeg are here but "
+                             f"the native library is unavailable: "
+                             f"{native.unavailable_reason()}")
+    say(phase, f"native: unavailable ({missing}; "
+        f"{native.unavailable_reason()})")
+    return False
+
+
+def check_data_path(phase, lines):
+    """The cc_sbu loaders' log lines of a run: at least one, and each the
+    native path when the library is available here (the decoded path
+    otherwise). Prints and returns the first."""
+    from thinkdiff_torch.data import native
+
+    want = ("native JPEG decode" if native.available()
+            else "decoded-sample path")
+    if not lines or not all(want in x for x in lines):
+        raise AssertionError(f"{phase}: cc_sbu loaders took {lines}, "
+                             f"expected the {want}")
+    say(phase, f"{len(lines)} cc_sbu loader(s): {lines[0]}")
+    return lines[0]
+
+
+class CapturedLog(logging.Handler):
+    """The messages of ``logger`` that start with ``prefix``, while open."""
+
+    def __init__(self, logger, prefix):
+        super().__init__(logging.INFO)
+        self.logger, self.prefix, self.lines = (logging.getLogger(logger),
+                                                prefix, [])
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith(self.prefix):
+            self.lines.append(msg)
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+
+def phase_native(index):
+    """The C++ batch decode (``data/native.py``) on NATIVE_IMAGES of the cli
+    phase's 448x448 JPEGs to NATIVE_SIZE², against the PIL processor
+    (BlipImageEvalProcessor) image for image within JAX's bounds, and both
+    paths' images a second. Returns its record."""
+    import io
+
+    from PIL import Image
+
+    from thinkdiff_torch.data import native
+    from thinkdiff_torch.data.processors import (
+        CLIP_MEAN, CLIP_STD, BlipImageEvalProcessor)
+    from thinkdiff_torch.data.wids_reader import ShardListDataset
+
+    ds = ShardListDataset(index, decode=False)
+    jpegs = [ds[i]["jpg"] for i in range(NATIVE_IMAGES)]
+    record = {"native": native_expected("native"), "images": len(jpegs)}
+    proc = BlipImageEvalProcessor(image_size=NATIVE_SIZE)
+    t0 = time.perf_counter()
+    plain = [proc(Image.open(io.BytesIO(j))) for j in jpegs]
+    plain_s = time.perf_counter() - t0
+    record["pil_imgs_per_s"] = len(jpegs) / plain_s
+    if not record["native"]:
+        say("native", f"PIL processor (one thread): {len(jpegs)} images in "
+            f"{plain_s:.2f} s, {record['pil_imgs_per_s']:.1f} imgs/s")
+        return record
+    native.decode_resize_normalize_batch(jpegs[:8], NATIVE_SIZE, CLIP_MEAN,
+                                         CLIP_STD)  # warm
+    t0 = time.perf_counter()
+    got = native.decode_resize_normalize_batch(jpegs, NATIVE_SIZE, CLIP_MEAN,
+                                               CLIP_STD)
+    native_s = time.perf_counter() - t0
+    record["native_imgs_per_s"] = len(jpegs) / native_s
+    med, corr = [], []
+    for i, ref in enumerate(plain):
+        ref = np.asarray(ref)
+        med.append(float(np.median(np.abs(got[i] - ref))))
+        corr.append(float(np.corrcoef(got[i].ravel(), ref.ravel())[0, 1]))
+    record.update(median_max=max(med), corr_min=min(corr))
+    say("native", f"{len(jpegs)} JPEGs of 448² to {NATIVE_SIZE}²: C++ batch "
+        f"decode (8 threads) {native_s:.3f} s = "
+        f"{record['native_imgs_per_s']:.1f} imgs/s, PIL processor (one "
+        f"thread) {plain_s:.2f} s = {record['pil_imgs_per_s']:.1f} imgs/s; "
+        f"against PIL per image: median |diff| <= {max(med):.4f} (limit "
+        f"{NATIVE_MEDIAN_MAX}), correlation >= {min(corr):.5f} (limit "
+        f"{NATIVE_CORR_MIN})")
+    if got.shape != (len(jpegs), NATIVE_SIZE, NATIVE_SIZE, 3) or not (
+            np.isfinite(got).all() and max(med) < NATIVE_MEDIAN_MAX
+            and min(corr) > NATIVE_CORR_MIN):
+        raise AssertionError(f"native: the C++ decode disagrees with PIL "
+                             f"{got.shape} {max(med)} {min(corr)}")
+    return record
+
+
+CALIBRATE_BATCHES = 4
+
+
+def phase_calibrate():
+    """SmoothQuant calibration of the w8a8 flan-t5-xxl decoder as
+    train-w8a8 builds it (full width and depth, fused projections):
+    ``calibrate_w8a8`` over CALIBRATE_BATCHES of bench.py's packed 4 x
+    256/256 batches, its launches (counts set to 0 just before), how many
+    ``input_scale``s changed, the seconds; the loss of one batch before and
+    after; then the gradient check on a 2-layer copy calibrated the same
+    way (the equalized tower's loss and projector gradients through the
+    kernels against the CPU's plain versions). Returns (launches, rates)."""
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.data.synthetic import build_batches_packed
+    from thinkdiff_torch.models.aligner_lvlm import MllamaT5EmbedDecoder
+    from thinkdiff_torch.models.bridge import flatten, tree_of
+
+    model_cfg, _ = train_config(BENCH_OVERRIDES)
+    model = MllamaT5EmbedDecoder(model_cfg, seed=SEED)
+    host, _ = build_batches_packed(np.random.RandomState(SEED + 40),
+                                   CALIBRATE_BATCHES, BENCH_ROWS, BENCH_CAP,
+                                   BENCH_CAP, model.vlm_hidden,
+                                   model.t5_cfg.vocab_size)
+    dev = lambda b: {k: torch.from_numpy(v).to(model.device)
+                     for k, v in b.items()}
+    scales = lambda: {k: v.clone() for k, v in flatten(tree_of(
+        model.frozen["t5"], lambda _, t: t)).items()
+        if k.endswith("input_scale")}
+    with torch.no_grad():
+        loss0 = float(model.loss_fn(model.trainable, model.frozen,
+                                    dev(host[0])))
+    before = scales()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.calibrate_w8a8(host)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    after = scales()
+    with torch.no_grad():
+        loss1 = float(model.loss_fn(model.trainable, model.frozen,
+                                    dev(host[0])))
+    changed = sum(not torch.equal(after[k], before[k]) for k in before)
+    ranges = torch.cat([v for v in after.values()])
+    say("calibrate", f"calibrate_w8a8 over {CALIBRATE_BATCHES} packed "
+        f"batches ({BENCH_ROWS} x {BENCH_CAP}/{BENCH_CAP}): {seconds:.2f} s; "
+        f"{changed} of {len(before)} input_scales changed (range "
+        f"{float(ranges.min()):.4g}-{float(ranges.max()):.4g}); loss of "
+        f"batch 0 {loss0:.6f} -> {loss1:.6f}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    missing = [k for k in ("flash_attention_fwd", "s8_matmul", "rmsnorm")
+               if launches[k] == 0]
+    if missing or changed == 0 or not (np.isfinite(loss1)
+                                       and torch.isfinite(ranges).all()):
+        raise AssertionError(f"calibrate: not launched {missing}, "
+                             f"{changed} scales changed, loss {loss1}")
+    del model
+    torch.cuda.empty_cache()
+    rel, cos = gradient_check(model_cfg, host[0], calibrate=host,
+                              phase="calibrate")
+    return launches, {"seconds": seconds, "changed": changed,
+                      "scales": len(before), "loss": (loss0, loss1),
+                      "grad_rel": rel, "grad_cos": cos}
+
+
+def mha_p_bf16(q, k, v, bias=None, kv_mask=None, causal=False,
+               sm_scale=None, q_segment_ids=None, kv_segment_ids=None):
+    """``mha_reference`` with the softmax probabilities rounded to bf16
+    before the PV product, as the flash kernel rounds them: a yardstick of
+    how far that rounding alone moves a deep forward."""
+    from thinkdiff_torch.ops import flash_attention as fa
+
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    ok = fa._allowed(q, k, kv_mask, causal, q_segment_ids, kv_segment_ids)
+    p = torch.softmax(fa._scores(q, k, bias, ok, sm_scale), dim=-1)
+    v = fa._repeat_kv(v, q.shape[1])
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
+                        v.float()).to(q.dtype)
+
+
+def sdpa_attention(q, k, v, bias=None, kv_mask=None, causal=False,
+                   sm_scale=None, q_segment_ids=None, kv_segment_ids=None):
+    """PyTorch's ``scaled_dot_product_attention`` at a call site of the
+    flash forward (no kv_mask or segments): a library attention, used here
+    only as a yardstick of how far another correct attention moves a deep
+    forward and backward from the plain version."""
+    import torch.nn.functional as F
+
+    if kv_mask is not None or q_segment_ids is not None:
+        raise ValueError("sdpa_attention: no kv_mask or segments")
+    return F.scaled_dot_product_attention(
+        q, k, v, attn_mask=None if bias is None else bias.to(q.dtype),
+        is_causal=causal, scale=sm_scale)
+
+
+COBSAT_IMAGES = 32
+COBSAT_LABELS = 8          # candidates of each of the two variables
+# the embeddings through the kernels against the plain attention: the
+# limit of the ViT-g tokens check (CLIP_VIT_COS_MIN). Every flash
+# call is also held against mha_reference on its own inputs. The phase
+# prints two yardsticks beside it: a plain version that rounds P to bf16
+# as the kernel does, and PyTorch's SDPA against the plain attention
+COBSAT_COS_MIN = CLIP_VIT_COS_MIN
+
+
+def cobsat_scorer():
+    """CLIP-L at full width, bf16, seeded N(0, 0.02) weights on the card:
+    ViT-L/14 at 224 (24 x 1024, 16 heads of 64), the text encoder (12 x
+    768), both projections to 768; the CLIP stand-in tokenizer."""
+    from thinkdiff_torch.models.clip_scorer import CLIPScorer
+    from thinkdiff_torch.models.clip_text import CLIPTextConfig
+    from thinkdiff_torch.models.vit import ViTConfig, init_vit_
+
+    scorer = CLIPScorer(ViTConfig.clip_vit_l(dtype=torch.bfloat16),
+                        CLIPTextConfig.clip_l(dtype=torch.bfloat16),
+                        tokenizer=ClipStandInTokenizer())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    init_vit_(scorer.vision, gen)
+    init_random_(scorer.text, gen)
+    for p in (scorer.visual_projection, scorer.text_projection):
+        p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+    return scorer
+
+
+def phase_cobsat():
+    """The CoBSAT scorer on COBSAT_IMAGES seeded 448x448 images against 2 x
+    COBSAT_LABELS templated candidates: launches (counts set to 0 just
+    before), the embeddings and similarities against the same towers with
+    the plain attention (mha_reference at both call sites): every
+    embedding's cosine >= COBSAT_COS_MIN and the argmaxes identical; then
+    ``score_cobsat.main`` on PNGs the phase writes (the scorer patched in
+    where the weights would be read). Returns (launches, rates)."""
+    from unittest import mock
+
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.models import clip_scorer as cs
+    from thinkdiff_torch.models import clip_text as text_mod
+    from thinkdiff_torch.models import vit as vit_mod
+    from thinkdiff_torch.ops.flash_attention import (
+        flash_attention, mha_reference)
+    from thinkdiff_torch.scripts import score_cobsat
+
+    scorer = cobsat_scorer()
+    worst = {"calls": 0, "ratio": 0.0}
+
+    def checked(q, k, v, *a):
+        o = flash_attention(q, k, v, *a)
+        ref = mha_reference(q, k, v, *a).float()
+        worst["calls"] += 1
+        worst["ratio"] = max(worst["ratio"], float(
+            ((o.float() - ref).abs() / (2e-2 + 2e-2 * ref.abs())).max()))
+        return o
+
+    images, _ = requests(COBSAT_IMAGES, SEED + 51)
+    latent = [f"object{i}" for i in range(COBSAT_LABELS)]
+    explicit = [f"color{i}" for i in range(COBSAT_LABELS)]
+    texts = [f"a photo of {c}" for c in latent + explicit]
+    pixels = [cs.preprocess_clip_image(im) for im in images]
+    scorer.encode_images(pixels[:2])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    emb_i, emb_t = scorer.encode_images(pixels), scorer.encode_texts(texts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    def both(attention):
+        with mock.patch.object(vit_mod, "flash_attention", attention), \
+                mock.patch.object(text_mod, "flash_attention", attention):
+            return scorer.encode_images(pixels), scorer.encode_texts(texts)
+
+    both(checked)
+    ref_i, ref_t = both(mha_reference)
+    rowcos = lambda a, b: (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                                              * np.linalg.norm(b, axis=-1))
+    mincos = lambda a, b: float(min(rowcos(a[0], b[0]).min(),
+                                    rowcos(a[1], b[1]).min()))
+    cos = mincos((emb_i, emb_t), (ref_i, ref_t))
+    cos16 = mincos((emb_i, emb_t), both(mha_p_bf16))
+    cos_sdpa = mincos(both(sdpa_attention), (ref_i, ref_t))
+    sims, ref_sims = emb_i @ emb_t.T, ref_i @ ref_t.T
+    delta = float(np.abs(sims - ref_sims).max())
+    # an argmax may differ only where the plain version's top two are
+    # closer than the similarities moved (a near-tie on seeded weights)
+    flips, unexplained = 0, 0
+    for sl in (slice(0, COBSAT_LABELS), slice(COBSAT_LABELS, None)):
+        for a, b in zip(sims[:, sl], ref_sims[:, sl]):
+            if np.argmax(a) != np.argmax(b):
+                top2 = np.sort(b)[-2:]
+                flips += 1
+                unexplained += int(top2[1] - top2[0] > 2 * delta)
+    say("cobsat", f"CLIP-L (ViT-L/14 24 x 1024 at 224, text 12 x 768, bf16, "
+        f"seeded): {COBSAT_IMAGES} images and {len(texts)} candidates in "
+        f"{wall * 1e3:.1f} ms ({COBSAT_IMAGES / wall:.1f} imgs/s with the "
+        f"texts); launches {dict((k, v) for k, v in launches.items() if v)}; "
+        f"{worst['calls']} flash calls each against mha_reference on its own "
+        f"inputs, the worst at {worst['ratio']:.3g} of 2e-2 + 2e-2|ref|; "
+        f"embeddings against the plain attention: cosine >= {cos:.6f} (limit "
+        f"{COBSAT_COS_MIN}; against a plain version that rounds P to bf16 as "
+        f"the kernel does: {cos16:.6f}; SDPA against the plain attention: "
+        f"{cos_sdpa:.6f}); similarities within {delta:.2e}; "
+        f"{flips} of {2 * COBSAT_IMAGES} argmaxes differ, "
+        f"{unexplained} where the plain top two are further apart than 2x "
+        f"that")
+    if (launches["flash_attention_fwd"] != 24 + 12 or worst["calls"] != 36
+            or worst["ratio"] > 1.0 or unexplained or not cos >= COBSAT_COS_MIN
+            or not np.isfinite(sims).all()):
+        raise AssertionError(f"cobsat: launches {launches}, calls {worst}, "
+                             f"cosine {cos}, {unexplained} argmaxes differ")
+    # the CLI on PNGs
+    import shutil
+
+    out = Path(__file__).resolve().parent / "build" / "cobsat"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    labels = {}
+    rs = np.random.RandomState(SEED + 52)
+    for i, im in enumerate(images):
+        im.save(out / f"case{i:03d}.png")
+        labels[f"case{i:03d}"] = {
+            "latent": latent[rs.randint(COBSAT_LABELS)],
+            "explicit": explicit[rs.randint(COBSAT_LABELS)],
+            "latent_candidates": latent, "explicit_candidates": explicit,
+            "task": f"task{i % 4}"}
+    (out / "labels.json").write_text(json.dumps(labels))
+    try:
+        with mock.patch.object(cs.CLIPScorer, "from_pretrained",
+                               classmethod(lambda cls, *a, **k: scorer)):
+            t0 = time.perf_counter()
+            res = score_cobsat.main([
+                "--images-dir", str(out), "--labels-json",
+                str(out / "labels.json"), "--out-json",
+                str(out / "result.json")])
+            cli_s = time.perf_counter() - t0
+        saved = json.loads((out / "result.json").read_text())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    say("cobsat", f"score_cobsat CLI: {res['n']} cases in {cli_s:.2f} s "
+        f"({res['n'] / cli_s:.1f} imgs/s, one image a call), accuracy "
+        f"{res['overall']:.3f} (seeded weights: no meaning), per task "
+        f"{res['per_task']}")
+    if res["n"] != COBSAT_IMAGES or res["missing"] or saved["n"] != res["n"]:
+        raise AssertionError(f"cobsat: CLI result {res['n']} {res['missing']}")
+    return launches, {"imgs_per_s": COBSAT_IMAGES / wall,
+                      "cli_imgs_per_s": res["n"] / cli_s}
+
+
+LORA_R, LORA_B, LORA_T, LORA_STEPS = 8, 4, 512, 4
+LORA_KERNELS = ("flash_attention_fwd", "rmsnorm", "flash_attention_dq",
+                "flash_attention_dkv")
+
+
+@torch.no_grad()
+def init_llama_(module, gen, std=0.02):
+    """Seeded weights in place: kernels and embeddings N(0, std), norm
+    weights 1, biases 0."""
+    for name, p in module.named_parameters():
+        if name.endswith("bias"):
+            p.zero_()
+        elif p.ndim == 1:
+            p.fill_(1.0)
+        else:
+            p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * std)
+
+
+def lora_grads(llama, ids, labels, attention=None, norm=None):
+    """(loss, {adapter leaf: gradient}) of one step, with ``attention`` and
+    ``norm`` in place of the flash forward and RMSNorm at their call sites
+    in models/qwen2_vl.py when given."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from thinkdiff_torch.models import qwen2_vl as q_mod
+
+    leaves = [(f"{k}/{n}", t) for k, layer in llama.adapters.items()
+              for n, t in layer.items()]
+    with ExitStack() as stack:
+        if attention is not None:
+            stack.enter_context(mock.patch.object(q_mod, "flash_attention",
+                                                  attention))
+        if norm is not None:
+            stack.enter_context(mock.patch.object(q_mod, "rmsnorm", norm))
+        loss = llama(ids, labels=labels)["loss"]
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    return float(loss.detach()), {n: g.float().cpu()
+                                  for (n, _), g in zip(leaves, grads)}
+
+
+def lora_model(num_layers):
+    """Llama-2-7B's geometry in bf16 at ``num_layers`` layers, seeded
+    weights, LoRA r LORA_R on q/v (``a`` from its own generator), and a
+    seeded batch of B4 T512 whose first eighth of labels is -100."""
+    from thinkdiff_torch.models.llama import LlamaForCausalLM, llama_config
+
+    cfg = llama_config(dtype=torch.bfloat16, num_layers=num_layers)
+    llama = LlamaForCausalLM(cfg, lora_r=LORA_R, lora_generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 60))
+    init_llama_(llama.model, torch.Generator(device="cuda").manual_seed(
+        SEED + 61))
+    rs = np.random.RandomState(SEED + 62)
+    ids = torch.from_numpy(rs.randint(1, cfg.vocab_size, (LORA_B, LORA_T)))
+    labels = ids.clone()
+    labels[:, : LORA_T // 8] = -100
+    return llama, ids, labels
+
+
+def lora_steps(llama, ids, labels, steps):
+    """``steps`` AdamW steps (lr 1e-3) on the adapters: (losses, ms a
+    step)."""
+    leaves = [t.requires_grad_(True) for layer in llama.adapters.values()
+              for t in layer.values()]
+    opt = torch.optim.AdamW(leaves, lr=1e-3)
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = llama(ids, labels=labels)["loss"]
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+    return losses, step_ms
+
+
+def lora_diff(got, want):
+    """(loss rel, {leaf: cosine}, {leaf: norm ratio}) of two
+    ``lora_grads`` results."""
+    (lg, gg), (lw, gw) = got, want
+    return (abs(lg - lw) / abs(lw), {n: cosine(gg[n], gw[n]) for n in gg},
+            {n: float(gg[n].double().norm() / gw[n].double().norm())
+             for n in gg})
+
+
+def phase_lora():
+    """Llama-2-7B geometry in bf16 (32 layers, 4096, 11008, vocab 32000),
+    seeded weights, LoRA r LORA_R on q/v: the merged model's logits at init
+    equal the base's; LORA_STEPS AdamW steps on the adapters at B4 T512
+    (launches, counts set to 0 just before; ms a step, peak); the loss and
+    adapter gradients through the kernels against the plain versions on
+    the card (mha_reference and rmsnorm_reference, autograd through them),
+    printed at full depth beside the same comparison of PyTorch's SDPA;
+    then the gradient check's protocol, a 2-layer copy at full width after
+    the same steps, held within its limits (GRAD_LOSS_TOL, GRAD_COS_MIN,
+    GRAD_NORM_RATIO). Returns (launches, rates)."""
+    from thinkdiff_torch import kernels
+    from thinkdiff_torch.models.lora import lora_param_count
+    from thinkdiff_torch.ops.flash_attention import mha_reference
+    from thinkdiff_torch.ops.norms import rmsnorm_reference
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llama, ids, labels = lora_model(32)
+    cfg = llama.cfg
+    torch.cuda.synchronize()
+    n_base = sum(p.numel() for p in llama.model.parameters())
+    with torch.no_grad():
+        base = llama(ids, adapters={})["logits"]
+        merged = llama(ids)["logits"]
+    if not torch.equal(base, merged):
+        raise AssertionError("lora: the merged model at init is not the base")
+    del base, merged
+    say("lora", f"Llama-2-7B geometry ({cfg.num_layers} x {cfg.hidden_size}, "
+        f"ffn {cfg.intermediate_size}, {cfg.num_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}, bf16): {n_base / 1e9:.2f} B "
+        f"parameters, LoRA r {LORA_R} on q/v: "
+        f"{lora_param_count(llama.adapters)} trainable; built in "
+        f"{time.perf_counter() - t0:.1f} s; merged logits at init equal the "
+        "base's")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, step_ms = lora_steps(llama, ids, labels, LORA_STEPS)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("lora", f"{LORA_STEPS} AdamW steps on the adapters, B{LORA_B} "
+        f"T{LORA_T}: loss " + " ".join(f"{x:.4f}" for x in losses)
+        + f"; {statistics.median(step_ms[1:]):.1f} ms a step (median of "
+        f"steps 2-{LORA_STEPS}; first {step_ms[0]:.1f}); peak {peak:.2f} GiB; "
+        f"launches {dict((k, v) for k, v in launches.items() if v)}")
+    missing = [k for k in LORA_KERNELS if launches[k] == 0]
+    if missing or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"lora: not launched {missing}, losses {losses}")
+    plain = lora_grads(llama, ids, labels, mha_reference, rmsnorm_reference)
+    full = {}
+    for name, attention in (("kernels", None), ("SDPA", sdpa_attention)):
+        rel, cos, _ = lora_diff(lora_grads(llama, ids, labels, attention),
+                                plain)
+        full[name] = (rel, min(cos.values()))
+    say("lora", f"at full depth ({cfg.num_layers} layers), against the plain "
+        "versions on the card: "
+        + "; ".join(f"{n}: loss rel {r:.2e}, adapter gradient cosine >= "
+                    f"{c:.5f}" for n, (r, c) in full.items())
+        + " (printed, not held: the gradient check's limits are for its "
+        "2-layer copy)")
+    del llama
+    torch.cuda.empty_cache()
+    llama, ids, labels = lora_model(2)
+    lora_steps(llama, ids, labels, LORA_STEPS)
+    rel, cos, ratio = lora_diff(lora_grads(llama, ids, labels), lora_grads(
+        llama, ids, labels, mha_reference, rmsnorm_reference))
+    del llama
+    torch.cuda.empty_cache()
+    lo, hi = GRAD_NORM_RATIO
+    worst = min(cos, key=cos.get)
+    say("lora", f"gradient check, a 2-layer copy at full width after the same "
+        f"{LORA_STEPS} steps, kernels against the plain versions on the card: "
+        f"loss rel {rel:.2e} (limit {GRAD_LOSS_TOL:g}); {len(cos)} adapter "
+        f"gradients: cosine >= {cos[worst]:.5f} ({worst}; limit "
+        f"{GRAD_COS_MIN}), norm ratio {min(ratio.values()):.5f}-"
+        f"{max(ratio.values()):.5f} (band {lo}-{hi})")
+    if (rel > GRAD_LOSS_TOL or cos[worst] < GRAD_COS_MIN
+            or not all(lo <= r <= hi for r in ratio.values())):
+        raise AssertionError("lora: gradient check failed")
+    return launches, {"step_ms": statistics.median(step_ms[1:]),
+                      "peak_gib": peak, "grad_rel": rel,
+                      "grad_cos": cos[worst], "full_depth": full}
+
+
+def kernels_cobsat(results):
+    """The flash forward at the CoBSAT scorer's CLIP-L ViT: B32 H16 T257
+    D64, bidirectional, on head-transposed views of its projections, also
+    with a cold L2 and checked to be one device launch a call."""
+    import torch.nn.functional as F
+
+    from thinkdiff_torch.ops.flash_attention import (
+        flash_attention, mha_reference)
+
+    b, t, h, d = COBSAT_IMAGES, 257, 16, 64
+    q, k, v = (randn((b, t, h * d), s).reshape(b, t, h, d).transpose(1, 2)
+               for s in (110, 111, 112))
+    run = lambda: flash_attention(q, k, v, None, None, False, d ** -0.5)
+    results.append(check(
+        "flash_attention_fwd", "clip-l vision B32 H16 T257 D64 "
+        "(projection views)", run,
+        lambda: mha_reference(q, k, v, None, None, False, d ** -0.5),
+        lambda e, r: e <= 2e-2 + 2e-2 * r.abs(),
+        "2e-2 + 2e-2*|ref| (P rounded to bf16; bf16 output)",
+        (nbytes(q, k, v, q), 4 * b * h * t * t * d, "bf16"),
+        library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       scale=d ** -0.5),
+        cold="flash_fwd"))
+    expect_one_launch("kernels", "clip-l vision attention", run, "flash_fwd")
+
+
+def kernels_lora(results):
+    """A LoRA step's attention at Llama-2-7B's B4 H32 T512 D128, causal:
+    the flash forward with its lse, dq and dk/dv (as the decoder hands
+    them over: head-transposed views of the projections, dO a view of a
+    contiguous (B, T, H*D) gradient); and RMSNorm at its 2048 rows of
+    4096."""
+    import torch.nn.functional as F
+
+    from thinkdiff_torch.ops.norms import rmsnorm, rmsnorm_reference
+
+    b, t, h, d = LORA_B, LORA_T, 32, 128
+    heads = lambda x: x.reshape(b, t, h, d).transpose(1, 2)
+    q, k, v, do = (heads(randn((b, t, h * d), s)) for s in (113, 114, 115, 116))
+    check_attention(results, f"llama B{b} H{h} T{t} D{d} causal (projection "
+                    "views, strided dO)", q, k, v, do,
+                    dict(bias=None, kv_mask=None, causal=True,
+                         sm_scale=d ** -0.5, q_segment_ids=None,
+                         kv_segment_ids=None))
+    del q, k, v, do
+    x, scale = randn((b * t, 4096), 117) * 3.0, randn((4096,), 118)
+    results["rmsnorm"].append(check(
+        "rmsnorm", f"llama R{b * t} D4096",
+        lambda: rmsnorm(x, scale, 1e-6),
+        lambda: rmsnorm_reference(x, scale, 1e-6),
+        lambda e, ref: e <= bf16_ulp(ref), "1 bf16 ulp",
+        (nbytes(x, scale, x), 4 * x.numel(), "bf16"),
+        library=lambda: F.rms_norm(x, (4096,), scale, 1e-6)))
 
 
 def main() -> int:
@@ -5430,6 +6117,8 @@ def main() -> int:
     phase_build()
     results = phase_kernels()
     launches, train = phase_train_w8a8()
+    torch.cuda.empty_cache()
+    calib, calib_rates = phase_calibrate()
     torch.cuda.empty_cache()
     yaml_step_ms = phase_train_yaml()
     torch.cuda.empty_cache()
@@ -5478,6 +6167,12 @@ def main() -> int:
         import shutil
 
         shutil.rmtree(CLIP_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cobsat, cobsat_rates = phase_cobsat()
+    torch.cuda.empty_cache()
+    lora, lora_rates = phase_lora()
+    nat = cli1["native"]
     gloo, first = ddp["train"]["gloo"], ddp["stage1"]
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; "
         f"train-w8a8 {train['step_ms']:.1f} ms a step, "
@@ -5510,7 +6205,17 @@ def main() -> int:
         + "; stage 1 " + ", ".join(f"rank {r['rank']} {r['imgs_per_s']:.2f} "
                                    f"imgs/s" for r in first)
         + "; clip " + ", ".join(f"rank {r['rank']} {r['step_ms']:.0f} ms a "
-                                f"step" for r in ddp_clip))
+                                f"step" for r in ddp_clip)
+        + f" ({ddp_clip[0]['data_path'][0]}); native: "
+        + (f"{nat['native_imgs_per_s']:.1f} imgs/s (C++) against "
+           f"{nat['pil_imgs_per_s']:.1f} (PIL)" if nat["native"] else
+           f"unavailable, PIL {nat['pil_imgs_per_s']:.1f} imgs/s")
+        + f"; calibrate {calib_rates['seconds']:.2f} s, "
+        f"{calib_rates['changed']} of {calib_rates['scales']} input_scales "
+        f"changed; cobsat {cobsat_rates['imgs_per_s']:.1f} imgs/s (CLI "
+        f"{cobsat_rates['cli_imgs_per_s']:.1f}); lora "
+        f"{lora_rates['step_ms']:.1f} ms a step, peak "
+        f"{lora_rates['peak_gib']:.2f} GiB")
     report = []
     for kname, (route, source, replaces) in TPU_KERNELS.items():
         rows = results[kname]
@@ -5538,6 +6243,8 @@ def main() -> int:
             "ddp_stage1_launches": [r["launches"][kname] for r in first],
             "ddp_world1_launches": ddp["train"]["w1"]["launches"][kname],
             "ddp_clip_launches": [r["launches"][kname] for r in ddp_clip],
+            "calibrate_launches": calib[kname],
+            "cobsat_launches": cobsat[kname], "lora_launches": lora[kname],
             "timed_shape": main_row["shape"],
             "shapes": [{k: v for k, v in r.items() if k != "main"}
                        for r in rows],

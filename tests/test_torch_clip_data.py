@@ -149,7 +149,11 @@ def test_cc_sbu_builder_batches_identical(tmp_path, resample):
     """The port's cc_sbu loader and the JAX one (decoded-sample path) give
     the same batches from the same shards and seeds: the shuffle, the
     skipped sample, the processors and the caption splits (module-level
-    random, seeded alike before each)."""
+    random, seeded alike before each). The JAX side is read through its
+    synchronous pipeline (``.loader``): its ``PrefetchLoader`` has no stop,
+    so its thread would go on drawing caption splits from the module-level
+    ``random`` after the case, into the next one's draws. The port's
+    ``PrefetchLoader`` stays under test and joins its thread on close."""
     storage = write_cc_sbu_shards(tmp_path / "shards")
     batches = {}
     for side, mod, node in (("port", tb, TConfigNode), ("jax", jb, JConfigNode)):
@@ -158,7 +162,8 @@ def test_cc_sbu_builder_batches_identical(tmp_path, resample):
             .build_datasets()["train"]
         bundle.set_tokenizers(t5_tok(), None)
         random.seed(9)
-        it = iter(bundle.get_loader(seed=4, epoch=1))
+        loader = bundle.get_loader(seed=4, epoch=1)
+        it = iter(loader if side == "port" else loader.loader)
         batches[side] = [next(it) for _ in range(3 if resample else 2)]
         if hasattr(it, "close"):
             it.close()

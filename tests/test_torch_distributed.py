@@ -431,7 +431,11 @@ def _cc_sbu_loaders(tmp_path, rank, world):
         # the caption splits draw from the module-level generator, which
         # the CLIs seed with seed + rank in both packages
         random.seed(9 + rank)
-        yield bundle.get_loader(rank=rank, world_size=world, seed=4, epoch=1)
+        loader = bundle.get_loader(rank=rank, world_size=world, seed=4,
+                                   epoch=1)
+        # JAX's PrefetchLoader has no stop: its thread would go on drawing
+        # splits after the case, so its synchronous pipeline is read
+        yield loader if mod is tb else loader.loader
 
 
 LOADERS = {"embed": (_embed_loaders, 4), "wids": (_wids_loaders, None),

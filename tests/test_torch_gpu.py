@@ -105,6 +105,13 @@ FLASH_CASES = {
     "cogvideox_joint_t17776_d64_h2": dict(b=1, hq=2, hkv=2, tq=17776,
                                           tk=17776, d=64, projection=True,
                                           scaled=True),
+    # the CoBSAT scorer's CLIP-L ViT: 32 images, 16 heads of 64 over 257
+    # tokens, bidirectional, head-transposed views of the projections
+    "clip_l_vision_b32_t257_d64": dict(b=32, hq=16, hkv=16, tq=257, tk=257,
+                                       d=64, projection=True),
+    # Llama-2-7B in a LoRA step: B4 H32 T512 D128, causal
+    "llama_causal_b4_t512_d128": dict(b=4, hq=32, hkv=32, tq=512, tk=512,
+                                      d=128, projection=True, causal=True),
 }
 
 
@@ -675,6 +682,9 @@ BWD_CASES = {
     # D = 128 with Tq <= 64: the 128-row dq CTA, its second warpgroup past Tq
     "short_d128": dict(b=2, hq=4, hkv=4, tq=48, tk=200, d=128, row_bias=True,
                        kv_mask=True),
+    # Llama-2-7B in a LoRA step: B4 H32 T512 D128, causal
+    "llama_causal_b4_t512_d128": dict(b=4, hq=32, hkv=32, tq=512, tk=512,
+                                      d=128, causal=True),
 }
 
 

@@ -57,7 +57,10 @@ def test_every_module_imports_without_jax():
                  "engines.flux_sampler", "engines.pipeline",
                  "scripts.test_mllama_t5_decoder_flux",
                  "scripts.test_mllama_t5_decoder_text", "parallel",
-                 "parallel.mesh"):
+                 "parallel.mesh", "data.native", "data.randaugment",
+                 "models.clip_scorer", "models.llama", "models.lora",
+                 "scripts.score_cobsat", "scripts.get_wids_input_json",
+                 "scripts.convert_checkpoint"):
         assert f"thinkdiff_torch.{name}" in _submodules()
 
 

@@ -95,16 +95,45 @@ class BaseDatasetBuilder:
         return build_processor(tp_cfg) if tp_cfg else None
 
 
+class DatasetZoo:
+    """The registered builder names (reference
+    datasets/builders/__init__.py:24-73)."""
+
+    def __init__(self):
+        self.dataset_zoo = {name: [name]
+                            for name in sorted(registry.mapping["builder"])}
+
+    def __len__(self):
+        return len(self.dataset_zoo)
+
+    def get_names(self):
+        return list(self.dataset_zoo.keys())
+
+
+def load_dataset(name: str, cfg=None) -> Dict[str, DatasetBundle]:
+    """Build a dataset by its builder's registered name (reference
+    builders/__init__.py ``load_dataset``)."""
+    builder_cls = registry.get_builder_class(name)
+    if builder_cls is None:
+        raise KeyError(f"Unknown dataset builder '{name}'")
+    return builder_cls(cfg if cfg is not None else ConfigNode()
+                       ).build_datasets()
+
+
 @registry.register_builder("cc_sbu")
 class CCSBUBuilder(BaseDatasetBuilder):
     """Image-caption tar shards -> caption-split batches
     (reference image_text_pair_builder.py:12-41, cc_sbu_dataset.py:11-25).
 
-    The port has no C++ batch JPEG decoder yet, so this is the path the JAX
-    builder takes when ``native.available()`` is false: each sample's image
-    is decoded by the pipeline (PIL), resized and normalized by the vision
-    processor, its caption cleaned by the text processor, and the
-    collator splits the captions."""
+    Two paths, chosen as the JAX builder chooses them. With
+    ``use_native_decode`` (default true) and the native IO library built
+    (``data/native.py``), the pipeline leaves samples undecoded: a sample
+    keeps its JPEG bytes and its caption parsed from the JSON bytes, and
+    the collator decodes, resizes and normalizes the batch in C++ (the
+    whole image to the vision processor's size: no crop or flip). Without
+    either, the pipeline decodes each image (PIL), the vision processor
+    resizes and normalizes it, and the text processor cleans the caption
+    on both paths. The path taken is logged once a loader."""
 
     DEFAULT_CONFIG = {
         "vis_processor": {"train": {"name": "blip2_image_train",
@@ -113,13 +142,21 @@ class CCSBUBuilder(BaseDatasetBuilder):
     }
 
     def build(self) -> DatasetBundle:
+        import json
+
+        from thinkdiff_torch.data import native
+
         cfg = self.config
         storage = cfg.build_info.storage
         vis_proc = self._vis_processor()
         text_proc = self._text_processor()
         state: Dict[str, Any] = {"t5_tok": None}
+        want_native = bool(cfg.get("use_native_decode", True))
+        use_native = want_native and native.available()
+        image_size = int(getattr(vis_proc, "image_size", 224) or 224)
 
         def map_fn(sample):
+            """The decoded-sample path."""
             img = sample.get("jpg") or sample.get("png")
             if img is None or "json" not in sample:
                 return None
@@ -129,8 +166,27 @@ class CCSBUBuilder(BaseDatasetBuilder):
             return {"image": vis_proc(img) if vis_proc else img,
                     "answer": caption}
 
+        def map_fn_raw(sample):
+            """The raw-bytes path: the batch is decoded in C++."""
+            img = sample.get("jpg") or sample.get("png")
+            if img is None or "json" not in sample:
+                return None
+            caption = json.loads(sample["json"]).get("caption", "")
+            if text_proc:
+                caption = text_proc(caption)
+            return {"jpg_bytes": img, "answer": caption,
+                    "image_size": image_size}
+
         def make_loader(batch_size, rank, world_size, seed, epoch):
             assert state["t5_tok"] is not None, "tokenizer not injected"
+            if use_native:
+                logger.info("cc_sbu: native JPEG decode (C++ batch decode "
+                            "to %d px)", image_size)
+            else:
+                logger.info("cc_sbu: decoded-sample path (PIL), %s",
+                            "use_native_decode is off" if not want_native
+                            else "native IO unavailable: "
+                            f"{native.unavailable_reason()}")
             collator = CaptionSplitCollator(
                 state["t5_tok"],
                 max_txt_len=int(self.knob("max_txt_len", 128)),
@@ -140,8 +196,10 @@ class CCSBUBuilder(BaseDatasetBuilder):
             resample = bool(cfg.get("resample", True))
             pipe = WebDatasetPipeline(
                 storage, resample=resample,
-                shuffle_buffer=1000 if resample else 0, decode=True,
-                map_fns=[map_fn], batch_size=batch_size, collator=collator,
+                shuffle_buffer=1000 if resample else 0,
+                decode=not use_native,
+                map_fns=[map_fn_raw if use_native else map_fn],
+                batch_size=batch_size, collator=collator,
                 seed=seed + epoch, rank=rank, world_size=world_size)
             return PrefetchLoader(pipe)
 

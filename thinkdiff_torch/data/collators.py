@@ -105,11 +105,12 @@ class CaptionSplitCollator:
     split in two, the first half the T5 encoder's input and the second the
     labels, both tokenized to ``max_txt_len`` (pad -> -100 in the labels).
 
-    samples: [{"image": HWC float array, "answer": caption str}]. Without
+    samples: [{"image": HWC float array, "answer": caption str}], or the
+    raw-bytes path's [{"jpg_bytes": JPEG bytes, "answer": str,
+    "image_size": int}], whose images are decoded, resized and normalized
+    (CLIP mean and std) as one batch in C++ (``data/native.py``). Without
     ``seed`` the splits draw from the module-level ``random`` (as the JAX
-    collator does: its builder passes no seed). The JAX collator's other
-    input, raw JPEG bytes for its C++ batch decoder, has no counterpart:
-    the port's builder hands over decoded images."""
+    collator does: its builder passes no seed)."""
 
     def __init__(self, t5_tokenizer, max_txt_len: int = 128,
                  use_biased_split: bool = False, seed: Optional[int] = None):
@@ -120,8 +121,17 @@ class CaptionSplitCollator:
         self.rng = random.Random(seed) if seed is not None else None
 
     def __call__(self, samples: List[Dict[str, Any]]) -> Dict[str, np.ndarray]:
-        images = np.stack([np.asarray(s["image"], np.float32)
-                           for s in samples])
+        if "jpg_bytes" in samples[0]:
+            from thinkdiff_torch.data.native import (
+                decode_resize_normalize_batch)
+            from thinkdiff_torch.data.processors import CLIP_MEAN, CLIP_STD
+
+            images = decode_resize_normalize_batch(
+                [s["jpg_bytes"] for s in samples],
+                samples[0].get("image_size", 224), CLIP_MEAN, CLIP_STD)
+        else:
+            images = np.stack([np.asarray(s["image"], np.float32)
+                               for s in samples])
         firsts, seconds = [], []
         for s in samples:
             a, b = self.split_fn(s["answer"], rng=self.rng)

@@ -174,14 +174,19 @@ class ShardWriter:
         self.close()
 
 
-def build_tar_index(path: str) -> Dict[str, Any]:
-    """{"url": path, "nsamples": the distinct keys of the tar}."""
+def build_tar_index(path: str,
+                    items_per_sample: Optional[int] = None) -> Dict[str, Any]:
+    """{"url": path, "nsamples": n}: the distinct keys of the tar, or with
+    ``items_per_sample`` its files divided by it (the reference's count)."""
     keys = set()
+    nfiles = 0
     with tarfile.open(path, "r|*") as tf:
         for member in tf:
             if member.isfile():
+                nfiles += 1
                 keys.add(split_key_ext(member.name)[0])
-    return {"url": path, "nsamples": len(keys)}
+    n = nfiles // items_per_sample if items_per_sample else len(keys)
+    return {"url": path, "nsamples": n}
 
 
 def write_wids_index(shards: Iterable[str], out_path: str,

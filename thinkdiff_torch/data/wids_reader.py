@@ -1,8 +1,10 @@
 """Random-access shard dataset and chunked sampler (the port's copy of
 thinkdiff_tpu/data/wids_reader.py, the wids replacement).
 
-Each tar's member offsets are scanned once, on first use, with Python's
-``tarfile``; a sample is then read by seeking to its members.
+Each tar's member offsets are scanned once, on first use: by the native
+C++ indexer when the library is available (``data/native.py``), with
+Python's ``tarfile`` otherwise; a sample is then read by ``pread`` of its
+members (native) or by seeking to them.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import tarfile
 from bisect import bisect_right
 from typing import Any, Dict, Iterator, List
 
+from thinkdiff_torch.data import native
 from thinkdiff_torch.data.tario import decode_field, split_key_ext
 
 
@@ -22,10 +25,15 @@ class _ShardIndex:
     def __init__(self, path: str):
         self.path = path
         self.samples: List[List[tuple]] = []
+        self._native = (native.NativeTarIndex(path) if native.available()
+                        else None)
+        if self._native is not None:
+            members = self._native.members
+        else:
+            with tarfile.open(path, "r") as tf:
+                members = [(m.name, m.offset_data, m.size)
+                           for m in tf.getmembers() if m.isfile()]
         order: Dict[str, int] = {}
-        with tarfile.open(path, "r") as tf:
-            members = [(m.name, m.offset_data, m.size)
-                       for m in tf.getmembers() if m.isfile()]
         for name, offset, size in members:
             key, ext = split_key_ext(name)
             if key not in order:
@@ -35,6 +43,12 @@ class _ShardIndex:
 
     def read(self, idx: int, decode: bool = True) -> Dict[str, Any]:
         sample: Dict[str, Any] = {}
+        if self._native is not None:
+            for key, ext, offset, size in self.samples[idx]:
+                data = self._native.read(offset, size)
+                sample["__key__"] = key
+                sample[ext] = decode_field(ext, data) if decode else data
+            return sample
         with open(self.path, "rb") as f:
             for key, ext, offset, size in self.samples[idx]:
                 f.seek(offset)

@@ -196,10 +196,14 @@ class AlignerBase:
 
     def export_reference_checkpoint(self, trainable: Dict) -> Dict:
         """Inverse of ``convert_reference_checkpoint``: a state dict the
-        reference's PyTorch stack loads."""
+        reference's PyTorch stack loads. An instance made without its
+        config (the converter CLI's) infers the projector type from the
+        tree, as the JAX package does."""
+        cfg = getattr(self, "cfg", None)
         return export_projector_torch(
             trainable["projector"],
-            self.cfg.get("mm_projector_type", "mlp2x_gelu_t5_norm"))
+            cfg.get("mm_projector_type", "mlp2x_gelu_t5_norm") if cfg
+            else None)
 
     def get_t5_tokenizer(self):
         """The T5 tokenizer from local files only; None when they are not on

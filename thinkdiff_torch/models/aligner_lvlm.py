@@ -160,6 +160,37 @@ class MllamaT5EmbedDecoder(AlignerBase):
         return ce_stats(t5.logits(hidden), labels)
 
     @torch.no_grad()
+    def calibrate_w8a8(self, batches, alpha: float = 0.5) -> Dict[str, Any]:
+        """SmoothQuant channel equalization of the frozen w8a8 tower from a
+        few training batches (``embeds``, ``labels``, optional
+        ``embed_mask``; numpy or tensors): the per-channel activation maxima
+        of every w8a8 layer through the full-logits decode
+        (``decode_with_encoder_states`` on shift_right(labels), as JAX
+        collects them), then ``equalize_quantized_tree`` folds them into the
+        weights and ``input_scale``s, in place. Run once after loading real
+        flan-t5 weights; repeated calibrations compose. Returns the
+        stats."""
+        from thinkdiff_torch.models.bridge import load_params, tree_of
+        from thinkdiff_torch.ops.quant import (
+            collect_act_stats, equalize_quantized_tree, w8a8_layers)
+
+        t5 = self.frozen["t5"]
+        if not self.quantize_frozen or not w8a8_layers(t5):
+            raise ValueError("calibrate_w8a8 needs a w8a8 frozen tower "
+                             "(quantize_frozen: int8_dyn)")
+        dev = lambda x: None if x is None else to_tensor(x).to(self.device)
+        stats = None
+        for batch in batches:
+            proj = self.project(self.trainable, dev(batch["embeds"]))
+            stats = collect_act_stats(
+                t5, shift_right(dev(batch["labels"])), proj,
+                method="decode_with_encoder_states",
+                cross_mask=dev(batch.get("embed_mask")), stats=stats)
+        load_params(t5, equalize_quantized_tree(
+            tree_of(t5, lambda _, t: t), stats, alpha))
+        return stats
+
+    @torch.no_grad()
     def greedy_decode(self, proj: torch.Tensor, embed_mask=None,
                       max_new_tokens: int = 32) -> torch.Tensor:
         """Greedy T5 decode conditioned on projected states (B, S, d_model):
