@@ -181,7 +181,7 @@ non-zero:
                 configs/test_thinkdiff_clip_video_text.yaml with what the
                 script reads and the YAML lacks (run.image_path one 448x448
                 JPEG, run.text_input the YAML's question, run.num_frames 13
-                latent frames): 49 frames of 480x720, 15 DDIM steps (the
+                latent frames): 49 frames of 480x720, 8 DDIM steps (the
                 YAML's 50 cut for time, VIDEO_STEPS) of two forwards (42
                 blocks x 3072, bf16, seeded N(0, 0.02)), the 3D
                 VAE tiled at (32, 48) latents (9 tiles); on clip-flux's CLIP
@@ -330,7 +330,16 @@ TPU_KERNELS = {
                              "thinkdiff_tpu/ops/int8_matmul.py:137"),
     "s8_matmul_qx": ("cuda", "thinkdiff_torch/csrc/s8_gemm_qx.cu",
                      "thinkdiff_tpu/ops/int8_matmul.py:445"),
+    # the int32 mode of #2 and #7 (a contraction sharded over model: the
+    # exact sums, added over the ranks before the scales); its launches
+    # come from the shard phase
+    "s8_matmul_i32": ("cuda", "thinkdiff_torch/csrc/s8_gemm.cu",
+                      "thinkdiff_tpu/ops/int8_matmul.py:291"),
+    "s8_matmul_bwd_i32": ("cuda", "thinkdiff_torch/csrc/s8_gemm_bwd.cu",
+                          "thinkdiff_tpu/ops/int8_matmul.py:371"),
 }
+# the int32 mode's rows, whose launches come from the shard phase
+SHARD_ONLY_KERNELS = ("s8_matmul_i32", "s8_matmul_bwd_i32")
 # the kernels no model path of either package runs: their launches come
 # from the ops phase, which calls each op's entry point once
 OP_KERNELS = ("int8_matmul_wide_fwd", "int8_matmul_wide_bwd", "s8_matmul_qx")
@@ -1832,6 +1841,59 @@ def kernels_s8_train(results):
         del run, plain, library
 
 
+# the int32 mode at the shapes a model-2 rank gives it in the shard phase:
+# the forward of the row-parallel wo (its rank's K 5120 of 10240) and the
+# input gradients of the column-parallel layers over their rank's N (qkv
+# 6144 of 12288, kv_fused 4096, wi_fused 10240, an lm_head chunk 16064)
+SHARD_I32_FWD = ((1024, 5120, 4096, "wo"),)
+SHARD_I32_BWD = ((1024, 4096, 6144, "qkv"), (1024, 4096, 4096, "kv_fused"),
+                 (1024, 4096, 10240, "wi_fused"),
+                 (512, 4096, 16064, "lm_head chunk"))
+
+
+def s8_i32_case(r, c, o, bwd, seed=140):
+    """Seeded operands of an int32-mode call with an (r, o) output over a
+    contraction of c: (kernel, plain version, ``torch._int_mm`` (the same
+    function), (bytes, operations, "int8")). Forward: xq (r, c) and the
+    weight (c, o) in QDense's layout; input gradient: gq (r, c) and the
+    (o, c) row-major training copy."""
+    from thinkdiff_torch.ops.int8_matmul import (
+        s8_matmul_bwd_i32, s8_matmul_bwd_i32_reference, s8_matmul_i32,
+        s8_matmul_i32_reference)
+    from thinkdiff_torch.ops.quant import _absmax_quant_rows, quantize_weight
+
+    aq, _ = _absmax_quant_rows(randn((r, c), seed + 1, torch.float32))
+    out = torch.empty((r, o), dtype=torch.int32, device="cuda")
+    if bwd:
+        w = quantize_weight(randn((o, c), seed, torch.float32) * 0.02)["q"]
+        w_t = w.t().contiguous()
+        return (lambda: s8_matmul_bwd_i32(aq, w),
+                lambda: s8_matmul_bwd_i32_reference(aq, w),
+                lambda: torch._int_mm(aq, w_t),
+                (nbytes(aq, w, out), 2 * r * c * o, "int8"))
+    w_rm = quantize_weight(randn((c, o), seed, torch.float32) * 0.02)["q"]
+    w = w_rm.t().contiguous().t()  # QDense's load-time layout
+    return (lambda: s8_matmul_i32(aq, w),
+            lambda: s8_matmul_i32_reference(aq, w),
+            lambda: torch._int_mm(aq, w_rm),
+            (nbytes(aq, w, out), 2 * r * c * o, "int8"))
+
+
+def kernels_s8_i32(results):
+    """#2 and #7 in their int32 mode at the shard phase's shapes, against
+    their float64 plain versions: identical."""
+    for name, cases, bwd in (("s8_matmul_i32", SHARD_I32_FWD, False),
+                             ("s8_matmul_bwd_i32", SHARD_I32_BWD, True)):
+        for r, kk, n, proj in cases:
+            run, plain, library, work = (s8_i32_case(r, n, kk, True) if bwd
+                                         else s8_i32_case(r, kk, n, False))
+            results[name].append(check(
+                name, f"shard m2 {proj} R{r} K{kk} N{n}", run, plain,
+                lambda e, ref: e == 0, "identical", work, library=library,
+                main=proj in ("wo", "qkv")))
+            del run, plain, library
+
+
 def kernels_rmsnorm_train(results):
     import torch.nn.functional as F
 
@@ -2211,6 +2273,7 @@ def phase_kernels():
     kernels_attention_train(results)
     kernels_s8(results["s8_matmul"])
     kernels_s8_train(results)
+    kernels_s8_i32(results)
     kernels_flash_flux(results["flash_attention_fwd"])
     kernels_flash_clip(results["flash_attention_fwd"])
     kernels_flash_cogvideo(results["flash_attention_fwd"])
@@ -4219,12 +4282,13 @@ CLIP_VIDEO_CONFIG = (Path(__file__).resolve().parent / "configs"
 # the video CLI reads run.num_frames as LATENT frames (the JAX script's
 # reading); 13 latent frames are the YAML's 49 output frames
 VIDEO_LATENT_FRAMES = 13
-# the YAML's 50 DDIM steps cut to 15, the one cut: a step takes 3.65 s on
+# the YAML's 50 DDIM steps cut to 8, the one cut: a step takes 3.65 s on
 # an H100 (NVIDIA H100 80GB HBM3, 700 W; two forwards at T17623, #1 ~27 ms
 # a call, 84 calls, 62% of the step), and the script's phases read 625.0 s
-# with 25 steps on a slow host. Every step runs the same two forwards; the
-# launches count the steps run
-VIDEO_STEPS = 15
+# with 25 steps on a slow host; 15 until the shard phase took ~185 s of
+# the limit (the whole script 1,108.7 s on a slow host with 15). Every
+# step runs the same two forwards; the launches count the steps run
+VIDEO_STEPS = 8
 # one CogVideoX-5b forward at full shape (T17776: the 65 vision tokens and
 # 161 text tokens of the 226-token budget, 13 x 30 x 45 video tokens)
 # through the flash forward against the same forward through mha_heads
@@ -5028,7 +5092,10 @@ def ddp_child_train(flags, train_argv):
     an NCCL process group itself; init_distributed_mode then uses it),
     --dump DIR (each host batch the trainer takes is saved there, for the
     world-1 reference), --profile-step N (step N runs under
-    torch.profiler)."""
+    torch.profiler), --grads FILE (every rank keeps each optimizer
+    update's gradient and parameters, ``capture_grads``; rank 0 saves its
+    list there after the run; the copies' seconds are taken out of the
+    step times)."""
     import argparse
 
     import torch.distributed as dist
@@ -5041,14 +5108,17 @@ def ddp_child_train(flags, train_argv):
     parser.add_argument("--nccl-group", action="store_true")
     parser.add_argument("--dump", default=None)
     parser.add_argument("--profile-step", type=int, default=0)
+    parser.add_argument("--grads", default=None)
     opts = parser.parse_args(flags)
     if opts.nccl_group:
         dist.init_process_group("nccl", device_id=torch.device(
             "cuda", torch.cuda.current_device()))
-    record, profile = [], {}
+    record, profile, saved = [], {}, [{"s": 0.0}]
     step, prepare = Trainer.train_step, Trainer.prepare_batch
 
     def recorded(self, state, batch, rng=None):
+        if opts.grads and not record:
+            saved[0] = capture_grads(self)
         prof = None
         if len(record) + 1 == opts.profile_step:
             torch.cuda.synchronize()
@@ -5063,9 +5133,12 @@ def ddp_child_train(flags, train_argv):
             wall_ms = (time.perf_counter() - t) * 1e3
             prof.stop()
             profile.update(allreduce_share(prof, wall_ms))
+            profile["top_ops"] = top_host_ops(prof)
+        # a step's start less the seconds spent copying gradients so far
+        # (every rank copies, so no rank waits on another's)
         record.append({"step": state["step"], "lr": m["lr"],
                        "loss": m["loss"], "grad_norm": m["grad_norm"],
-                       "t": t})
+                       "t": t - saved[0]["s"]})
         return state, m
 
     def dumped(self, batch):
@@ -5091,8 +5164,19 @@ def ddp_child_train(flags, train_argv):
         launches = kernels.launch_counts()
     finally:
         Trainer.train_step, Trainer.prepare_batch = step, prepare
+    if opts.grads and os.environ.get("RANK", "0") == "0":
+        Path(opts.grads).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(saved[0]["steps"], opts.grads)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     iters = runner.iters_per_epoch
+    import hashlib
+
+    from thinkdiff_torch.core.optim import tree_leaves
+
+    digest = hashlib.sha256()
+    for _, t in tree_leaves(runner.state["params"]):
+        digest.update(t.detach().cpu().contiguous().view(torch.uint8)
+                      .numpy().tobytes())
     # the gaps between step starts within an epoch (the profiled step, if
     # the last, starts the last gap and so lengthens none)
     gaps = [b["t"] - a["t"] for a, b in zip(record, record[1:])
@@ -5108,7 +5192,41 @@ def ddp_child_train(flags, train_argv):
         "peak_gib": peak, "launches": launches, "profile": profile or None,
         "output_dir": str(runner.output_dir), "data_path": data_log.lines,
         "t5_layers": [runner.model.t5_cfg.num_layers,
-                      runner.model.t5_cfg.num_decoder_layers]}
+                      runner.model.t5_cfg.num_decoder_layers],
+        "mesh": runner.mesh.shape, "frozen_bytes": runner.trainer.frozen_bytes(),
+        "params_sha256": digest.hexdigest()}
+
+
+def capture_grads(trainer):
+    """Keeps what each of the trainer's optimizer updates receives from now
+    on: {"steps": [{"grads": the reduced gradient, "params": the
+    parameters it was taken at}] ({leaf: f32 on the CPU}), "s": the
+    seconds spent copying}."""
+    from thinkdiff_torch.core.optim import tree_leaves
+
+    update, log = trainer.tx.update, {"steps": [], "s": 0.0}
+
+    def capture(grads, opt_state, params):
+        t = time.perf_counter()
+        log["steps"].append({name: {k: g.detach().float().cpu().clone()
+                                    for k, g in tree_leaves(tree)}
+                             for name, tree in (("grads", grads),
+                                                ("params", params))})
+        log["s"] += time.perf_counter() - t
+        return update(grads, opt_state, params)
+
+    trainer.tx.update = capture
+    return log
+
+
+def top_host_ops(prof, n=12):
+    """The profiled step's ``n`` operations of most host time (self), and
+    the device's kernel time: [(name, self host ms, calls)], device ms."""
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"host": [(e.key, e.self_cpu_time_total / 1e3, e.count)
+                     for e in rows[:n]],
+            "device_ms": sum(e.self_device_time_total
+                             for e in prof.key_averages()) / 1e3}
 
 
 def allreduce_share(prof, wall_ms):
@@ -5207,12 +5325,24 @@ def concat_padded(parts):
     return out
 
 
-def ddp_reference(argv, dump, world):
+def ddp_reference(argv, dump, world, ranks=None, forced=None):
     """What GSPMD computes over a data axis of ``world``: the training
     CLI's bootstrap, task, model and Trainer in this process (a world of
     one), each step fed the concatenation of the batches the ``world``
-    ranks took at that step (``dump``, saved by the ranks). Returns each
-    step's loss and gradient norm, and the projector before and after."""
+    ranks took at that step (``dump``, saved by the ranks; ``ranks`` the
+    ranks whose batches form it, by default all). Returns each step's loss
+    and gradient norm, the projector before and after, and the kernels'
+    launches over the steps.
+
+    ``forced`` (a rank's ``capture_grads`` steps) makes each
+    step start from the parameters that rank took it at, so every step's
+    loss and gradient is compared at the same point (AdamW's first,
+    sign-like steps would otherwise part two runs by ~lr on every element
+    whose gradient sits at the noise); the rank's updates are then
+    replayed here from its first parameters and its gradients, and the
+    result returned beside (``replay``: each later step's parameters and
+    the final)."""
+    from thinkdiff_torch import kernels
     from thinkdiff_torch.core.optim import tree_leaves
     from thinkdiff_torch.engines.trainer import Trainer
     from thinkdiff_torch.scripts.common import bootstrap, parse_args
@@ -5224,23 +5354,62 @@ def ddp_reference(argv, dump, world):
     init = {k: t.detach().cpu().clone() for k, t in tree_leaves(state["params"])}
     steps = len(list(Path(dump).glob("rank0_*.npz")))
     losses, norms, rows = [], [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    grads = None if forced is None else capture_grads(trainer)
     for i in range(steps):
         parts = []
-        for r in range(world):
+        for r in (range(world) if ranks is None else ranks):
             with np.load(Path(dump) / f"rank{r}_{i:03d}.npz") as f:
                 parts.append(dict(f))
         host = concat_padded(parts)
         rows.append(int(host["labels"].shape[0]))
+        if forced is not None:
+            at = forced[i]["params"]
+            for k, t in tree_leaves(state["params"]):
+                t.copy_(at[k])
         state, m = trainer.train_step(state, trainer.prepare_batch(host),
                                       int(cfg.run_cfg.seed))
         losses.append(m["loss"])
         norms.append(m["grad_norm"])
     torch.cuda.synchronize()
+    launches = kernels.launch_counts()
     final = {k: t.detach().cpu().clone()
              for k, t in tree_leaves(state["params"])}
     return {"losses": [float(x) for x in losses],
             "grad_norms": [float(x) for x in norms], "rows": rows,
-            "init": init, "final": final}
+            "init": init, "final": final, "launches": launches,
+            "frozen_bytes": trainer.frozen_bytes(),
+            "grads": None if grads is None else [
+                x["grads"] for x in grads["steps"]],
+            "replay": None if forced is None else replay_updates(trainer,
+                                                                 forced)}
+
+
+def replay_updates(trainer, steps):
+    """The trainer's optimizer run from the parameters of the first of
+    ``steps`` (``capture_grads``'s) through each one's gradient, from
+    fresh moments: [the parameters after each update] ({leaf: f32 on the
+    CPU}), which the captured run's next step (or its end) must hold."""
+    from thinkdiff_torch.core.optim import tree_leaves, tree_map
+
+    first = steps[0]["params"]
+    params = tree_map(lambda t: t.detach().to(trainer.device, torch.float32,
+                                              copy=True),
+                      trainer.model.trainable_params())
+    for k, t in tree_leaves(params):
+        t.copy_(first[k])
+    opt_state, out = trainer.tx.init(params), []
+    update = type(trainer.tx).update      # not the capturing wrapper
+    for step in steps:
+        g = step["grads"]
+        grads = tree_map(torch.empty_like, params)
+        for k, t in tree_leaves(grads):
+            t.copy_(g[k])
+        update(trainer.tx, grads, opt_state, params)
+        out.append({k: t.detach().float().cpu().clone()
+                    for k, t in tree_leaves(params)})
+    return out
 
 
 def ddp_compare(phase, ranks, ref, ckpt):
@@ -5485,6 +5654,276 @@ def phase_ddp_clip(storage):
     finally:
         shutil.rmtree(out, ignore_errors=True)
     return ranks
+
+
+# ---------------------------------------------------------------------------
+# The shard phase: run.mesh's fsdp and model axes (parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+SHARD_DIR = DDP_DIR / "shard"
+SHARD_STEPS = 4
+# the rank's parameters against its updates replayed in another process on
+# the same card (the same code on the same inputs: a few f32 ulps at most)
+REPLAY_TOL = 1e-6
+# train-w8a8's operating point through the training CLI: bench.py's
+# overrides, rows packed to 256 tokens; SHARD_SAMPLES samples fed to the
+# packer a batch (about 4 rows of 256), one pass over the shards (no
+# resampling, so no 1000-sample shuffle buffer to fill first), each of the
+# (data, fsdp) readers its half of them
+SHARD_SAMPLES = 32
+SHARD_EMBED_SAMPLES = 320
+SHARD_OPTS = ["model.load_pretrained=False", "model.quantize_frozen=int8_dyn",
+              "model.chunked_ce=128", "model.vlm_hidden_size=3584",
+              "model.t5_config.fused_proj=True",
+              "model.t5_config.dropout_rate=0.0",
+              "datasets.llava_instruct_mllama_embed_2.build_info.pack=256",
+              "datasets.llava_instruct_mllama_embed_2.batch_size="
+              f"{SHARD_SAMPLES}",
+              "datasets.llava_instruct_mllama_embed_2.resample=False"]
+CLIP_SHARD_STEPS = 2
+# four ranks share the card in `shard lvlm f2m2`, and every fsdp gather and
+# model reduction crosses the host (gloo): ~1.3 s a decoder layer a step
+# (NVIDIA H100 80GB HBM3, 700 W, at 2 layers), so its decoder is cut to
+# this depth
+# (widths as written) to keep the script inside its time limit
+SHARD_F2M2_LAYERS = 4
+# the kernels a sharded step must launch, and the int32 mode's
+SHARD_KERNELS = TRAIN_KERNELS + ("s8_matmul_i32", "s8_matmul_bwd_i32")
+I32_OF = {"s8_matmul": "s8_matmul_i32", "s8_matmul_bwd": "s8_matmul_bwd_i32"}
+
+
+def shard_embed_shards(root, n, width, seed=SEED + 70):
+    """``n`` seeded embedding samples of the precompute's format (bf16
+    ``model.norm`` output embeds of N(60, 25) tokens, 16-token input embeds,
+    generated ids and their stand-in text) at the VLM's ``width``, in
+    shards of 16: the brace pattern."""
+    from thinkdiff_torch.data.tario import ShardWriter
+    from thinkdiff_torch.engines.standin_tokenizer import StandInTokenizer
+
+    decode = StandInTokenizer().decode
+    rs = np.random.RandomState(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    with ShardWriter(str(root / "%06d.tar"), maxcount=16) as w:
+        for i in range(n):
+            gen = int(np.clip(rs.normal(60, 25), 16, 200))
+            ids = rs.randint(10, 30000, gen).tolist()
+            w.write({
+                "__key__": f"s{i:05d}",
+                "json": {"output_token_ids": ids,
+                         "generated_text": decode(ids), "caption": f"c{i}"},
+                "model.norm.input_embed.pth": torch.from_numpy(
+                    rs.randn(16, width).astype(np.float32)).bfloat16(),
+                "model.norm.output_embed.pth": torch.from_numpy(
+                    rs.randn(gen, width).astype(np.float32)).bfloat16()})
+        last = w.shard - 1
+    return f"{root}/{{000000..{last:06d}}}.tar"
+
+
+def expected_frozen_bytes(towers, shape):
+    """Bytes of one device's blocks of ``towers`` ({name: module on meta})
+    on the (data, fsdp, model) mesh, by the port's copy of JAX's rules."""
+    from thinkdiff_torch.parallel.mesh import Mesh
+    from thinkdiff_torch.parallel.sharding import placements, rank_bytes
+
+    mesh = Mesh(*shape)
+    total = 0
+    for module in towers.values():
+        leaves = {**dict(module.named_parameters()),
+                  **dict(module.named_buffers())}
+        total += rank_bytes(placements(module, mesh), mesh,
+                            {k: t.dtype for k, t in leaves.items()})
+    return total
+
+
+def shard_compare(phase, ranks, steps, ref, shape, want_bytes, kinds):
+    """The sharded ranks against the world-1 run on the readers' batches
+    concatenated, each of its steps taken from rank 0's parameters at that
+    step (``steps``, rank 0's ``capture_grads``, were ``ddp_reference``'s
+    ``forced``): every rank the same global
+    losses and gradient norms; each step's loss within GRAD_LOSS_TOL
+    relative, gradient norm ratio in GRAD_NORM_RATIO; each step's reduced
+    projector gradient (the one the optimizer receives), leaf by leaf,
+    cosine at least GRAD_COS_MIN and norm ratio in GRAD_NORM_RATIO (the
+    gradient check's limits); rank 0's optimizer: its updates replayed
+    from its gradients give its parameters at each later step and at the
+    end within REPLAY_TOL of each leaf's largest magnitude; every rank's
+    final projector bit for bit one state (sha256); each rank's frozen
+    bytes what the rules give one device of the mesh; the kernels
+    ``kinds`` launched as often as at world 1 (#2 and #7 split between
+    their bf16 and int32 modes)."""
+    first = ranks[0]
+    for r in ranks[1:]:
+        if r["losses"] != first["losses"] or \
+                r["grad_norms"] != first["grad_norms"]:
+            raise AssertionError(f"{phase}: ranks disagree: {r['losses']} "
+                                 f"vs {first['losses']}")
+    shas = {r["params_sha256"] for r in ranks}
+    if len(shas) != 1:
+        raise AssertionError(f"{phase}: the ranks' projectors differ {shas}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(first["losses"], ref["losses"])]
+    ratio = [a / b for a, b in zip(first["grad_norms"], ref["grad_norms"])]
+    if len(rel) != len(ref["losses"]) or max(rel) > GRAD_LOSS_TOL or not all(
+            GRAD_NORM_RATIO[0] <= x <= GRAD_NORM_RATIO[1] for x in ratio):
+        raise AssertionError(
+            f"{phase}: losses {first['losses']} vs {ref['losses']} (rel "
+            f"{rel}), grad norm ratios {ratio}")
+    if len(steps) != len(ref["grads"]):
+        raise AssertionError(f"{phase}: {len(steps)} gradients kept, "
+                             f"{len(ref['grads'])} at world 1")
+    cos, norm = {}, {}
+    for i, (step, want) in enumerate(zip(steps, ref["grads"])):
+        grads = step["grads"]
+        for k in want:
+            cos[i, k] = cosine(grads[k], want[k])
+            norm[i, k] = float(grads[k].double().norm()
+                               / want[k].double().norm().clamp_min(1e-300))
+    if min(cos.values()) < GRAD_COS_MIN or not all(
+            GRAD_NORM_RATIO[0] <= x <= GRAD_NORM_RATIO[1]
+            for x in norm.values()):
+        raise AssertionError(f"{phase}: projector gradients (step, leaf) "
+                             f"cosines {cos}, norm ratios {norm}")
+    # the rank's optimizer: its updates replayed from its gradients give
+    # its parameters at each later step and at the end
+    got = torch.load(ranks[0]["ckpt"], weights_only=True)["model"]
+    after = [step["params"] for step in steps[1:]] + [got]
+    off = {(i, k): float((a[k].float() - b[k]).abs().max()
+                         / b[k].abs().max().clamp_min(1e-30))
+           for i, (a, b) in enumerate(zip(after, ref["replay"])) for k in b}
+    if max(off.values()) > REPLAY_TOL:
+        raise AssertionError(f"{phase}: the rank's parameters against its "
+                             f"updates replayed, (step, leaf): {off}")
+    held = [r["frozen_bytes"] for r in ranks]
+    if any(b != want_bytes for b in held):
+        raise AssertionError(f"{phase}: frozen bytes {held}, the rules give "
+                             f"{want_bytes} a device")
+    for r in ranks:
+        got_l = {k: r["launches"][k] + r["launches"].get(I32_OF.get(k), 0)
+                 if k in I32_OF else r["launches"][k] for k in kinds}
+        want_l = {k: ref["launches"][k] for k in kinds}
+        missing = [k for k in kinds + tuple(
+            I32_OF[k] for k in kinds if k in I32_OF and shape[2] > 1)
+            if r["launches"][k] == 0]
+        if got_l != want_l or missing:
+            raise AssertionError(f"{phase} rank {r['rank']}: launches "
+                                 f"{got_l} vs world-1 {want_l}, not launched "
+                                 f"{missing}")
+    say(phase, f"mesh {dict(zip(('data', 'fsdp', 'model'), shape))}, "
+        f"{len(ranks)} ranks ({first['backend']}) against the world-1 run on "
+        f"{ref['rows']} rows a step: losses max rel err {max(rel):.3g} (<= "
+        f"{GRAD_LOSS_TOL}); gradient norm ratio {min(ratio):.6f}-"
+        f"{max(ratio):.6f}; every step's projector gradient at the rank's "
+        f"parameters, leaf by leaf, cosine min {min(cos.values()):.6f} (>= "
+        f"{GRAD_COS_MIN}), norm ratio "
+        f"{min(norm.values()):.6f}-{max(norm.values()):.6f}; projector one "
+        f"state on every rank (sha256 {first['params_sha256'][:12]}), "
+        f"its updates replayed from its gradients to max rel "
+        f"{max(off.values()):.3g} (<= {REPLAY_TOL}; "
+        f"{sum(v == 0 for v in off.values())} of {len(off)} leaf-steps "
+        f"bit for bit); frozen bytes a rank {held[0] / 2 ** 30:.3f} "
+        f"GiB = the rules' share (world 1 {ref['frozen_bytes'] / 2 ** 30:.3f}"
+        f" GiB); launches a rank "
+        + str({k: ranks[0]["launches"][k] for k in kinds + tuple(
+            I32_OF[k] for k in kinds if k in I32_OF)})
+        + f" = world-1's {dict((k, ref['launches'][k]) for k in kinds)}")
+    for r in ranks:
+        say(phase, f"rank {r['rank']}: {r['step_ms']:.0f} ms a step (median "
+            f"gap), peak {r['peak_gib']:.2f} GiB, {r['wall_s']:.1f} s in "
+            f"train.main")
+    p = ranks[0]["profile"]
+    if p:
+        say(phase, f"rank 0's profiled last step: {p['wall_ms']:.0f} ms, "
+            f"{p['top_ops']['device_ms']:.0f} ms of kernels; host (self ms, "
+            "calls): " + "; ".join(f"{k} {ms:.0f} ({n})"
+                                   for k, ms, n in p["top_ops"]["host"]))
+
+
+def shard_run(phase, out, shape, opts, towers, kinds, steps):
+    """The training CLI on the (data, fsdp, model) mesh ``shape`` through
+    the launcher (one card: gloo), each rank's batches saved, then the
+    world-1 run on the (data, fsdp) readers' batches concatenated, and the
+    comparison."""
+    d, f, m = shape
+    world = d * f * m
+    argv = opts + [f"run.mesh.data={d}", f"run.mesh.fsdp={f}",
+                   f"run.mesh.model={m}", "run.max_epoch=1",
+                   f"run.iters_per_epoch={steps}"]
+    ranks = ddp_train(phase, out, world, [
+        "--dump", out / "batches", "--grads", out / "rank0_grads.pt",
+        "--profile-step", steps],
+        argv + [f"run.output_dir={out}", "--job-id", "shard"])
+    for r in ranks:
+        r["ckpt"] = out / "shard" / "checkpoint_0.pth"
+    torch.cuda.empty_cache()
+    rank0 = torch.load(out / "rank0_grads.pt")
+    ref = ddp_reference(argv + [f"run.output_dir={out / 'ref'}"],
+                        out / "batches", world, ranks=range(0, world, m),
+                        forced=rank0)
+    torch.cuda.empty_cache()
+    shard_compare(phase, ranks, rank0, ref, shape, expected_frozen_bytes(
+        towers, shape), kinds)
+    return ranks
+
+
+def phase_shard(clip_storage):
+    """run.mesh's fsdp and model axes through ``python -m
+    torch.distributed.run`` and the training CLI, ranks sharing the one
+    card over gloo: ``shard lvlm m2`` (train-w8a8's operating point: w8a8
+    flan-t5-xxl decoder at full width and depth, packed rows, 4 steps) at
+    {data 1, fsdp 1, model 2}, ``shard lvlm f2m2`` the same at {1, 2, 2}
+    (the global batch over fsdp; the decoder cut to SHARD_F2M2_LAYERS
+    layers), ``shard clip m2`` ThinkDiff-CLIP's YAML at {1, 1, 2} on
+    clip-train's shards (T5 cut to CLIP_DDP_T5_LAYERS + CLIP_DDP_T5_LAYERS,
+    as the ddp clip step), 2 steps; each against the world-1 run on the
+    same batches."""
+    import shutil
+
+    from thinkdiff_torch.models.t5 import T5Config, T5ForConditionalGeneration
+    from thinkdiff_torch.models.vit import ViTConfig, VisionTransformer
+
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        storage = shard_embed_shards(SHARD_DIR / "embed",
+                                     SHARD_EMBED_SAMPLES, 3584)
+        opts = ["--cfg-path", str(TRAIN_CONFIG), "--options",
+                f"datasets.llava_instruct_mllama_embed_2.build_info.storage="
+                f"{storage}", *SHARD_OPTS]
+        for name, shape, layers in (("m2", (1, 1, 2), 24),
+                                    ("f2m2", (1, 2, 2), SHARD_F2M2_LAYERS)):
+            lvlm = {"t5": T5ForConditionalGeneration(T5Config.flan_t5_xxl(
+                fused_proj=True, quant_int8="w8a8",
+                num_decoder_layers=layers), device="meta")}
+            say(f"shard lvlm {name}", f"flan-t5-xxl decoder {layers} of 24 "
+                "layers, w8a8 fused, widths as written")
+            out[name] = shard_run(
+                f"shard lvlm {name}", SHARD_DIR / name, shape,
+                opts + [f"model.t5_config.num_decoder_layers={layers}"],
+                lvlm, SHARD_KERNELS[:6], SHARD_STEPS)
+            say(f"shard lvlm {name}", f"{time.perf_counter() - t0:.1f} s "
+                "into the phase")
+        clip = {"vision": VisionTransformer(ViTConfig(dtype=torch.bfloat16),
+                                            device="meta"),
+                "t5": T5ForConditionalGeneration(T5Config.flan_t5_xxl(
+                    num_layers=CLIP_DDP_T5_LAYERS,
+                    num_decoder_layers=CLIP_DDP_T5_LAYERS), device="meta",
+                    encoder=True)}
+        say("shard clip m2", f"flan-t5-xxl encoder and decoder "
+            f"{CLIP_DDP_T5_LAYERS} + {CLIP_DDP_T5_LAYERS} layers (of 24 + "
+            "24; ~10 s a step at full depth, most of it the f32 partial "
+            "sums through the host), ViT-g and widths as written")
+        copts = ["--cfg-path", str(CLIP_TRAIN_CONFIG), "--options",
+                 f"datasets.cc_sbu.build_info.storage={clip_storage}",
+                 f"model.t5_config.num_layers={CLIP_DDP_T5_LAYERS}",
+                 "model.t5_config.num_decoder_layers="
+                 f"{CLIP_DDP_T5_LAYERS}"]
+        out["clip_m2"] = shard_run("shard clip m2", SHARD_DIR / "clip",
+                                   (1, 1, 2), copts, clip, CLIP_TRAIN_KERNELS,
+                                   CLIP_SHARD_STEPS)
+        say("shard", f"phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6163,6 +6602,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         ddp_clip = phase_ddp_clip(clip_train_rates["storage"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        shard = phase_shard(clip_train_rates["storage"])
     finally:
         import shutil
 
@@ -6216,6 +6658,8 @@ def main() -> int:
         f"{cobsat_rates['cli_imgs_per_s']:.1f}); lora "
         f"{lora_rates['step_ms']:.1f} ms a step, peak "
         f"{lora_rates['peak_gib']:.2f} GiB")
+    for kname in SHARD_ONLY_KERNELS:
+        launches[kname] = shard["m2"][0]["launches"][kname]
     report = []
     for kname, (route, source, replaces) in TPU_KERNELS.items():
         rows = results[kname]
@@ -6230,7 +6674,9 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "launches_from": ("ops phase (no model path runs it)"
-                              if kname in OP_KERNELS else "main path"),
+                              if kname in OP_KERNELS else
+                              "shard lvlm m2, rank 0"
+                              if kname in SHARD_ONLY_KERNELS else "main path"),
             "cli_stage1_launches": cli1["launches"][kname],
             "cli_stage2_launches": cli2["launches"][kname],
             "lvlm_flux_launches": flux[kname],
@@ -6245,6 +6691,8 @@ def main() -> int:
             "ddp_clip_launches": [r["launches"][kname] for r in ddp_clip],
             "calibrate_launches": calib[kname],
             "cobsat_launches": cobsat[kname], "lora_launches": lora[kname],
+            "shard_launches": {k: [r["launches"][kname] for r in ranks]
+                               for k, ranks in shard.items()},
             "timed_shape": main_row["shape"],
             "shapes": [{k: v for k, v in r.items() if k != "main"}
                        for r in rows],

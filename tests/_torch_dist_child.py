@@ -78,6 +78,8 @@ def run_eval(inp, rank):
 def run_save_result(inp, rank):
     from thinkdiff_torch.tasks.base_task import save_result
 
+    if "mesh" in inp:
+        _mesh(inp)
     return save_result(inp["results"][rank], inp["result_dir"], "val",
                        remove_duplicate="id")
 
@@ -99,8 +101,115 @@ def run_precompute(inp, rank):
     return cli.main(["--cfg-path", inp["cfg_path"], "--device", "cpu"])
 
 
+def _mesh(inp):
+    from thinkdiff_torch.parallel.mesh import Mesh, set_mesh
+
+    return set_mesh(Mesh(*inp["mesh"]))
+
+
+def run_sharded_trainer(inp, rank):
+    """The Trainer on ``inp["mesh"]`` (data, fsdp, model): the whole model
+    built from the JAX trees and cut by the Trainer; each step's batch is
+    the one of this rank's (data, fsdp) reader. Also: each frozen leaf's
+    block (shape, dtype), and whether the gathered tree is the JAX one."""
+    import numpy as np
+
+    from thinkdiff_torch.engines.trainer import Trainer
+    from thinkdiff_torch.models.bridge import flatten, params_of
+    from thinkdiff_torch.parallel.mesh import loader_rank
+
+    mesh = _mesh(inp)
+    model = _model(inp)
+    trainer = Trainer(model, dict(inp["run_cfg"]), device="cpu", mesh=mesh)
+    if rank:
+        for _, t in tree_leaves(trainer.model.trainable):
+            t.add_(1.0)
+    state = trainer.init_state()
+    out = {"losses": [], "grad_norms": [], "blocks": {}, "same_tree": True}
+    if "eval_batches" in inp:
+        out["eval"] = _sharded_eval(inp, trainer, state)
+    for step_batches in inp["batches"]:
+        state, m = trainer.train_step(
+            state, trainer.prepare_batch(step_batches[loader_rank()]))
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+    out["params"] = _flat_params(state)
+    for tower, module in model.frozen.items():
+        for name, t in [*module.named_parameters(), *module.named_buffers()]:
+            out["blocks"][f"{tower}/{name}"] = (tuple(t.shape), str(t.dtype))
+        want = flatten(inp["frozen"][tower])
+        for k, v in flatten(params_of(module)).items():
+            if not np.array_equal(np.asarray(v).view(np.uint8),
+                                  np.asarray(want[k]).view(np.uint8)):
+                out["same_tree"] = False
+    out["frozen_bytes"] = trainer.frozen_bytes()
+    return out
+
+
+def _sharded_eval(inp, trainer, state):
+    """An eval pass from the initial state over this rank's reader's
+    ``eval_batches`` (loss and token accuracy of the global batches), and
+    the global (loss, correct, tokens) of fixed per-reader sums."""
+    from thinkdiff_torch.parallel.mesh import loader_rank
+    from thinkdiff_torch.tasks.base_task import BaseTask, _global_eval_stats
+
+    metrics = BaseTask(device="cpu").evaluation(
+        trainer, state, iter(inp["eval_batches"][loader_rank()]),
+        best_metric="token_acc")
+    stats = _global_eval_stats(torch.tensor(2.5), torch.tensor(3.0),
+                               torch.tensor(4))
+    return {"metrics": metrics, "stats": [float(x) for x in stats]}
+
+
+def run_qdense(inp, rank):
+    """Sharded QDense layers (their names set their roles) against the
+    whole ones: forward and dx on the same x and dy."""
+    from torch import nn
+
+    from thinkdiff_torch.models.bridge import load_params
+    from thinkdiff_torch.models.qdense import QDense
+    from thinkdiff_torch.parallel.sharding import shard_params
+
+    mesh = _mesh(inp)
+    out = {}
+    for quant in (False, "int8", "w8a8"):
+        box = nn.Module()
+        for name, (k, n, unit) in inp["layers"].items():
+            layer = QDense(k, n, torch.float32, quant, device="cpu",
+                           train_layout=True)
+            layer.tp_unit = unit
+            setattr(box, name, layer)
+        load_params(box, inp["weights"][str(quant)])
+        shard_params(box, mesh, mesh.coords(rank))
+        for name in inp["layers"]:
+            x = torch.from_numpy(inp["x"][name]).requires_grad_(True)
+            y = getattr(box, name)(x)
+            y.backward(torch.from_numpy(inp["dy"][name]))
+            out[(str(quant), name)] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
+def run_seeded_build(inp, rank):
+    """A model built from its seed with the mesh set first (each rank
+    draws every leaf and keeps its block): its frozen trees gathered, and
+    the bytes the rank holds."""
+    from thinkdiff_torch.models import aligner_clip, aligner_lvlm
+    from thinkdiff_torch.models.bridge import params_of
+
+    _mesh(inp)
+    cls = {"lvlm": aligner_lvlm.MllamaT5EmbedDecoder,
+           "clip": aligner_clip.BlipVisionT5Decoder}[inp["arch"]]
+    model = cls(inp["cfg"], seed=inp["seed"], device="cpu")
+    held = sum(t.numel() * t.element_size() for m in model.frozen.values()
+               for t in [*m.parameters(), *m.buffers()])
+    return {"trees": {k: params_of(m) for k, m in model.frozen.items()},
+            "held": held}
+
+
 MODES = {"trainer": run_trainer, "eval": run_eval,
-         "save_result": run_save_result, "precompute": run_precompute}
+         "save_result": run_save_result, "precompute": run_precompute,
+         "sharded_trainer": run_sharded_trainer, "qdense": run_qdense,
+         "seeded_build": run_seeded_build}
 
 
 def main():

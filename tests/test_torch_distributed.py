@@ -40,6 +40,13 @@ def free_port() -> int:
 def launch(mode, work, inp, world=2, env=None):
     """``world`` ranks of the child in MODE on ``inp``: their outputs, in
     rank order. Every rank must exit 0 within TIMEOUT seconds."""
+    return start(mode, work, inp, world, env)()
+
+
+def start(mode, work, inp, world=2, env=None):
+    """``launch`` with the ranks started and not waited for: returns the
+    call that waits for them and returns their outputs (the caller may
+    compute its reference meanwhile)."""
     work.mkdir(parents=True, exist_ok=True)
     with open(work / "in.pkl", "wb") as f:
         pickle.dump(inp, f)
@@ -54,24 +61,28 @@ def launch(mode, work, inp, world=2, env=None):
         procs.append(subprocess.Popen(
             [sys.executable, CHILD, mode, str(work)], env=child_env, cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    errors = []
-    try:
-        for rank, p in enumerate(procs):
-            _, err = p.communicate(timeout=TIMEOUT)
-            if p.returncode:
-                errors.append(f"rank {rank} exit {p.returncode}:\n"
-                              f"{err[-3000:]}")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert not errors, "\n".join(errors)
-    outs = []
-    for rank in range(world):
-        with open(work / f"out_rank{rank}.pkl", "rb") as f:
-            outs.append(pickle.load(f))
-    return outs
+
+    def wait():
+        errors = []
+        try:
+            for rank, p in enumerate(procs):
+                _, err = p.communicate(timeout=TIMEOUT)
+                if p.returncode:
+                    errors.append(f"rank {rank} exit {p.returncode}:\n"
+                                  f"{err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        assert not errors, "\n".join(errors)
+        outs = []
+        for rank in range(world):
+            with open(work / f"out_rank{rank}.pkl", "rb") as f:
+                outs.append(pickle.load(f))
+        return outs
+
+    return wait
 
 
 # -- the batches: each rank's label count differs -------------------------
@@ -296,12 +307,18 @@ def test_mesh_axes_follow_jax_make_mesh(world, data):
 @pytest.mark.parametrize("axes", [{"fsdp": 2}, {"model": 2},
                                   {"data": 1, "fsdp": 2, "model": 2}])
 def test_mesh_with_sharded_axes_is_refused(axes):
-    """JAX builds these meshes over 4 or 8 devices; the port shards no
-    parameters yet and says where that work is queued."""
-    assert jmesh.mesh_from_config({"mesh": axes},
-                                  devices=jax.devices()[:4]).size == 4
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1, item 12c"):
-        tmesh.mesh_from_config({"mesh": axes}, world=4)
+    """JAX builds these meshes over 4 devices and the port over 4 ranks,
+    with JAX's axis sizes and each rank at its device's coordinate; over
+    3 devices or ranks, which the axes do not divide, both refuse."""
+    want = jmesh.mesh_from_config({"mesh": axes}, devices=jax.devices()[:4])
+    got = tmesh.mesh_from_config({"mesh": axes}, world=4)
+    assert got.shape == dict(want.shape) and got.size == want.size == 4
+    for idx, dev in np.ndenumerate(want.devices):
+        assert got.coords(dev.id) == dict(zip(jmesh.AXES, idx))
+    with pytest.raises(AssertionError):
+        jmesh.mesh_from_config({"mesh": axes}, devices=jax.devices()[:3])
+    with pytest.raises(ValueError, match="one device"):
+        tmesh.mesh_from_config({"mesh": axes}, world=3)
 
 
 @pytest.mark.parametrize("world,data", [(2, 1), (2, 3), (4, 2)])

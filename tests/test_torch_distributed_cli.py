@@ -59,14 +59,14 @@ MllamaT5EmbedDecoder.get_vlm_decode_fn = lambda self: vlm_decode
 WORLD = 2
 
 
-def torchrun(tmp_path, cfg_path, *args):
-    """The training CLI on WORLD gloo ranks through the launcher."""
+def torchrun(tmp_path, cfg_path, *args, nproc=WORLD):
+    """The training CLI on ``nproc`` gloo ranks through the launcher."""
     shim = tmp_path / "shim"
     shim.mkdir(exist_ok=True)
     (shim / "sitecustomize.py").write_text(SITECUSTOMIZE)
     env = dict(os.environ, PYTHONPATH=f"{shim}{os.pathsep}{REPO}")
     argv = [sys.executable, "-m", "torch.distributed.run",
-            "--nproc_per_node", str(WORLD), "--master_addr", "127.0.0.1",
+            "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
             "--master_port", str(free_port()), "-m", "thinkdiff_torch.train",
             "--cfg-path", str(cfg_path), "--device", "cpu", *args]
     proc = subprocess.run(argv, env=env, cwd=REPO, capture_output=True,
@@ -148,6 +148,68 @@ def _global_batches(cfg_path, epochs, steps):
             out.append({k: np.concatenate([b[k] for b in step])
                         for k in step[0]})
     return out, counts
+
+
+def _jax_losses(tmp, cfg, mesh_shape=(1, 1, 1)):
+    """JAX's Trainer on the (data, fsdp, model) mesh, from the port
+    model's weights, fed each step's WORLD reader batches concatenated:
+    (each epoch's mean loss, the final trainable tree)."""
+    from thinkdiff_torch.core.config import Config
+    from thinkdiff_torch.tasks import setup_task
+    from thinkdiff_tpu.core.config import ConfigNode
+    from thinkdiff_tpu.engines.trainer import Trainer as JTrainer
+    from thinkdiff_tpu.models.aligner_lvlm import MllamaT5EmbedDecoder
+    from thinkdiff_tpu.parallel.mesh import make_mesh
+
+    path = tmp / "cfg.yaml"
+    run = cfg["run"]
+    batches, counts = _global_batches(path, run["max_epoch"],
+                                      run["iters_per_epoch"])
+    assert any(a != b for a, b in counts), counts
+    tconfig = Config(cfg_path=str(path))
+    tm = setup_task(tconfig, device="cpu").build_model(tconfig)
+    jm = MllamaT5EmbedDecoder(ConfigNode(cfg["model"]), seed=0)
+    jm.frozen = {"t5": jax.tree.map(jax.numpy.asarray,
+                                    params_of(tm.frozen["t5"]))}
+    jm.trainable = jax.tree.map(jax.numpy.asarray, tm.export_trainable())
+    run_cfg = {k: (float(v) if k.endswith("lr") else v)
+               for k, v in run.items()}
+    d, f, m = mesh_shape
+    jt = JTrainer(jm, run_cfg, mesh=make_mesh(
+        d, f, m, devices=jax.devices()[:d * f * m]))
+    js = jt.init_state()
+    losses = []
+    for b in batches:
+        js, met = jt.train_step(js, jt.prepare_batch(b),
+                                jax.random.PRNGKey(run["seed"]))
+        losses.append(float(met["loss"]))
+    steps = run["iters_per_epoch"]
+    return ([np.mean(losses[e * steps:(e + 1) * steps])
+             for e in range(run["max_epoch"])], _flat(js["params"]))
+
+
+def test_training_cli_on_an_fsdp_model_mesh_matches_jax_s(tmp_path):
+    """``run.mesh {data 1, fsdp 2, model 2}`` through the launcher on four
+    gloo ranks (the model built from its seed as each rank's blocks, the
+    two (data, fsdp) readers' batches, the model peers alike): each
+    epoch's mean loss within 1e-4 relative of JAX's Trainer on the same
+    mesh shape fed the readers' batches concatenated, the projector within
+    1e-4, and one checkpoint and one log."""
+    cfg = _cfg(tmp_path, _shards(tmp_path),
+               mesh={"data": 1, "fsdp": 2, "model": 2})
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    torchrun(tmp_path, path, nproc=4)
+    jobs = os.listdir(tmp_path / "out")
+    assert len(jobs) == 1, jobs
+    job = tmp_path / "out" / jobs[0]
+    want, want_p = _jax_losses(tmp_path, cfg, (1, 2, 2))
+    got = [float(e["train_loss"]) for e in _log(job) if "train_loss" in e]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    ck = torch.load(job / "checkpoint_1.pth", weights_only=True)
+    for name, w in want_p.items():
+        np.testing.assert_allclose(ck["model"][name].numpy(), w, rtol=0,
+                                   atol=1e-4, err_msg=name)
 
 
 def test_training_cli_matches_jax_on_the_global_batch(straight):

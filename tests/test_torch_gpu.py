@@ -1452,3 +1452,70 @@ def test_flux_blocks_at_full_width_match_plain(cuda):
     cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(),
                                                 dim=0)
     assert float(cos) >= 0.999, float(cos)
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("r,k,n", [(1024, 5120, 4096), (1024, 4096, 6144),
+                                   (512, 4096, 16064), (256, 8960, 1536),
+                                   (16, 18944, 3584), (65, 4112, 4096)])
+def test_s8_int32_mode_gives_the_exact_sums(cuda, bwd, r, k, n):
+    """#2 and #7 in their int32 mode (a model-sharded contraction's partial
+    sums): identical to the float64 plain version and to torch._int_mm
+    (above 16 rows, which it needs), in one counted launch, and the scales applied to them give the bf16 mode's
+    bits (so a sum over ranks then scaled is the unsharded layer). Shapes:
+    the shard phase's wo K5120, qkv N6144 and lm_head chunk N16064 at model
+    2, and plans that split the contraction."""
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    xq, sx = _absmax_quant_rows(_randn((r, k), 31, cuda, torch.float32))
+    w = quantize_weight(_randn((k, n), 32, cuda, torch.float32) * 0.02)
+    name = "s8_matmul_bwd_i32" if bwd else "s8_matmul_i32"
+    # torch._int_mm takes more than 16 rows
+    lib = torch._int_mm(xq, w["q"].contiguous()) if r > 16 else None
+    before = kernels.launch_counts()[name]
+    if bwd:  # contraction over k: gq (R, k), the weight (n, k) row-major
+        w_nk = w["q"].t().contiguous()
+        acc = im.s8_matmul_bwd_i32(xq, w_nk)
+        ref = im.s8_matmul_bwd_i32_reference(xq, w_nk)
+        scaled, bf16 = (im.s8_scaled(acc, sx, None),
+                        im.s8_matmul_bwd(xq, sx, w_nk))
+    else:
+        acc = im.s8_matmul_i32(xq, w["q"])
+        ref = im.s8_matmul_i32_reference(xq, w["q"])
+        scaled, bf16 = (im.s8_scaled(acc, sx, w["scale"]),
+                        im.s8_matmul(xq, sx, w["q"], w["scale"]))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    assert acc.dtype == torch.int32 and torch.equal(acc, ref)
+    if lib is not None:
+        assert torch.equal(acc, lib)
+    assert torch.equal(scaled, bf16)
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+def test_s8_int32_mode_every_split_gives_the_same_sums(cuda, monkeypatch,
+                                                       bwd):
+    """The int32 mode at every split of the contraction (none, the plan's,
+    others: the in-place sum of the splits' planes) and both tile widths:
+    the same sums."""
+    from thinkdiff_torch.ops import int8_matmul as im
+
+    r, k, n = 256, 8960, 1536
+    xq, _ = _absmax_quant_rows(_randn((r, k), 33, cuda, torch.float32))
+    w = quantize_weight(_randn((k, n), 34, cuda, torch.float32))["q"]
+    w_nk = w.t().contiguous()
+    run = ((lambda: im.s8_matmul_bwd_i32(xq, w_nk)) if bwd
+           else (lambda: im.s8_matmul_i32(xq, w)))
+    plan = im.s8_gemm_plan
+    bm, _, _, chosen = plan(r, k, n)
+    ref = run()
+    outs = []
+    for bn in (128, 256):
+        for split in sorted({1, 2, 5, chosen}):
+            monkeypatch.setattr(im, "s8_gemm_plan", lambda *a, c=(
+                bm, bn, 3, split): c)
+            outs.append(run())
+    monkeypatch.setattr(im, "s8_gemm_plan", plan)
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out, ref)

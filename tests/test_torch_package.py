@@ -60,7 +60,8 @@ def test_every_module_imports_without_jax():
                  "parallel.mesh", "data.native", "data.randaugment",
                  "models.clip_scorer", "models.llama", "models.lora",
                  "scripts.score_cobsat", "scripts.get_wids_input_json",
-                 "scripts.convert_checkpoint"):
+                 "scripts.convert_checkpoint", "parallel.sharding",
+                 "parallel.collectives"):
         assert f"thinkdiff_torch.{name}" in _submodules()
 
 
@@ -129,6 +130,14 @@ def test_cpu_tensors_take_the_plain_paths():
         assert torch.equal(a, b)
     gq = torch.from_numpy(rs.randint(-127, 128, (4, 16)).astype(np.int8))
     assert torch.equal(s8_matmul_bwd(gq, sx, wq), s8_matmul_bwd_reference(gq, sx, wq))
+    # the int32 mode of both
+    from thinkdiff_torch.ops.int8_matmul import (
+        s8_matmul_bwd_i32, s8_matmul_bwd_i32_reference, s8_matmul_i32,
+        s8_matmul_i32_reference)
+
+    assert torch.equal(s8_matmul_i32(xq, wq), s8_matmul_i32_reference(xq, wq))
+    assert torch.equal(s8_matmul_bwd_i32(gq, wq),
+                       s8_matmul_bwd_i32_reference(gq, wq))
     xg = x.clone().requires_grad_(True)
     rmsnorm(xg, scale).sum().backward()
     assert kernels.launch_counts() == {
@@ -136,7 +145,7 @@ def test_cpu_tensors_take_the_plain_paths():
         "paged_attention": 0, "fused_lm_sample": 0, "flash_attention_dq": 0,
         "flash_attention_dkv": 0, "s8_matmul_bwd": 0, "int8_matmul": 0,
         "int8_matmul_wide_fwd": 0, "int8_matmul_wide_bwd": 0,
-        "s8_matmul_qx": 0}
+        "s8_matmul_qx": 0, "s8_matmul_i32": 0, "s8_matmul_bwd_i32": 0}
 
 
 def test_own_registry_beside_the_jax_one():

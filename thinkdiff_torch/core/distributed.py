@@ -112,6 +112,41 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """``t`` reduced (``sum`` or ``max``) over ``group``'s ranks (the world
+    for None), in place; returned. Nothing happens without a group of more
+    than one rank."""
+    if group is None and get_world_size() == 1:
+        return t
+    if group is not None and dist.get_world_size(group) == 1:
+        return t
+    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                           "max": dist.ReduceOp.MAX}[op], group=group)
+    return t
+
+
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes as int32 words where they fill them, else uint8: a
+    gather moves bytes, whatever the dtype."""
+    flat = t.contiguous().reshape(-1).view(torch.uint8)
+    return flat.view(torch.int32) if flat.numel() % 4 == 0 else flat
+
+
+def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``t`` (one shape on every rank) concatenated along
+    ``dim`` in ``group``'s rank order, bit for bit (its bytes gathered as
+    integers: gloo takes them on CUDA tensors too, through the host)."""
+    n = dist.get_world_size(group) if group is not None else get_world_size()
+    if n == 1:
+        return t
+    words = _words(t)
+    parts = [torch.empty_like(words) for _ in range(n)]
+    dist.all_gather(parts, words, group=group)
+    shape = tuple(t.shape)
+    return torch.cat([p.view(torch.uint8).view(t.dtype).view(shape)
+                      for p in parts], dim=dim)
+
+
 def all_reduce_min(value: int) -> int:
     """The smallest of the ranks' ``value``s."""
     if get_world_size() == 1:

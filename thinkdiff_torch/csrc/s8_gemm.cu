@@ -35,3 +35,18 @@ extern "C" int thinkdiff_s8_gemm(const void* xq, const void* sx, const void* wt,
                   static_cast<const float*>(s), y, ws, R, N, K, block_m,
                   block_n, stages, split, static_cast<cudaStream_t>(stream));
 }
+
+// The int32 mode (a contraction sharded over ranks, whose partial sums the
+// caller adds exactly before it applies the scales once): acc an int32
+// (split, R, N) buffer whose plane 0 receives the exact sums xq @ Wq; no
+// scale is read. Same plan and operands as thinkdiff_s8_gemm otherwise.
+extern "C" int thinkdiff_s8_gemm_i32(const void* xq, const void* wt, void* acc,
+                                     int R, int K, int N, int block_m,
+                                     int block_n, int stages, int split,
+                                     void* stream) {
+  if (R <= 0 || K <= 0 || N <= 0 || K % 16 != 0 || N % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return s8_wgmma(xq, wt, nullptr, nullptr, nullptr, acc, R, N, K, block_m,
+                  block_n, stages, split, static_cast<cudaStream_t>(stream),
+                  true);
+}

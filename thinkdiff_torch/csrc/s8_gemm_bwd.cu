@@ -37,3 +37,17 @@ extern "C" int thinkdiff_s8_gemm_bwd(const void* gq, const void* sg,
                   N, block_m, block_n, stages, split,
                   static_cast<cudaStream_t>(stream));
 }
+
+// The int32 mode: acc an int32 (split, R, K) buffer whose plane 0 receives
+// the exact sums gq @ Wq^T (no row scale), for a contraction over N that
+// is sharded over ranks and added by the caller before it scales.
+extern "C" int thinkdiff_s8_gemm_bwd_i32(const void* gq, const void* w,
+                                         void* acc, int R, int K, int N,
+                                         int block_m, int block_n, int stages,
+                                         int split, void* stream) {
+  if (R <= 0 || K <= 0 || N <= 0 || N % 16 != 0 || K % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  return s8_wgmma(gq, w, nullptr, nullptr, nullptr, acc, R, K, N, block_m,
+                  block_n, stages, split, static_cast<cudaStream_t>(stream),
+                  true);
+}

@@ -66,10 +66,12 @@ struct S8Params {
   const float* scol;   // (Nc,) or null (a column scale of 1)
   void* out;           // (M, Nc) bf16 (f32: #12's OUTF32)
   int* ws;             // (split, M, Nc) int32 partials; null when split == 1
+                       // (raw: the sums themselves, in plane 0)
   int M, Nc;
   int steps;           // K slices of S8_BK in the contraction
   int split, per;      // splits of the contraction, K slices a split
   int stages;
+  bool raw;            // the int32 mode: the exact sums, no epilogue
 };
 
 template <int BM, int BN>
@@ -224,8 +226,9 @@ __device__ __forceinline__ void s8_body(const CUtensorMap* tm_a,
 
       // value i of the accumulator: row rl + 8 * ((i / 2) % 2), column
       // 8 * (i / 4) + cl + i % 2 of the tile
-      if (!QX && p.split > 1) {
-        // this split's int32 partial tile, from registers
+      if (!QX && (p.split > 1 || p.raw)) {
+        // this split's int32 partial tile, from registers (the int32
+        // mode's sums where it does not split)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = m0 + rl + 8 * r;
@@ -344,6 +347,25 @@ s8_split_sum(const int* __restrict__ ws, const float* __restrict__ srow,
       scaled ? *reinterpret_cast<const float2*>(scol + c) : make_float2(1.f, 1.f));
 }
 
+// the int32 mode's second pass where it splits: each output pair's
+// partials added in split order into plane 0 (every pair is one thread's,
+// which reads its planes before it writes)
+__global__ void __launch_bounds__(256)
+s8_split_sum_i32(int* __restrict__ ws, int M, int Nc, int split) {
+  const long long pair = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int half = Nc / 2;
+  if (pair >= (long long)M * half) return;
+  const size_t at = (size_t)(pair / half) * Nc + (size_t)(pair % half) * 2;
+  const size_t plane = (size_t)M * Nc;
+  int a0 = 0, a1 = 0;
+  for (int z = 0; z < split; ++z) {
+    const int2 v = *reinterpret_cast<const int2*>(ws + z * plane + at);
+    a0 += v.x;
+    a1 += v.y;
+  }
+  *reinterpret_cast<int2*>(ws + at) = make_int2(a0, a1);
+}
+
 // ---- host ---------------------------------------------------------------
 
 // The tensor map of an int8 operand (s8: boxes of 128 columns, bytes) or
@@ -379,6 +401,11 @@ int s8_launch(const CUtensorMap& ta, const CUtensorMap& tb,
   cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess || p.split == 1) return (int)rc;
   const long long pairs = (long long)p.M * (p.Nc / 2);
+  if (p.raw) {
+    s8_split_sum_i32<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
+        p.ws, p.M, p.Nc, p.split);
+    return (int)cudaGetLastError();
+  }
   s8_split_sum<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
       p.ws, p.srow, p.scol, static_cast<__nv_bfloat16*>(p.out), p.M, p.Nc,
       p.split);
@@ -390,11 +417,12 @@ int s8_launch(const CUtensorMap& ta, const CUtensorMap& tb,
 // split must leave no split of the contraction empty)
 inline bool s8_params(S8Params& p, const float* srow, const float* scol,
                       void* out, void* ws, int M, int Nc, int Kc, int stages,
-                      int split) {
+                      int split, bool raw = false) {
   if (M <= 0 || Nc <= 0 || Kc <= 0 || Kc % 16 != 0 || Nc % 8 != 0 ||
       stages < 2 || stages > S8_MAX_STAGES || split < 1 ||
-      (split > 1) != (ws != nullptr) || encoder() == nullptr)
+      (split > 1 || raw) != (ws != nullptr) || encoder() == nullptr)
     return false;
+  p.raw = raw;
   p.srow = srow;
   p.scol = scol;
   p.out = out;
@@ -415,12 +443,17 @@ inline bool s8_params(S8Params& p, const float* srow, const float* scol,
 // split of the contraction empty. Nc is a multiple of 8 (the output's rows
 // start 16-byte aligned, as TMA stores them). Returns a CUDA error code, or 1000 + the
 // CUresult of a tensor map that cuTensorMapEncodeTiled refused.
+//
+// raw (the int32 mode): no epilogue; ws (split, M, Nc) int32 holds the
+// exact sums in its plane 0, out is ignored (a sharded contraction's
+// partial sums, which the caller adds over its ranks before it scales).
 inline int s8_wgmma(const void* a, const void* b, const float* srow,
                     const float* scol, void* out, void* ws, int M, int Nc,
                     int Kc, int block_m, int block_n, int stages, int split,
-                    cudaStream_t stream) {
+                    cudaStream_t stream, bool raw = false) {
   S8Params p;
-  if (!s8_params(p, srow, scol, out, ws, M, Nc, Kc, stages, split))
+  if (raw) out = ws;  // the unused bf16 map over memory that holds it
+  if (!s8_params(p, srow, scol, out, ws, M, Nc, Kc, stages, split, raw))
     return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb, tout;
   int rc;

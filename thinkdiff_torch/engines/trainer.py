@@ -16,6 +16,15 @@ with unequal label counts (padding, packing) thus weigh each token alike,
 where the mean of the ranks' mean-loss gradients would not. AdamW, its
 clip and ``grad_norm`` read the reduced gradient, so every rank takes the
 same update. A world of one runs the single-card step unchanged.
+
+On a sharded mesh (``run.mesh`` with fsdp or model > 1) the frozen towers
+hold each rank's blocks of JAX's placement (``parallel/sharding.py``;
+a model built whole is cut here) and the trainable projector stays
+replicated. The ``model`` peers of one (data, fsdp) coordinate read the
+same batch and reduce inside the tower, so they end the backward with
+the same gradient; the all-reduce stays one over the whole world, where
+each (data, fsdp) coordinate's sums arrive M times, numerator and
+denominator alike, so the global token mean is unchanged.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from thinkdiff_torch.core.distributed import (
     all_reduce_sum, broadcast_tensors, get_world_size)
 from thinkdiff_torch.core.optim import (
     global_norm, make_optimizer, tree_leaves, tree_map)
+from thinkdiff_torch.parallel.mesh import current_mesh, set_mesh
 
 
 def _tree_like(template: Dict[str, Any], values) -> Dict[str, Any]:
@@ -45,16 +55,34 @@ def _tree_like(template: Dict[str, Any], values) -> Dict[str, Any]:
 
 
 class Trainer:
-    def __init__(self, model, run_cfg: Dict[str, Any], device="cuda"):
+    def __init__(self, model, run_cfg: Dict[str, Any], device="cuda",
+                 mesh=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, trainer on "
                              f"{self.device}")
         self.model = model
         self.run_cfg = run_cfg
+        self.mesh = set_mesh(mesh) if mesh is not None else current_mesh()
         self.tx, self.schedule = make_optimizer(run_cfg,
                                                 model.trainable_params())
+        if self.mesh is not None and self.mesh.sharded:
+            from thinkdiff_torch.core.distributed import get_rank
+            from thinkdiff_torch.parallel.sharding import (
+                is_sharded, shard_params)
+
+            for tower in model.frozen.values():
+                if not is_sharded(tower):
+                    shard_params(tower, self.mesh,
+                                 self.mesh.coords(get_rank()))
         self.frozen = model.frozen
+
+    def frozen_bytes(self) -> int:
+        """Bytes of this rank's frozen leaves (its blocks on a sharded
+        mesh)."""
+        return sum(t.numel() * t.element_size()
+                   for tower in self.frozen.values()
+                   for t in [*tower.parameters(), *tower.buffers()])
 
     # -- state --------------------------------------------------------------
     def init_state(self) -> Dict[str, Any]:

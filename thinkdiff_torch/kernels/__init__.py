@@ -18,7 +18,10 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0, "s8_matmul": 0,
                             "fused_lm_sample": 0, "flash_attention_dq": 0,
                             "flash_attention_dkv": 0, "s8_matmul_bwd": 0,
                             "int8_matmul": 0, "int8_matmul_wide_fwd": 0,
-                            "int8_matmul_wide_bwd": 0, "s8_matmul_qx": 0}
+                            "int8_matmul_wide_bwd": 0, "s8_matmul_qx": 0,
+                            # the int32 mode of #2 and #7 (sharded
+                            # contractions, models/qdense.py)
+                            "s8_matmul_i32": 0, "s8_matmul_bwd_i32": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _build_info: Dict[str, object] = {}
@@ -31,6 +34,8 @@ _LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "thinkdiff_s8_gemm": [_P] * 6 + [_I] * 7 + [_P],
     "thinkdiff_s8_gemm_bwd": [_P] * 5 + [_I] * 7 + [_P],
+    "thinkdiff_s8_gemm_i32": [_P] * 3 + [_I] * 7 + [_P],
+    "thinkdiff_s8_gemm_bwd_i32": [_P] * 3 + [_I] * 7 + [_P],
     "thinkdiff_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LP, _LP,
                             _F, _P],
     "thinkdiff_flash_bwd_dq": [_P] * 11 + [_LP, _LP, _F, _P],

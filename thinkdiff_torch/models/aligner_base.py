@@ -4,6 +4,15 @@ models/aligner_clip.py, counterparts of the JAX package's ``BaseModel``
 plumbing): the config and device, the frozen flan-t5 from a local HF
 checkpoint (``convert_t5``) or seeded random weights, the trainable
 projector tree and its checkpoints, and the T5 tokenizer from local files.
+
+On a sharded mesh (``parallel.mesh.set_mesh`` before the model is built,
+as ``thinkdiff_torch.train`` does from ``run.mesh``) the frozen towers are
+built on ``meta`` and materialized block by block
+(``parallel.sharding.build_sharded``): each rank draws every leaf of the
+seeded init in the order one process draws them, or reads it from the
+converted checkpoint, keeps its block and drops the rest, so every rank
+holds the blocks of the tree one process would hold whole, and no rank
+holds the whole tree at once.
 """
 
 from __future__ import annotations
@@ -18,8 +27,8 @@ from thinkdiff_torch import resolve_device
 from thinkdiff_torch.core.config import model_default_config_path
 from thinkdiff_torch.core.optim import tree_map
 from thinkdiff_torch.models.bridge import (
-    load_params, local_hf_dir, local_hf_state_dict, to_numpy, to_tensor,
-    unflatten)
+    fill_, load_params, local_hf_dir, local_hf_state_dict, to_numpy,
+    to_tensor, unflatten)
 from thinkdiff_torch.models.convert import convert_t5
 from thinkdiff_torch.models.projector import (
     build_vision_projector, convert_projector_torch, export_projector_torch)
@@ -27,6 +36,7 @@ from thinkdiff_torch.models.qdense import QDense
 from thinkdiff_torch.models.t5 import (
     T5Config, T5ForConditionalGeneration, fuse_t5_params)
 from thinkdiff_torch.ops.quant import quantize_tree, quantize_weight
+from thinkdiff_torch.parallel.mesh import current_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -43,26 +53,65 @@ def _numpy_dtype(dtype: torch.dtype):
     return {torch.float32: np.float32, torch.float16: np.float16}[dtype]
 
 
-@torch.no_grad()
-def init_frozen_t5_(t5: T5ForConditionalGeneration,
-                    generator: torch.Generator) -> None:
-    """Seeded random weights on the module's device, as the JAX package's
-    ``quantize_leaves_on_device``: every float leaf N(0, 0.05); an int8
-    QDense draws its (K, N) kernel N(0, 0.05) in f32 and keeps only the
-    per-column quantization, one layer at a time, so the full-precision
-    tower never exists whole."""
-    for module in t5.modules():
+def t5_init_draw(generator: torch.Generator):
+    """The seeded init of a frozen T5, one submodule at a time (the
+    ``draw`` of ``parallel.sharding.build_sharded``): every float leaf
+    N(0, 0.05); an int8 QDense draws its (K, N) kernel N(0, 0.05) in f32
+    and keeps only the per-column quantization (an identity
+    ``input_scale``), as the JAX package's ``quantize_leaves_on_device``."""
+    dev = generator.device
+
+    def draw(_, module, own):
         if isinstance(module, QDense) and module.quant:
             w = torch.randn((module.in_dim, module.features),
-                            generator=generator, device=generator.device)
+                            generator=generator, device=dev)
             qw = quantize_weight(w * INIT_STD)
-            module.kernel_q.copy_(qw["q"])
-            module.kernel_scale.copy_(qw["scale"])
-            module.sync_train_layout()
-            continue
-        for p in module.parameters(recurse=False):
-            p.copy_(torch.randn(p.shape, generator=generator,
-                                device=generator.device) * INIT_STD)
+            out = {"kernel_q": qw["q"], "kernel_scale": qw["scale"]}
+            if "input_scale" in own:
+                out["input_scale"] = torch.ones(module.in_dim, device=dev)
+            if "bias" in own:
+                out["bias"] = torch.zeros(module.features, device=dev)
+            return out
+        return {k: torch.randn(v.shape, generator=generator, device=dev)
+                * INIT_STD for k, v in own.items()}
+
+    return draw
+
+
+def init_frozen_t5_(t5: T5ForConditionalGeneration,
+                    generator: torch.Generator) -> None:
+    """Seeded random weights on the module's device (``t5_init_draw``),
+    one layer at a time, so the full-precision tower never exists
+    whole."""
+    fill_(t5, t5_init_draw(generator))
+
+
+def tree_draw(tree: Dict[str, Any]):
+    """A ``build_sharded`` draw that reads a JAX-layout tree."""
+    from thinkdiff_torch.models.bridge import flatten
+
+    flat = {k.replace("/", "."): v for k, v in flatten(tree).items()}
+
+    def draw(name, _, own):
+        pre = f"{name}." if name else ""
+        return {k: to_tensor(flat[pre + k]) for k in own}
+
+    return draw
+
+
+def build_frozen(make, draw, device):
+    """A frozen tower from ``make(device)`` filled by ``draw`` (module by
+    module, ``t5_init_draw``'s or ``tree_draw``'s): on a sharded current
+    mesh built on ``meta`` and kept as this rank's blocks, else whole on
+    ``device``."""
+    from thinkdiff_torch.core.distributed import get_rank
+    from thinkdiff_torch.parallel.sharding import build_sharded
+
+    mesh = current_mesh()
+    if mesh is not None and mesh.sharded:
+        return build_sharded(make("meta"), mesh, mesh.coords(get_rank()),
+                             device, draw)
+    return fill_(make(device), draw)
 
 
 def load_hf_t5_(t5: T5ForConditionalGeneration, sd: Dict[str, np.ndarray],
@@ -73,6 +122,14 @@ def load_hf_t5_(t5: T5ForConditionalGeneration, sd: Dict[str, np.ndarray],
     ``int8_dyn`` w8a8) and fused when the config asks. Returns the
     converted tree (numpy), whose encoder final norm the projector's
     ``t5_norm`` may copy."""
+    tree, held = _hf_t5_tree(t5, sd, quantize_frozen)
+    load_params(t5, held)
+    return tree
+
+
+def _hf_t5_tree(t5, sd, quantize_frozen):
+    """(the converted tree, the part ``t5`` holds, quantized and fused as
+    its config asks)."""
     tree = convert_t5(sd, dtype=_numpy_dtype(t5.cfg.dtype))
     held = {k: v for k, v in tree.items() if hasattr(t5, k)}
     held = tree_map(to_tensor, held)
@@ -81,8 +138,7 @@ def load_hf_t5_(t5: T5ForConditionalGeneration, sd: Dict[str, np.ndarray],
                              w8a8=quantize_frozen == "int8_dyn")
     if t5.cfg.fused_proj:
         held = fuse_t5_params(held)
-    load_params(t5, held)
-    return tree
+    return tree, held
 
 
 class AlignerBase:
@@ -120,17 +176,29 @@ class AlignerBase:
         and one is on disk, else seeded random weights. Returns (the
         module, the encoder's final norm weight of a loaded checkpoint or
         None)."""
-        t5 = T5ForConditionalGeneration(self.t5_cfg, device=self.device,
-                                        encoder=encoder)
         path = self.cfg.get("text_pretrained_model_name_or_path",
                             "google/flan-t5-xxl")
         sd = (local_hf_state_dict(path) if self.cfg.get("load_pretrained", True)
               else None)
+        mesh = current_mesh()
+        sharded = mesh is not None and mesh.sharded
+        make = lambda device: T5ForConditionalGeneration(
+            self.t5_cfg, device=device, encoder=encoder)
         if sd is not None and "shared.weight" in sd:
-            tree = load_hf_t5_(t5, sd, self.cfg.get("quantize_frozen"))
+            if sharded:
+                tree, held = _hf_t5_tree(make("meta"), sd,
+                                         self.cfg.get("quantize_frozen"))
+                t5 = build_frozen(make, tree_draw(held), self.device)
+            else:
+                t5 = make(self.device)
+                tree = load_hf_t5_(t5, sd, self.cfg.get("quantize_frozen"))
             logger.info("Loaded T5 weights from %s", path)
             norm = tree.get("encoder", {}).get("final_norm", {}).get("weight")
             return t5, None if norm is None else to_tensor(norm)
+        if sharded:
+            return build_frozen(make, t5_init_draw(generator),
+                                self.device), None
+        t5 = make(self.device)
         init_frozen_t5_(t5, generator)
         return t5, None
 

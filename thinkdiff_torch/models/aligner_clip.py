@@ -32,13 +32,13 @@ from typing import Any, Dict, Optional
 import torch
 
 from thinkdiff_torch import registry
-from thinkdiff_torch.models.aligner_base import AlignerBase
-from thinkdiff_torch.models.bridge import (
-    load_params, local_hf_state_dict, to_tensor)
+from thinkdiff_torch.models.aligner_base import (
+    AlignerBase, build_frozen, tree_draw)
+from thinkdiff_torch.models.bridge import local_hf_state_dict, to_tensor
 from thinkdiff_torch.models.convert import convert_clip_vit
 from thinkdiff_torch.models.t5 import ce_stats, cross_entropy_loss, shift_right
 from thinkdiff_torch.models.vit import (
-    ViTConfig, VisionTransformer, init_vit_, vision_downsample)
+    ViTConfig, VisionTransformer, vision_downsample, vit_init_draw)
 
 logger = logging.getLogger(__name__)
 
@@ -68,16 +68,17 @@ class BlipVisionT5Decoder(AlignerBase):
 
     def _build_params(self, seed: int) -> None:
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        vision = VisionTransformer(self.vit_cfg, device=self.device)
         path = self.cfg.get("blip_pretrained_model_name_or_path",
                             "Salesforce/blip2-flan-t5-xxl")
         sd = (local_hf_state_dict(path) if self.cfg.get("load_pretrained", True)
               else None)
+        make = lambda device: VisionTransformer(self.vit_cfg, device=device)
         if sd is not None and any(k.startswith("vision_model.") for k in sd):
-            load_params(vision, convert_clip_vit(sd, "vision_model."))
+            vision = build_frozen(make, tree_draw(convert_clip_vit(
+                sd, "vision_model.")), self.device)
             logger.info("Loaded BLIP-2 vision weights from %s", path)
         else:
-            init_vit_(vision, gen)
+            vision = build_frozen(make, vit_init_draw(gen), self.device)
         t5, encoder_norm = self._frozen_t5(gen, encoder=True)
         self.frozen = {"vision": vision, "t5": t5}
         params = self.projector.init_params(self.vit_cfg.hidden_size, gen,

@@ -6,6 +6,11 @@ or torch tensors) names each leaf by its path, e.g.
 same names with dots, and the JAX layouts (kernels (in, out), int8 kernels
 (K, N) with a per-column scale, fused qkv/gate_up), so loading is a copy
 per leaf and ``params_of`` is its exact inverse.
+
+A module sharded over a mesh (parallel/sharding.py) holds its rank's
+blocks: ``load_params`` of a whole JAX tree copies each rank's block of
+each leaf, and ``tree_of`` gathers the blocks back into JAX's whole
+layout (a collective: every rank of the mesh calls it).
 """
 
 from __future__ import annotations
@@ -71,6 +76,8 @@ def load_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     and memory layout (QDense's int8 kernels stay in the transposed storage
     the s8 kernel reads); a training QDense then remakes its (K, N) copy."""
     targets = _targets(module)
+    pls, mesh = getattr(module, "_placements", None), getattr(
+        module, "_mesh", None)
     flat = {k.replace("/", "."): v for k, v in flatten(tree).items()}
     missing = sorted(set(targets) - set(flat))
     unexpected = sorted(set(flat) - set(targets))
@@ -80,6 +87,12 @@ def load_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     with torch.no_grad():
         for name, leaf in flat.items():
             dst, src = targets[name], to_tensor(leaf)
+            if pls is not None:
+                from thinkdiff_torch.core.distributed import get_rank
+                from thinkdiff_torch.parallel.sharding import local_block
+
+                src = local_block(src, pls[name], mesh,
+                                  mesh.coords(get_rank()))
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"load_params: {name} has shape "
                                  f"{tuple(src.shape)}, module wants "
@@ -91,10 +104,41 @@ def load_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     return module
 
 
+def own_leaves(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``module``'s own parameters and buffers (not its children's)."""
+    return {k: v for k, v in {**module._parameters,
+                              **module._buffers}.items() if v is not None}
+
+
+@torch.no_grad()
+def fill_(module: nn.Module, draw) -> nn.Module:
+    """``module``'s leaves in place, submodule by submodule in
+    ``modules()`` order, from ``draw(name, submodule, own_leaves)`` (the
+    full values; ``parallel.sharding.build_sharded`` takes the same
+    ``draw``); a training QDense then remakes its (K, N) copy."""
+    for name, sub in module.named_modules():
+        own = own_leaves(sub)
+        if own:
+            for k, v in draw(name, sub, own).items():
+                getattr(sub, k).copy_(v)
+        if hasattr(sub, "sync_train_layout"):
+            sub.sync_train_layout()
+    return module
+
+
 def tree_of(module: nn.Module,
             leaf_fn: Callable[[str, torch.Tensor], Any]) -> Dict[str, Any]:
     """The module's parameters and buffers as a JAX-layout tree, each leaf
-    mapped by ``leaf_fn(dotted_name, tensor)``."""
+    mapped by ``leaf_fn(dotted_name, tensor)``; a sharded module's leaves
+    whole (gathered)."""
+    pls, mesh = getattr(module, "_placements", None), getattr(
+        module, "_mesh", None)
+    if pls is not None:
+        from thinkdiff_torch.parallel.sharding import gather_leaf
+
+        return unflatten({
+            name.replace(".", "/"): leaf_fn(name, gather_leaf(
+                t, pls[name], mesh)) for name, t in _targets(module).items()})
     return unflatten({name.replace(".", "/"): leaf_fn(name, t)
                       for name, t in _targets(module).items()})
 

@@ -27,10 +27,29 @@ of the JAX tree; the serving path never pays for it.
 
 Parameter names and layouts are the JAX ones, so the weight bridge
 (models/bridge.py) maps a JAX tree onto a module key for key.
+
+On a sharded mesh (parallel/sharding.py) a layer holds its rank's block of
+each leaf and knows its placement (``set_placement``): the ``fsdp``
+dimension is gathered for the product and dropped after it, and gathered
+again for the backward, so no saved tensor keeps a gathered weight; a
+layer split over ``model`` is column parallel (its output columns: its
+share is the rank's columns, the input gradient a SUM over the model
+group) or row parallel (its input rows: the product a SUM over the
+group). A float partial is formed and summed in f32 and rounded once. A
+w8a8 layer gives the unsharded layer's bits: where its row quantization
+spans a sharded axis (a row-parallel input, a column-parallel layer's
+output gradient) the row absmax is the MAX over the group, and the
+partial products are the kernels' exact int32 sums (their int32 mode),
+added over the group before the scales are applied once, as XLA adds
+JAX's int32 dot over a sharded contraction. Every w8a8 product, sharded
+or not, is ``ops/quant.int8_dynamic_matmul`` (a sharded layer passes it
+the group's reductions); every float or weight-only one is
+``_float_product``.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List
 
 import torch
@@ -38,6 +57,10 @@ from torch import nn
 
 from thinkdiff_torch.ops.int8_matmul import GEMV_ROWS, int8_matmul
 from thinkdiff_torch.ops.quant import int8_dynamic_matmul
+from thinkdiff_torch.parallel import collectives as col
+from thinkdiff_torch.parallel.mesh import FSDP_AXIS, MODEL_AXIS
+from thinkdiff_torch.parallel.sharding import (
+    Placement, arrange_parts, unarrange_parts)
 
 
 def _int8_kernel_storage(in_dim: int, features: int, device) -> torch.Tensor:
@@ -48,6 +71,14 @@ def _int8_kernel_storage(in_dim: int, features: int, device) -> torch.Tensor:
 
 
 class QDense(nn.Module):
+    # the width of the columns a column-parallel share must keep whole (an
+    # attention projection's head size; set by the model)
+    tp_unit = 1
+    # no placement: the unsharded layer
+    tp_role = None
+    tp_local = False
+    sharded = False
+
     def __init__(self, in_dim: int, features: int, dtype=torch.float32,
                  quant: Any = False, use_bias: bool = False, device=None,
                  train_layout: bool = False):
@@ -77,27 +108,202 @@ class QDense(nn.Module):
 
     def sync_train_layout(self) -> None:
         """(Re)make the (K, N) row-major copy of ``kernel_q`` of a training
-        layer."""
+        layer (of the rank's block, on a sharded mesh)."""
         if self.train_layout:
             self.kernel_q_kn = self.kernel_q.contiguous()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    # -- a sharded mesh ------------------------------------------------------
+    def set_placement(self, pls, mesh) -> None:
+        """This layer's leaves' placements {leaf: Placement} on ``mesh``
+        (parallel/sharding.py): its role over ``model``, the dimension its
+        kernel's ``fsdp`` block splits, and whether a column share is
+        self-contained (whole units, or a fused leaf arranged by part) so
+        that its consumer can take it as it is."""
+        kpl = pls["kernel_q" if self.quant else "kernel"]
+        spec = kpl.spec + (None, None)
+        self.placement, self.mesh = pls, mesh
+        self.sharded = any(a is not None for pl in pls.values()
+                           for a in pl.spec)
+        self.tp_role = ("col" if spec[1] == MODEL_AXIS else
+                        "row" if spec[0] == MODEL_AXIS else None)
+        self.fsdp_dim = (spec.index(FSDP_AXIS) if FSDP_AXIS in spec[:2]
+                         else None)
+        self.tp_parts = kpl.parts if kpl.parts_dim is not None else 1
+        self.tp_local = self.tp_role == "col" and (
+            self.tp_parts > 1 or self.features % (mesh.model * self.tp_unit)
+            == 0)
+        self.sync_train_layout()
+
+    def _leaf(self, name: str) -> torch.Tensor:
+        """A leaf with its ``fsdp`` block gathered (the rank's model block,
+        or the whole leaf where nothing splits it over ``model``)."""
+        t = getattr(self, name)
+        return col.fsdp_gather(t, self.placement[name].dim_of(FSDP_AXIS))
+
+    def _weight(self, cols, kn: bool = False) -> torch.Tensor:
+        """The kernel (``kernel`` or ``kernel_q``; with ``kn`` the (K, N)
+        row-major int8 copy) gathered over ``fsdp``, narrowed to ``cols``
+        (start, width) of its output columns."""
+        if not self.quant:
+            w = self._leaf("kernel")
+        elif kn:
+            w = col.fsdp_gather(self.kernel_q_kn, self.fsdp_dim)
+        else:
+            # gather the (N, K) storage the forward kernel reads
+            w = col.fsdp_gather(
+                self.kernel_q.t(), None if self.fsdp_dim is None
+                else 1 - self.fsdp_dim).t()
+        if cols is not None:
+            w = w.narrow(1, *cols)
+            if kn:
+                w = w.contiguous()
+        return w
+
+    def fsdp_gathered(self) -> "QDense":
+        """This layer with its ``fsdp`` blocks gathered once (a copy that
+        shares nothing it changes): for a caller that runs it a
+        data-dependent number of times, e.g. the lm_head over token
+        chunks, whose ``fsdp`` peers' counts may differ."""
+        if not self.sharded or col.fsdp_size() == 1:
+            return self
+        g = copy.copy(self)
+        g._parameters, g._buffers = dict(self._parameters), dict(self._buffers)
+        for name in list(g._parameters) + list(g._buffers):
+            t = getattr(self, name)
+            if t is None:
+                continue
+            if name == "kernel_q":
+                full = self._weight(None)
+            else:
+                full = self._leaf(name)
+            (g._parameters if name in g._parameters else g._buffers)[name] = (
+                nn.Parameter(full, requires_grad=False)
+                if name in g._parameters else full)
+        g.placement = {
+            k: Placement(pl.shape, tuple(None if a == FSDP_AXIS else a
+                                         for a in pl.spec),
+                         pl.parts_dim, pl.parts)
+            for k, pl in self.placement.items()}
+        g.fsdp_dim = None
+        if self.train_layout:
+            g.kernel_q_kn = self._weight(None, kn=True)
+        return g
+
+    def _scale(self, cols) -> torch.Tensor:
+        s = self._leaf("kernel_scale")
+        return s if cols is None else s.narrow(0, *cols)
+
+    def _sharded_forward(self, x, keep_local: bool, cols):
+        role = "col" if cols is not None else self.tp_role
+        m = col.model_size()
+        if role == "row" and x.shape[-1] == self.in_dim and m > 1:
+            # a whole input: this rank's rows of it (their gradient, zero
+            # elsewhere, is summed over the group into the whole one's)
+            k = self.in_dim // m
+            x = col.copy_to_model(x).narrow(-1, col.model_index() * k, k)
+        if self.quant == "w8a8":
+            s_in = self._leaf("input_scale")
+            x = x * (1.0 / s_in.to(self.dtype))
+            split = col.model_all_reduce if m > 1 else None
+            y = int8_dynamic_matmul(
+                x, self._weight(cols), self._scale(cols),
+                k_reduce=split if role == "row" else None,
+                n_reduce=split if role == "col" else None,
+                weights=lambda: (self._weight(cols, kn=self.train_layout),
+                                 self._scale(cols)))
+        else:
+            y = _ShardedDense.apply(x, self, role, cols)
+        if self.bias is not None:
+            b = self.bias  # replicated: the rank's columns of it
+            if role == "col" and cols is not None:
+                b = b.narrow(0, *cols)
+            elif role == "col":
+                if self.tp_parts > 1:
+                    b = arrange_parts(b, 0, self.tp_parts, m)
+                b = b.narrow(0, col.model_index() * y.shape[-1], y.shape[-1])
+            y = y + b
+        if role == "col" and cols is None and not (keep_local
+                                                   and self.tp_local):
+            y = col.gather_from_model(y, -1)
+            if self.tp_parts > 1:
+                y = unarrange_parts(y, y.dim() - 1, self.tp_parts, m)
+        return y
+
+    def forward(self, x: torch.Tensor, keep_local: bool = False,
+                cols=None) -> torch.Tensor:
+        """``x`` (..., in) -> (..., out). On a sharded mesh: ``keep_local``
+        lets a column-parallel layer whose share is self-contained
+        (``tp_local``) return the rank's columns, else they are gathered;
+        ``cols`` (start, width) computes only those output columns of a
+        layer not split over ``model``, as a column-parallel share (the
+        input gradient summed over the model group)."""
         x = x.to(self.dtype)
+        if cols is not None or (self.sharded and
+                                col.model_size() * col.fsdp_size() > 1):
+            if not hasattr(self, "placement"):
+                raise ValueError("QDense: cols= is a placed layer's")
+            return self._sharded_forward(x, keep_local, cols)
         if self.quant == "w8a8":
             xs = x * (1.0 / self.input_scale.to(self.dtype))
             y = int8_dynamic_matmul(xs, self.kernel_q, self.kernel_scale,
                                     self.kernel_q_kn)
-        elif self.quant and x.numel() // x.shape[-1] <= GEMV_ROWS:
-            y = int8_matmul(x, self.kernel_q, self.kernel_scale,
-                            out_dtype=self.dtype)
         elif self.quant:
-            y = torch.matmul(x, self.kernel_q.to(self.dtype))
-            y = y * self.kernel_scale.to(self.dtype)
+            y = _float_product(x, self.kernel_q, self.kernel_scale, self.dtype)
         else:
-            y = torch.matmul(x, self.kernel)
+            y = _float_product(x, self.kernel, None, self.dtype)
         if self.bias is not None:
             y = y + self.bias
         return y
+
+
+def _float_product(x, w, scale, dtype, reduce=None):
+    """x (..., K) @ w (K, N) of a float or weight-only int8 QDense (an int8
+    ``w`` with its column ``scale``): at <= GEMV_ROWS rows the int8 GEMV,
+    above it the kernel in ``dtype`` and the scale on the output. With
+    ``reduce`` (``model_all_reduce``: K is split over the model group) the
+    partial product is formed and summed in f32 and rounded once."""
+    if reduce is not None:
+        y = x.float() @ w.float()
+        if scale is not None:
+            y = y * scale.float()[None]
+        return reduce(y, "sum").to(dtype)
+    if scale is None:
+        return torch.matmul(x, w)
+    if x.numel() // x.shape[-1] <= GEMV_ROWS:
+        return int8_matmul(x, w, scale, out_dtype=dtype)
+    return torch.matmul(x, w.to(dtype)) * scale.to(dtype)
+
+
+class _ShardedDense(torch.autograd.Function):
+    """A sharded float or weight-only int8 QDense's product and its input
+    gradient (the weights are frozen). Nothing of the gathered weight is
+    saved: the backward gathers it again. (An unsharded layer's product is
+    plain autograd: a caller may differentiate its kernel, as LoRA does
+    through ``functional_call``.)"""
+
+    @staticmethod
+    def forward(ctx, x, layer, role, cols):
+        ctx.layer, ctx.role, ctx.cols = layer, role, cols
+        ctx.x_shape = x.shape
+        row = role == "row" and col.model_size() > 1
+        y = _float_product(x.reshape(-1, x.shape[-1]), layer._weight(cols),
+                           layer._scale(cols) if layer.quant else None,
+                           layer.dtype, col.model_all_reduce if row else None)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+
+    @staticmethod
+    def backward(ctx, dy):
+        layer, cols = ctx.layer, ctx.cols
+        dtype = layer.dtype
+        split_n = ctx.role == "col" and col.model_size() > 1
+        g = dy.reshape(-1, dy.shape[-1])
+        w = layer._weight(cols)
+        if layer.quant:
+            g = g * layer._scale(cols).to(dtype)[None, :]
+            w = w.to(dtype)
+        dx = _float_product(g, w.t(), None, dtype,
+                            col.model_all_reduce if split_n else None)
+        return dx.reshape(ctx.x_shape), None, None, None
 
 
 def concat_dense_params(nodes: List[Dict[str, Any]]) -> Dict[str, Any]:

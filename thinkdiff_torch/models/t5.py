@@ -17,7 +17,17 @@ layer, RMS norms, gated-gelu FFN with the tanh gelu, untied lm_head.
 Parameter names and layouts are the JAX ones (``decoder.block_0.self_attn
 .qkv.kernel_q``, ...), so ``models/bridge.py`` loads a JAX tree key for
 key. Every weight is frozen (requires_grad False); gradients flow to the
-inputs only. The modules are deterministic: the aligner runs T5 with
+inputs only.
+
+On a sharded mesh (parallel/sharding.py, JAX's rules) the layers hold
+their rank's blocks. Where the q/k/v projections are split over ``model``
+in whole heads, an attention runs the rank's heads (a projection the rules
+leave whole, the fused layout's cross-attention ``q``, computes only their
+columns) and gathers their outputs before ``o``; elsewhere every rank runs
+every head. The FFN's input projections split their columns and ``wo``
+its rows, summed over the group. The vocabulary-split ``shared``
+embedding gives zeros for an id outside the rank's rows, summed over the
+group; the relative bias is replicated. The modules are deterministic: the aligner runs T5 with
 dropout off (``deterministic=True`` on every JAX call of this path).
 """
 
@@ -34,6 +44,7 @@ from torch import nn
 from thinkdiff_torch.models.qdense import QDense, concat_dense_params
 from thinkdiff_torch.ops.flash_attention import flash_attention, kernel_bias
 from thinkdiff_torch.ops.norms import rmsnorm
+from thinkdiff_torch.parallel import collectives as col
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +156,16 @@ class T5Attention(nn.Module):
             self.kv_fused = dense(2 * inner)
         else:
             self.q, self.k, self.v = dense(inner), dense(inner), dense(inner)
+        for m in self.children():
+            m.tp_unit = cfg.d_kv  # a column share keeps whole heads
         self.o = _dense(cfg, inner, cfg.d_model, device)
+
+    def _local_heads(self, cross: bool) -> bool:
+        """Whether this rank runs its heads only: the projections that
+        make k and v are split over ``model`` in whole heads."""
+        layer = (self.kv_fused if self.cfg.fused_proj and cross else
+                 self.qkv if self.cfg.fused_proj else self.k)
+        return layer.tp_local and col.model_size() > 1
 
     def forward(self, hidden, kv=None, position_bias=None, mask=None,
                 q_segments=None, kv_segments=None):
@@ -154,27 +174,35 @@ class T5Attention(nn.Module):
         (1|B, H, Tq, Tk); q/kv_segments (B, Tq)/(B, Tk) packing ids (>= 1
         real, 0 pad), same-segment attention only. Returns (B, Tq, D)."""
         cfg = self.cfg
-        inner = cfg.num_heads * cfg.d_kv
+        local = self._local_heads(kv is not None)
+        n_heads = cfg.num_heads // (col.model_size() if local else 1)
+        inner = n_heads * cfg.d_kv
         if cfg.fused_proj and kv is None:
-            q, k, v = self.qkv(hidden).split(inner, dim=-1)
+            q, k, v = self.qkv(hidden, keep_local=True).split(inner, dim=-1)
         elif cfg.fused_proj:
-            q = self.q(hidden)
-            k, v = self.kv_fused(kv).split(inner, dim=-1)
+            q = self.q(hidden, cols=(col.model_index() * inner, inner)
+                       if local else None)
+            k, v = self.kv_fused(kv, keep_local=True).split(inner, dim=-1)
         else:
             source = hidden if kv is None else kv
             q, k, v = self.q(hidden), self.k(source), self.v(source)
         b, tq, _ = q.shape
         tk = k.shape[1]
-        heads = lambda x, t: x.reshape(b, t, cfg.num_heads, cfg.d_kv).transpose(1, 2)
+        heads = lambda x, t: x.reshape(b, t, n_heads, cfg.d_kv).transpose(1, 2)
         q, k, v = heads(q, tq), heads(k, tk), heads(v, tk)
         bias = None if position_bias is None else position_bias.float()
+        if bias is not None and local:
+            bias = bias.narrow(1, col.model_index() * n_heads, n_heads)
         kv_mask = None if mask is None else mask.to(torch.int32)
         if q_segments is None or kv_segments is None:
             q_segments = kv_segments = None  # ids only act in pairs
         # T5 has no 1/sqrt(d) scaling
         out = flash_attention(q, k, v, bias, kv_mask, self.causal, 1.0,
                               q_segments, kv_segments)
-        return self.o(out.transpose(1, 2).reshape(b, tq, inner))
+        out = out.transpose(1, 2).reshape(b, tq, inner)
+        if local:
+            out = col.gather_from_model(out, -1)
+        return self.o(out)
 
 
 class T5RelativeBias(nn.Module):
@@ -212,14 +240,21 @@ class T5FFN(nn.Module):
         self.wo = dense(cfg.d_ff, cfg.d_model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """On a sharded mesh the input projections keep the rank's columns
+        where ``wo`` takes the matching rows (else they are gathered, and
+        a row-split ``wo`` takes its rows of the whole)."""
         cfg = self.cfg
+        first = (self.wi_fused if cfg.is_gated and cfg.fused_proj else
+                 self.wi_0 if cfg.is_gated else self.wi)
+        local = first.tp_local and self.wo.tp_role == "row"
         if cfg.is_gated and cfg.fused_proj:
-            gate, up = self.wi_fused(x).split(cfg.d_ff, dim=-1)
+            gate, up = self.wi_fused(x, keep_local=local).chunk(2, dim=-1)
             h = cfg.act_fn(gate) * up
         elif cfg.is_gated:
-            h = cfg.act_fn(self.wi_0(x)) * self.wi_1(x)
+            h = (cfg.act_fn(self.wi_0(x, keep_local=local))
+                 * self.wi_1(x, keep_local=local))
         else:
-            h = cfg.act_fn(self.wi(x))
+            h = cfg.act_fn(self.wi(x, keep_local=local))
         return self.wo(h)
 
 
@@ -325,7 +360,7 @@ class T5ForConditionalGeneration(nn.Module):
         ``extra_encoder_states`` (B, S, D) and their mask (ones unless
         given) placed BEFORE the text's states."""
         if input_embeds is None:
-            input_embeds = F.embedding(input_ids.long(), self.shared.embedding)
+            input_embeds = self.embed(input_ids)
         mask = attention_mask
         if mask is not None:
             mask = mask.to(torch.int32)
@@ -349,11 +384,31 @@ class T5ForConditionalGeneration(nn.Module):
         """Decoder final hidden states (B, T, D), the pre-lm_head tap.
         decoder/encoder_segments enable packed rows (cross-attention
         restricted to the matching encoder segment)."""
-        dec_embeds = F.embedding(decoder_input_ids.long(), self.shared.embedding)
+        dec_embeds = self.embed(decoder_input_ids)
         return self.decoder(dec_embeds, encoder_states.to(dec_embeds.dtype),
                             self_mask=decoder_mask, cross_mask=cross_mask,
                             segments=decoder_segments,
                             enc_segments=encoder_segments)
+
+    def embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """The ``shared`` embedding of ``ids``. Split over ``model`` by
+        vocabulary, a rank looks up its rows (zeros for the others' ids)
+        and the group sums (exact: one term is nonzero); its ``fsdp``
+        block of the width is gathered first."""
+        table = self.shared.embedding
+        pl = getattr(self.shared, "placement", None)
+        if pl is None or not any(pl["embedding"].spec):
+            return F.embedding(ids.long(), table)
+        table = col.fsdp_gather(table,
+                                pl["embedding"].dim_of(col.FSDP_AXIS))
+        if pl["embedding"].dim_of(col.MODEL_AXIS) is None:
+            return F.embedding(ids.long(), table)
+        rows = table.shape[0]
+        local = ids.long() - col.model_index() * rows
+        own = (local >= 0) & (local < rows)
+        out = F.embedding(local.clamp(0, rows - 1), table).float()
+        out = out * own[..., None]
+        return col.model_all_reduce(out).to(table.dtype)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_word_embeddings:

@@ -18,6 +18,13 @@ out), ``norm1.scale``, ``patch_embed.kernel`` HWIO), so
 ``models/bridge.py`` loads a JAX tree key for key (the dense layers are
 ``QDense``, the LayerNorms the port's flax-named ``LayerNorm``). Every
 weight is frozen: the aligner runs the tower under ``torch.no_grad()``.
+
+On a sharded mesh (parallel/sharding.py, JAX's rules) ``q_proj``,
+``k_proj``, ``v_proj`` and ``mlp_fc1`` split their columns over
+``model`` (their biases, replicated, are sliced with them) and
+``mlp_fc2`` its rows: where the heads split whole, each rank runs its
+heads and gathers their outputs before ``out_proj``, which the rules
+leave whole over ``model``.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from torch import nn
 from thinkdiff_torch.models.qdense import QDense
 from thinkdiff_torch.models.qwen2_vl import LayerNorm, _param
 from thinkdiff_torch.ops.flash_attention import flash_attention
+from thinkdiff_torch.parallel import collectives as col
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,16 +147,24 @@ class ViTAttention(nn.Module):
         d = cfg.hidden_size
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, QDense(d, d, cfg.dtype, False, True, device))
+            getattr(self, name).tp_unit = d // cfg.num_heads
 
     def forward(self, x: torch.Tensor,
                 rel_pos_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         b, t, d = x.shape
         hd = d // cfg.num_heads
+        local = all(p.tp_local for p in (self.q_proj, self.k_proj,
+                                         self.v_proj)) \
+            and col.model_size() > 1
+        n_heads = cfg.num_heads // (col.model_size() if local else 1)
         # (B, H, T, hd) views of the (B, T, d) projections: no copy
-        heads = lambda y: y.reshape(b, t, cfg.num_heads, hd).transpose(1, 2)
-        q, k, v = (heads(p(x)) for p in (self.q_proj, self.k_proj,
-                                          self.v_proj))
+        heads = lambda y: y.reshape(b, t, n_heads, hd).transpose(1, 2)
+        q, k, v = (heads(p(x, keep_local=local))
+                   for p in (self.q_proj, self.k_proj, self.v_proj))
+        if rel_pos_bias is not None and local:
+            rel_pos_bias = rel_pos_bias.narrow(
+                0, col.model_index() * n_heads, n_heads)
         if rel_pos_bias is not None:
             # the dense f32 softmax of the JAX module (EVA's short sequences)
             scores = torch.einsum("bhqd,bhkd->bhqk", q.float(),
@@ -157,7 +173,10 @@ class ViTAttention(nn.Module):
             out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(x.dtype)
         else:
             out = flash_attention(q, k, v, None, None, False, hd ** -0.5)
-        return self.out_proj(out.transpose(1, 2).reshape(b, t, d))
+        out = out.transpose(1, 2).reshape(b, t, n_heads * hd)
+        if local:
+            out = col.gather_from_model(out, -1)
+        return self.out_proj(out)
 
 
 class ViTBlock(nn.Module):
@@ -180,7 +199,9 @@ class ViTBlock(nn.Module):
         if self.cfg.use_rel_pos_bias:
             rel_pos_bias = self.rel_pos_bias()
         x = x + self.attn(self.norm1(x), rel_pos_bias)
-        return x + self.mlp_fc2(self.cfg.act_fn(self.mlp_fc1(self.norm2(x))))
+        local = self.mlp_fc1.tp_local and self.mlp_fc2.tp_role == "row"
+        return x + self.mlp_fc2(self.cfg.act_fn(
+            self.mlp_fc1(self.norm2(x), keep_local=local)))
 
 
 class PatchEmbed(nn.Module):
@@ -197,8 +218,9 @@ class PatchEmbed(nn.Module):
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, H/P * W/P, D), patches in row-major order."""
-        x = pixel_values.to(self.kernel.dtype).permute(0, 3, 1, 2)
-        y = F.conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias,
+        kernel = col.leaf_gathered(self, "kernel")
+        x = pixel_values.to(kernel.dtype).permute(0, 3, 1, 2)
+        y = F.conv2d(x, kernel.permute(3, 2, 0, 1), self.bias,
                      stride=self.patch)
         return y.flatten(2).transpose(1, 2)
 
@@ -236,21 +258,35 @@ class VisionTransformer(nn.Module):
         return self.post_norm(x)
 
 
-@torch.no_grad()
+def vit_init_draw(generator: torch.Generator, std: float = 0.02):
+    """The seeded init of a ViT one submodule at a time (a
+    ``build_sharded`` draw): kernels, tokens and position embeddings N(0,
+    std), biases 0, LayerNorm scales 1, bias tables N(0, std), drawn in
+    ``named_parameters`` order."""
+    dev = generator.device
+
+    def draw(_, module, own):
+        out = {}
+        for leaf, p in own.items():
+            if leaf == "bias":
+                out[leaf] = torch.zeros(p.shape, device=dev)
+            elif leaf == "scale":
+                out[leaf] = torch.ones(p.shape, device=dev)
+            else:
+                out[leaf] = torch.randn(p.shape, generator=generator,
+                                        device=dev) * std
+        return out
+
+    return draw
+
+
 def init_vit_(vit: VisionTransformer, generator: torch.Generator,
               std: float = 0.02) -> None:
-    """Seeded random weights in place on the module's device: kernels,
-    tokens and position embeddings N(0, std), biases 0, LayerNorm scales 1,
-    bias tables N(0, std)."""
-    for name, p in vit.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "bias":
-            p.zero_()
-        elif leaf == "scale":
-            p.fill_(1.0)
-        else:
-            p.copy_(torch.randn(p.shape, generator=generator,
-                                device=generator.device) * std)
+    """Seeded random weights in place on the module's device
+    (``vit_init_draw``)."""
+    from thinkdiff_torch.models.bridge import fill_
+
+    fill_(vit, vit_init_draw(generator, std))
 
 
 def vision_downsample(tokens: torch.Tensor, factor: int) -> torch.Tensor:

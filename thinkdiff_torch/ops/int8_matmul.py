@@ -9,6 +9,11 @@ which holds every int32 sum exactly, so the kernels equal them on the card):
                      (``_s8_matmul_fused_bwd``, csrc/s8_gemm_bwd.cu)
   ``s8_matmul_qx``   s8_matmul with x quantized per row inside the kernel
                      (``_s8_matmul_fused_qx``, csrc/s8_gemm_qx.cu)
+  ``s8_matmul_i32``, ``s8_matmul_bwd_i32``
+                     the int32 mode of the first two: the exact int32 sums
+                     (no scale, no rounding), for a contraction sharded
+                     over ranks whose partial sums are added before the
+                     scales are applied once (models/qdense.py)
 All three run one mainloop (csrc/s8_wgmma.cuh: s8 wgmma on a TMA ring),
 whose tiles and split of the contraction ``s8_gemm_plan`` picks from the
 shapes (``s8_qx_plan`` for ``s8_matmul_qx``, which quantizes each row once
@@ -54,6 +59,24 @@ def s8_matmul_reference(xq, sx, w_q, scale, out_dtype=torch.bfloat16):
 def s8_matmul_bwd_reference(gq, sg, w_q, out_dtype=torch.bfloat16):
     acc = gq.double() @ w_q.double().t()  # exact integer sums
     return (acc.float() * sg.float()[:, None]).to(out_dtype)
+
+
+def s8_matmul_i32_reference(xq, w_q):
+    return (xq.double() @ w_q.double()).to(torch.int32)  # exact sums
+
+
+def s8_matmul_bwd_i32_reference(gq, w_q):
+    return (gq.double() @ w_q.double().t()).to(torch.int32)
+
+
+def s8_scaled(acc, sx, scale, out_dtype=torch.bfloat16):
+    """The w8a8 epilogue on int32 sums: out(f32(acc) * sx[r] * scale[n]),
+    in ``s8_matmul_reference``'s order (``scale`` None: no column scale,
+    ``s8_matmul_bwd_reference``'s)."""
+    y = acc.float() * sx.float()[:, None]
+    if scale is not None:
+        y = y * scale.float()[None, :]
+    return y.to(out_dtype)
 
 
 def _transposed_storage(w_q: torch.Tensor) -> torch.Tensor:
@@ -139,14 +162,16 @@ def s8_gemm_plan(r: int, k: int, n: int, sms: int = 132) -> tuple:
     return bm, bn, _s8_stages(bm, bn), split
 
 
-def _s8_outputs(a, rows, k, cols):
+def _s8_outputs(a, rows, k, cols, raw=False):
     """The plan of a w8a8 kernel call with an (rows, cols) output over a
     contraction of k, its bf16 output, and its split's int32 workspace
-    (None without a split)."""
+    (None without a split). ``raw`` (the int32 mode): no bf16 output, and
+    the workspace (split, rows, cols) always, its plane 0 the sums."""
     plan = s8_gemm_plan(rows, k, cols, _sm_count(a.device.index))
-    out = torch.empty((rows, cols), dtype=torch.bfloat16, device=a.device)
+    out = None if raw else torch.empty((rows, cols), dtype=torch.bfloat16,
+                                       device=a.device)
     ws = (torch.empty((plan[3], rows, cols), dtype=torch.int32,
-                      device=a.device) if plan[3] > 1 else None)
+                      device=a.device) if plan[3] > 1 or raw else None)
     return plan, out, ws
 
 
@@ -177,6 +202,62 @@ def _s8_matmul_cuda(xq, sx, w_q, scale, out_dtype):
     kernels.check_launch(rc, "s8_matmul")
     kernels.count_launch("s8_matmul")
     return y
+
+
+def _s8_i32_cuda(name, a, w, rows, k, cols):
+    """The int32 mode of #2 (``w`` the (N, K) storage) or #7 (``w`` the
+    (K, N) row-major weight): the (rows, cols) int32 sums."""
+    _aligned(name, ("a", a), ("w", w))
+    plan, _, ws = _s8_outputs(a, rows, k, cols, raw=True)
+    rc = getattr(kernels.library(), f"thinkdiff_{name}")(
+        kernels.ptr(a), kernels.ptr(w), kernels.ptr(ws), rows,
+        *((k, cols) if name == "s8_gemm_i32" else (cols, k)), *plan,
+        kernels.stream_of(a))
+    kernels.check_launch(rc, name)
+    kernels.count_launch({"s8_gemm_i32": "s8_matmul_i32",
+                          "s8_gemm_bwd_i32": "s8_matmul_bwd_i32"}[name])
+    return ws[0]
+
+
+def s8_matmul_i32(xq, w_q):
+    """xq (R, K) int8, w_q (K, N) int8 -> the exact int32 sums (R, N): #2
+    in its int32 mode on a CUDA tensor, the plain version on a CPU one."""
+    r, k = xq.shape
+    if w_q.shape[0] != k or xq.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise ValueError(f"s8_matmul_i32: bad operands xq {tuple(xq.shape)} "
+                         f"{xq.dtype} w_q {tuple(w_q.shape)} {w_q.dtype}")
+    if xq.is_cuda:
+        n = w_q.shape[1]
+        if k % 16 or n % 16:
+            raise ValueError(f"s8_matmul_i32 kernel: K={k} and N={n} must be "
+                             "multiples of 16")
+        return _s8_i32_cuda("s8_gemm_i32", xq.contiguous(),
+                            _transposed_storage(w_q), r, k, n)
+    if xq.device.type == "cpu":
+        return s8_matmul_i32_reference(xq, w_q)
+    raise NotImplementedError(f"s8_matmul_i32: no kernel for {xq.device}")
+
+
+def s8_matmul_bwd_i32(gq, w_q):
+    """gq (R, N) int8, w_q (K, N) int8 -> the exact int32 sums gq @ w_qᵀ
+    (R, K): #7 in its int32 mode on a CUDA tensor (w_q row-major), the
+    plain version on a CPU one."""
+    r, n = gq.shape
+    k = w_q.shape[0]
+    if w_q.shape[1] != n or gq.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise ValueError(f"s8_matmul_bwd_i32: bad operands gq "
+                         f"{tuple(gq.shape)} w_q {tuple(w_q.shape)}")
+    if gq.is_cuda:
+        if n % 16 or k % 8:
+            raise ValueError(f"s8_matmul_bwd_i32 kernel: N={n} must be a "
+                             f"multiple of 16 and K={k} of 8")
+        if not w_q.is_contiguous():
+            raise ValueError("s8_matmul_bwd_i32 kernel reads w_q as a (K, N) "
+                             "row-major tensor")
+        return _s8_i32_cuda("s8_gemm_bwd_i32", gq.contiguous(), w_q, r, n, k)
+    if gq.device.type == "cpu":
+        return s8_matmul_bwd_i32_reference(gq, w_q)
+    raise NotImplementedError(f"s8_matmul_bwd_i32: no kernel for {gq.device}")
 
 
 def s8_matmul(xq, sx, w_q, scale, out_dtype=torch.bfloat16):

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from thinkdiff_torch.ops.int8_matmul import s8_matmul, s8_matmul_bwd
+from thinkdiff_torch.ops.int8_matmul import (
+    s8_matmul, s8_matmul_bwd, s8_matmul_bwd_i32, s8_matmul_i32, s8_scaled)
 
 
 def _as_tensor(w) -> torch.Tensor:
@@ -41,34 +42,60 @@ def dequantize_weight(qw) -> torch.Tensor:
     return q.to(torch.bfloat16) * scale.to(torch.bfloat16)[None]
 
 
-def _absmax_quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(M, K) float -> per-row absmax int8: (int8 (M, K), f32 scale (M,))."""
+def _absmax_quant_rows(x: torch.Tensor, reduce_amax=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, K) float -> per-row absmax int8: (int8 (M, K), f32 scale (M,)).
+    ``reduce_amax`` (in place on the (M,) row absmax) makes it the absmax
+    of rows split over ranks (a MAX over their group)."""
     x32 = x.float()
-    s = torch.clamp(x32.abs().amax(dim=-1), min=1e-30) / 127.0
+    amax = x32.abs().amax(dim=-1)
+    if reduce_amax is not None:
+        reduce_amax(amax)
+    s = torch.clamp(amax, min=1e-30) / 127.0
     q = torch.clamp(torch.round(x32 / s[:, None]), -127, 127).to(torch.int8)
     return q, s
 
 
 class _Int8DynamicMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, q, scale, w_kn):
+    def forward(ctx, x, q, scale, w_kn, k_reduce, n_reduce, weights):
         shape = x.shape
-        xq, sx = _absmax_quant_rows(x.reshape(-1, shape[-1]))
-        y = s8_matmul(xq, sx, q, scale, x.dtype)
-        ctx.save_for_backward(q if w_kn is None else w_kn, scale)
+        xq, sx = _absmax_quant_rows(x.reshape(-1, shape[-1]),
+                                    _max_of(k_reduce))
+        if k_reduce is None:
+            y = s8_matmul(xq, sx, q, scale, x.dtype)
+        else:
+            y = s8_scaled(k_reduce(s8_matmul_i32(xq, q), "sum"), sx, scale,
+                          x.dtype)
+        ctx.weights, ctx.n_reduce = weights, n_reduce
+        if weights is None:
+            ctx.save_for_backward(q if w_kn is None else w_kn, scale)
         return y.reshape(*shape[:-1], q.shape[1])
 
     @staticmethod
     def backward(ctx, dy):
-        w, scale = ctx.saved_tensors
+        w, scale = ctx.weights() if ctx.weights else ctx.saved_tensors
+        n_reduce = ctx.n_reduce
         dym = dy.reshape(-1, dy.shape[-1])
-        gq, sg = _absmax_quant_rows(dym.float() * scale.float()[None, :])
-        dx = s8_matmul_bwd(gq, sg, w, dy.dtype)
-        return dx.reshape(*dy.shape[:-1], w.shape[0]), None, None, None
+        gq, sg = _absmax_quant_rows(dym.float() * scale.float()[None, :],
+                                    _max_of(n_reduce))
+        if n_reduce is None:
+            dx = s8_matmul_bwd(gq, sg, w, dy.dtype)
+        else:
+            dx = s8_scaled(n_reduce(s8_matmul_bwd_i32(gq, w), "sum"), sg,
+                           None, dy.dtype)
+        return (dx.reshape(*dy.shape[:-1], w.shape[0]),
+                None, None, None, None, None, None)
+
+
+def _max_of(reduce):
+    return None if reduce is None else (lambda a: reduce(a, "max"))
 
 
 def int8_dynamic_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                        w_kn: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        w_kn: Optional[torch.Tensor] = None,
+                        k_reduce=None, n_reduce=None,
+                        weights=None) -> torch.Tensor:
     """w8a8 product: x (..., K) float, quantized per row on the fly; q (K, N)
     int8 with per-column scale (N,). Output in x's dtype.
 
@@ -77,8 +104,20 @@ def int8_dynamic_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     over N: dx = f32(sum_n gq[r, n] q[k, n]) * sg[r] (``_w8a8_bwd``).
     ``w_kn`` is q as a (K, N) row-major tensor, the layout that GEMM reads
     (a training QDense keeps one). On the card the backward needs it, or a
-    row-major q, and raises otherwise; on the CPU any layout serves."""
-    return _Int8DynamicMatmul.apply(x, q, scale, w_kn)
+    row-major q, and raises otherwise; on the CPU any layout serves.
+
+    On a sharded mesh the operands are a rank's blocks, and the product is
+    the one of the whole operands. ``k_reduce(t, op)`` ("sum" or "max", in
+    place, returning t) reduces over the group that splits K (a
+    row-parallel layer), ``n_reduce`` over the group that splits N (a
+    column-parallel layer, whose backward contracts N): there the row
+    absmax is the group's MAX, and the kernels' exact int32 sums are added
+    over the group before the scales are applied once, as XLA adds JAX's
+    int32 dot over a sharded contraction. ``weights()`` returns (w_kn,
+    scale) again for the backward, which then saves no weight (a caller
+    that gathers them for each use)."""
+    return _Int8DynamicMatmul.apply(x, q, scale, w_kn, k_reduce, n_reduce,
+                                    weights)
 
 
 def _quantized_node(leaf_tensor, w8a8: bool) -> Dict[str, torch.Tensor]:

@@ -5,11 +5,12 @@ per-epoch evaluation and the best checkpoint, the final test-split
 evaluation from the best, resume, and ``log.txt`` (one JSON object a
 line).
 
-Over several ranks (``run.mesh``'s data axis is the world; fsdp and model
-sharding are refused): rank 0 makes the output directory before any rank
-writes under it and alone writes the checkpoints and ``log.txt``; every
-rank reads its slice of each split, resumes onto its own card, and waits
-for the others after each epoch.
+Over several ranks (``run.mesh: {data, fsdp, model}`` covers the world;
+fsdp and model shard the frozen towers by JAX's rules): rank 0 makes the
+output directory before any rank writes under it and alone writes the
+checkpoints and ``log.txt``; every (data, fsdp) coordinate reads its
+slice of each split (its ``model`` peers read the same), every rank
+resumes onto its own card and waits for the others after each epoch.
 """
 
 from __future__ import annotations
@@ -19,13 +20,13 @@ import os
 import time
 from typing import Any, Dict, Optional
 
-from thinkdiff_torch.core.distributed import (
-    barrier, get_rank, get_world_size, is_main_process)
+from thinkdiff_torch.core.distributed import barrier, is_main_process
 from thinkdiff_torch.core.registry import registry
 from thinkdiff_torch.core.utils import append_json_line
 from thinkdiff_torch.engines.checkpoint import CheckpointManager
 from thinkdiff_torch.engines.trainer import Trainer
-from thinkdiff_torch.parallel.mesh import mesh_from_config
+from thinkdiff_torch.parallel.mesh import (
+    loader_rank, loader_world, mesh_from_config)
 
 logger = logging.getLogger(__name__)
 
@@ -61,7 +62,8 @@ class RunnerBase:
         barrier()
 
         self.mesh = mesh_from_config(run)
-        self.trainer = Trainer(model, run, device=model.device)
+        self.trainer = Trainer(model, run, device=model.device,
+                               mesh=self.mesh)
         self.ckpt = CheckpointManager(self.output_dir)
         self.start_epoch = 0
         self.state = None
@@ -79,8 +81,8 @@ class RunnerBase:
                 batch = bundle.batch_size or int(
                     self.config.run_cfg.get("batch_size_train", 32))
                 loaders.append(bundle.get_loader(
-                    batch_size=batch, rank=get_rank(),
-                    world_size=get_world_size(), seed=self.seed, epoch=epoch))
+                    batch_size=batch, rank=loader_rank(),
+                    world_size=loader_world(), seed=self.seed, epoch=epoch))
                 ratios.append(float(getattr(bundle, "sample_ratio", 1.0) or 1.0))
         if not loaders:
             raise RuntimeError("No train split found in datasets")
@@ -96,8 +98,8 @@ class RunnerBase:
     def _eval_loader(self, bundle, epoch):
         # use_dist_eval_sampler False: every process sees the whole set
         dist = bool(self.config.run_cfg.get("use_dist_eval_sampler", True))
-        return bundle.get_loader(rank=get_rank() if dist else 0,
-                                 world_size=get_world_size() if dist else 1,
+        return bundle.get_loader(rank=loader_rank() if dist else 0,
+                                 world_size=loader_world() if dist else 1,
                                  seed=self.seed, epoch=epoch)
 
     def _evaluate_split(self, split, bundle, epoch):

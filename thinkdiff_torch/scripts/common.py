@@ -29,11 +29,15 @@ def setup_seeds(seed: int) -> None:
     torch.manual_seed(seed)
 
 
-def bootstrap(args):
+def bootstrap(args, mesh: bool = False):
     """-> (cfg, task). The imports fill the port's registry; the launcher's
     world is joined (its rank's card made current) and the device resolved
     before anything is built, so ``cuda`` is rank r's card r, and a run
-    without a card stops here unless it asks for the CPU."""
+    without a card stops here unless it asks for the CPU. With ``mesh``
+    (the training CLI) ``run.mesh`` becomes the run's mesh before the
+    model is built (a sharded mesh builds the frozen towers as each rank's
+    blocks), and the host seeds follow the rank's reader among the
+    (data, fsdp) coordinates, so ``model`` peers draw alike."""
     import thinkdiff_torch.data.builders  # noqa: F401
     import thinkdiff_torch.data.processors  # noqa: F401
     import thinkdiff_torch.engines.embed_engine  # noqa: F401
@@ -49,7 +53,14 @@ def bootstrap(args):
     cfg = Config(args)
     init_distributed_mode(cfg.run_cfg, args.device)
     device = resolve_device(args.device)
-    setup_seeds(int(cfg.run_cfg.get("seed", 42)) + get_rank())
+    rank = get_rank()
+    if mesh:
+        from thinkdiff_torch.parallel.mesh import (
+            loader_rank, mesh_from_config, set_mesh)
+
+        set_mesh(mesh_from_config(cfg.run_cfg))
+        rank = loader_rank()
+    setup_seeds(int(cfg.run_cfg.get("seed", 42)) + rank)
     setup_logger()
     cfg.pretty_print()
     return cfg, setup_task(cfg, device=device)

@@ -12,7 +12,9 @@ Over several ranks the step's loss is already the global one (the
 trainer's all-reduce), the epoch's meters are summed over the ranks at its
 end, evaluation reduces each batch's loss and accuracy counts over the
 ranks, which run the same number of eval batches, and ``save_result``
-merges the ranks' result files on rank 0.
+merges the ranks' result files on rank 0. On a sharded mesh the ``model``
+peers of a (data, fsdp) coordinate read, drop and count alike: a seed
+or a result file is the coordinate's, not the rank's.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from thinkdiff_torch.core.distributed import (
     is_main_process)
 from thinkdiff_torch.core.logging import MetricLogger, SmoothedValue
 from thinkdiff_torch.core.registry import registry
+from thinkdiff_torch.parallel.mesh import (
+    MODEL_AXIS, axis_index, loader_rank, loader_world)
 
 logger = logging.getLogger(__name__)
 
@@ -136,7 +140,7 @@ class BaseTask:
         metric_logger.add_meter("loss", SmoothedValue(window_size=50,
                                                       fmt="{value:.4f}"))
         header = f"Train: data epoch: [{epoch}]"
-        rng = seed + get_rank()
+        rng = seed + loader_rank()  # model peers drop alike
         data_iter = iter(data_loader)
         inner = metric_logger.log_every(range(iters_per_epoch), log_freq,
                                         header)
@@ -224,6 +228,8 @@ def _global_eval_stats(loss, n_ok, n_tok):
     n_tok = n_tok.float()
     t = torch.stack([loss.float() * n_tok, n_ok.float(), n_tok])
     all_reduce_sum(t)
+    # each (data, fsdp) reader's three sums arrive once a model peer
+    t /= get_world_size() // loader_world()
     return t[0] / t[2].clamp(min=1.0), t[1], t[2]
 
 
@@ -248,20 +254,23 @@ def _stop_profile(prof, profile_dir: str) -> str:
 
 def save_result(result, result_dir: str, filename: str,
                 remove_duplicate: str = "") -> str:
-    """The ranks' results merged: each rank writes
+    """The ranks' results merged: each (data, fsdp) coordinate r (its
+    first ``model`` peer; the others hold the same) writes
     ``{filename}_rank{r}.json``; after a barrier rank 0 concatenates them
-    in rank order (keeping the first item of each ``remove_duplicate``
-    key) into ``{filename}.json``; a second barrier lets no rank read it
-    early. Returns the merged file's path."""
+    in order (keeping the first item of each ``remove_duplicate`` key)
+    into ``{filename}.json``; a second barrier lets no rank read it early.
+    Returns the merged file's path."""
     os.makedirs(result_dir, exist_ok=True)
-    with open(os.path.join(result_dir, f"{filename}_rank{get_rank()}.json"),
-              "w") as f:
-        json.dump(result, f)
+    if axis_index(MODEL_AXIS) == 0:
+        with open(os.path.join(result_dir,
+                               f"{filename}_rank{loader_rank()}.json"),
+                  "w") as f:
+            json.dump(result, f)
     barrier()
     final_file = os.path.join(result_dir, f"{filename}.json")
     if is_main_process():
         merged = []
-        for rank in range(get_world_size()):
+        for rank in range(loader_world()):
             with open(os.path.join(result_dir,
                                    f"{filename}_rank{rank}.json")) as f:
                 merged += json.load(f)

@@ -10,7 +10,17 @@ names; ``run.resume_ckpt_path`` resumes from a checkpoint. On N cards:
         -m thinkdiff_torch.train --cfg-path cfg.yaml
 
 (each rank trains on ``batch_size_train`` rows: the global batch is N x
-that, and rank 0's job id names the one output directory).
+that, and rank 0's job id names the one output directory). ``run.mesh:
+{data, fsdp, model}`` shards the frozen towers by JAX's rules
+(parallel/sharding.py): the ranks of one (data, fsdp) coordinate read
+one batch and split the weights over ``model``, and each rank stores its
+fsdp block of them; the global batch is D x F x ``batch_size_train``.
+``fsdp x model`` ranks that share a card run over gloo, each with its own
+card over NCCL:
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m thinkdiff_torch.train --cfg-path cfg.yaml \
+        --options run.mesh.fsdp=2 run.mesh.model=2
 """
 
 from __future__ import annotations
@@ -20,7 +30,7 @@ from thinkdiff_torch.scripts.common import bootstrap, build_runner, parse_args
 
 def main(argv=None):
     args = parse_args("ThinkDiff training (PyTorch)", argv)
-    cfg, task = bootstrap(args)
+    cfg, task = bootstrap(args, mesh=True)
     datasets = task.build_datasets(cfg)
     model = task.build_model(cfg)
 
