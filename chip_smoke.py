@@ -172,7 +172,7 @@ non-zero:
                 replay CLI on its export with extra T5 text, the text-only
                 embed probe, the CoBSAT multi-image exporter (one case of
                 two images) and batch exporter (two cases in one batch),
-                and the replay of one array of each;
+                their exports read back;
                 every run's launches against get_embed_launches +
                 flux_launches (+ the T5 encoder's), images and PNGs, exports
                 read back, the peak with all three models on the card;
@@ -181,7 +181,7 @@ non-zero:
                 configs/test_thinkdiff_clip_video_text.yaml with what the
                 script reads and the YAML lacks (run.image_path one 448x448
                 JPEG, run.text_input the YAML's question, run.num_frames 13
-                latent frames): 49 frames of 480x720, 8 DDIM steps (the
+                latent frames): 49 frames of 480x720, 2 DDIM steps (the
                 YAML's 50 cut for time, VIDEO_STEPS) of two forwards (42
                 blocks x 3072, bf16, seeded N(0, 0.02)), the 3D
                 VAE tiled at (32, 48) latents (9 tiles); on clip-flux's CLIP
@@ -208,7 +208,14 @@ non-zero:
                 full ranks would not fit one card), against the world-1
                 run on the concatenated batches, the ddp limits; every
                 cc_sbu loader's path (the C++ decode where the library
-                builds) checked from its log line;
+                builds) checked from its log line; then shard (the
+                training CLI on run.mesh's fsdp and model axes) and
+                serve-shard: the three engines' mesh= through
+                torch.distributed.run, ranks sharing the card over gloo,
+                each against world 1 in this process (Qwen2-VL-7B at
+                {model 2}, full depth, greedy / exact / Gumbel, and at
+                {fsdp 2, model 2}, 4 layers; FLUX.1-dev 2 + 4 blocks at
+                {fsdp 2}, bit for bit; CogVideoX-5b 4 blocks at {model 2});
  19. cobsat  — the CoBSAT CLIP scorer at CLIP-L's full width (bf16,
                 seeded): 32 448x448 images against 2 x 8 candidates, the
                 launches, every flash call against mha_reference, the
@@ -234,7 +241,9 @@ kernel's launches in the cli phase's two stages, in lvlm-flux, clip-flux
 path), clip-video and clip-train beside them, and the ddp phase's per
 rank: ddp_train_launches (two ranks, gloo), ddp_stage1_launches,
 ddp_world1_launches, ddp_clip_launches; calibrate_launches,
-cobsat_launches and lora_launches) and {"ok": true, "device": {...}}.
+cobsat_launches, lora_launches, shard_launches and serve_shard_launches)
+and {"ok": true, "device": {...}}. After each phase a line
+``[timing] <phase> <seconds>``.
 """
 
 from __future__ import annotations
@@ -2283,6 +2292,7 @@ def phase_kernels():
     kernels_rmsnorm_clip(results["rmsnorm"])
     kernels_paged(results["paged_attention"])
     kernels_fused_sample(results["fused_lm_sample"])
+    kernels_fused_sample_shard(results["fused_lm_sample"])
     kernels_int8_gemv(results["int8_matmul"])
     kernels_int8_wide(results)
     kernels_s8_qx(results["s8_matmul_qx"])
@@ -2949,6 +2959,13 @@ CLI_STAGE2_KERNELS = ("flash_attention_fwd", "rmsnorm", "flash_attention_dq",
 CLI_LOSS_TOL = 2.2e-4    # the gradient check's loss limit (PERF.md section 2)
 CLI_COSINE = 0.995
 CLI_PARTS = 8            # batches in each part of stage 2's step taken apart
+# stage 2's steps an epoch (2 epochs, the second resumed from the first's
+# checkpoint), in the cli phase and its ddp runs. At 2 (tried to make
+# room for the serve-shard phase) both gaps between steps of an epoch
+# wait on the shuffle buffer's fill (5.9 s a step against 0.58 at 4, NVIDIA
+# H100 80GB HBM3, 700 W) and the runs lost only ~23 s: the launches and
+# builds dominate
+CLI_EPOCH_STEPS = 4
 
 
 def cli_image_index():
@@ -3147,8 +3164,8 @@ def cli_stage2_parts(runner):
 
 def cli_stage2(stage1, yaml_step_ms):
     """thinkdiff_torch.train over configs/train_thinkdiff_lvlm_ccsbu.yaml as
-    written, on stage 1's shards (2 epochs of 4 steps), then resumed from
-    checkpoint_0.pth: epoch 1 again."""
+    written, on stage 1's shards (2 epochs of CLI_EPOCH_STEPS steps), then
+    resumed from checkpoint_0.pth: epoch 1 again."""
     import gc
 
     out_dir = CLI_DIR / "train"
@@ -3157,7 +3174,7 @@ def cli_stage2(stage1, yaml_step_ms):
             "model.mllama_pretrained_model_name_or_path=Qwen/Qwen2-VL-2B-Instruct",
             f"datasets.llava_instruct_mllama_embed_2.build_info.storage={storage}",
             f"run.output_dir={out_dir}", "run.max_epoch=2",
-            "run.iters_per_epoch=4"]
+            f"run.iters_per_epoch={CLI_EPOCH_STEPS}"]
     runs = {}
     with standin_tokenizers():
         for name, extra in (("straight", []), ("resumed", [
@@ -3193,11 +3210,12 @@ def cli_stage2(stage1, yaml_step_ms):
     missing = [k for k in CLI_STAGE2_KERNELS if st["launches"][k] == 0]
     if missing or st["launches"]["s8_matmul"]:
         raise AssertionError(f"cli stage 2: launches {st['launches']}")
-    if len(st["record"]) != 8 or len(rs["record"]) != 4:
+    n = CLI_EPOCH_STEPS
+    if len(st["record"]) != 2 * n or len(rs["record"]) != n:
         raise AssertionError("cli stage 2: steps "
                              f"{len(st['record'])}, {len(rs['record'])}")
-    again = st["record"][4:]
-    for a, b, la, lb in zip(again, rs["record"], st["losses"][4:],
+    again = st["record"][n:]
+    for a, b, la, lb in zip(again, rs["record"], st["losses"][n:],
                             rs["losses"]):
         if a["step"] != b["step"] or a["lr"] != b["lr"] or \
                 abs(lb - la) > CLI_LOSS_TOL * abs(la):
@@ -3210,15 +3228,15 @@ def cli_stage2(stage1, yaml_step_ms):
     if min(cos.values()) < CLI_COSINE:
         raise AssertionError(f"cli resume: projector cosines {cos}")
     rel = max(abs(lb - la) / abs(la)
-              for la, lb in zip(st["losses"][4:], rs["losses"]))
+              for la, lb in zip(st["losses"][n:], rs["losses"]))
     gaps = [b["t"] - a["t"] for run in (st, rs)
             for a, b in zip(run["record"], run["record"][1:])
-            if b["step"] % 4 != 1]     # within an epoch
+            if b["step"] % n != 1]     # within an epoch
     step_ms = statistics.median(gaps) * 1e3
     say("cli", f"stage 2: train YAML as written ({st['dtype']}, projector "
         f"{st['d_vlm']} -> {st['d_model']}, batch {st['batch']}) on "
         f"{stage1['tars']} shards, 2 "
-        f"epochs x 4 steps in {st['wall']:.1f} s (model build and each "
+        f"epochs x {n} steps in {st['wall']:.1f} s (model build and each "
         f"epoch's shuffle-buffer fill included); {step_ms:.0f} ms a step "
         f"through the runner (median gap between steps within an epoch; "
         f"train-yaml's synthetic batches {yaml_step_ms:.0f}); losses "
@@ -4282,13 +4300,14 @@ CLIP_VIDEO_CONFIG = (Path(__file__).resolve().parent / "configs"
 # the video CLI reads run.num_frames as LATENT frames (the JAX script's
 # reading); 13 latent frames are the YAML's 49 output frames
 VIDEO_LATENT_FRAMES = 13
-# the YAML's 50 DDIM steps cut to 8, the one cut: a step takes 3.65 s on
+# the YAML's 50 DDIM steps cut to 2, the one cut: a step takes 3.65 s on
 # an H100 (NVIDIA H100 80GB HBM3, 700 W; two forwards at T17623, #1 ~27 ms
 # a call, 84 calls, 62% of the step), and the script's phases read 625.0 s
 # with 25 steps on a slow host; 15 until the shard phase took ~185 s of
-# the limit (the whole script 1,108.7 s on a slow host with 15). Every
-# step runs the same two forwards; the launches count the steps run
-VIDEO_STEPS = 8
+# the limit (the whole script 1,108.7 s on a slow host with 15), 8 until
+# the serve-shard phase took its share. Every step runs the same two
+# forwards; the launches count the steps run
+VIDEO_STEPS = 2
 # one CogVideoX-5b forward at full shape (T17776: the 65 vision tokens and
 # 161 text tokens of the 226-token budget, 13 x 30 x 45 video tokens)
 # through the flash forward against the same forward through mha_heads
@@ -4652,8 +4671,10 @@ def phase_lvlm_flux_clis(pipe, clip_model):
     multi-image CLI (two 448x448 images), the single-image exporter, the
     replay CLI on that export with extra T5 text, the text-only embed probe,
     the CoBSAT multi-image exporter (one case of two images) and its batch
-    exporter (two cases, one batch), and the replay CLI on one array of
-    each CoBSAT export. The LVLM model (Qwen2-VL-7B w8a8, flan-t5-xxl int8,
+    exporter (two cases, one batch): six runs, the replay CLI's on the
+    single-image export (its runs on one array of each CoBSAT export were
+    cut when the serve-shard phase took its share of the time limit; the
+    CoBSAT exports are read back). The LVLM model (Qwen2-VL-7B w8a8, flan-t5-xxl int8,
     as lvlm-text builds it) and ``pipe`` (lvlm-flux's FLUX.1-dev, CLIP-L,
     VAE) are injected where build_model and from_pretrained would read
     files; the text embedder is ``clip_model``'s flan-t5-xxl encoder.
@@ -4735,10 +4756,6 @@ def phase_lvlm_flux_clis(pipe, clip_model):
         ("embed_multi_image", [f"run.image_folder={one_case}",
                                "run.prompt=Look at the pictures. "]),
         ("embed_multi_image_batch", [f"run.cobsat_json_dir={cases}"]),
-        ("multi_image_input", steps + [
-            f"run.embed_path={CLIS_DIR / 'embed_multi_image' / 'case0.pth'}"]),
-        ("multi_image_input", steps + [
-            f"run.embed_path={CLIS_DIR / 'embed_multi_image_batch' / 'case1.npy'}"]),
     ]
     with mock.patch.object(base_task.BaseTask, "build_model",
                            lambda self, cfg: model), \
@@ -4848,7 +4865,7 @@ def phase_dense_int8(base_cfg, params):
     return launches
 
 
-def teacher_forcing_check(phase, engine, out, images, i):
+def teacher_forcing_check(phase, engine, out, images, i, limit=0.98):
     """One causal forward (flash kernel, no cache) over request i's prompt
     and generated tokens must reproduce the hidden states the engine
     returned for the prompt (prefill) and for each generated token (decode
@@ -4899,15 +4916,19 @@ def teacher_forcing_check(phase, engine, out, images, i):
     # decode steps over the cache) and another vision batch size: per-token
     # directions agree to within a few percent, where a wrong position,
     # cache slot, page or token alignment would decorrelate them
-    if float(cos_sim.min()) < 0.98:
-        raise AssertionError(f"{phase} teacher forcing: min cosine "
-                             f"{float(cos_sim.min())}")
+    if float(cos_sim.min()) < limit:
+        raise AssertionError(f"{phase} teacher forcing, request {i}: min "
+                             f"cosine {float(cos_sim.min())} (prompt "
+                             f"{float(cos_sim[:lp].min())})")
     say(phase, f"teacher-forced forward over request {i}'s {len(ids)} tokens "
         f"matches the served hidden states: cosine min "
         f"{float(cos_sim.min()):.5f} (> 0.98), mean {float(cos_sim.mean()):.5f};"
         f" prompt min {float(cos_sim[:lp].min()):.5f}, decode min "
         f"{float(cos_sim[lp:].min()):.5f}; max |err| "
         f"{float((got - want).abs().max()):.3g}")
+    return {"min": float(cos_sim.min()), "prompt": float(cos_sim[:lp].min()),
+            "decode": float(cos_sim[lp:].min()) if len(cos_sim) > lp
+            else 1.0}
 
 
 def phase_profile(engine, n_slots=256, steps=8):
@@ -5002,11 +5023,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch_ranks(phase, nproc, child_args, timeout=DDP_TIMEOUT):
+def start_ranks(phase, nproc, child_args, timeout=DDP_TIMEOUT):
     """``python -m torch.distributed.run --nproc_per_node nproc
-    chip_smoke.py --ddp-child ...`` as the leader of a POSIX process group:
-    a non-zero exit raises, and at the timeout the launcher and every rank
-    are killed together. Returns the wall seconds."""
+    chip_smoke.py --ddp-child ...`` started as the leader of a POSIX
+    process group; returns the call that waits for it: a non-zero exit
+    raises, and at the timeout (from the start) the launcher and every
+    rank are killed together; it returns the wall seconds. A caller that
+    raises before waiting must still call it (it kills what is left)."""
     import signal
 
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
@@ -5016,20 +5039,35 @@ def launch_ranks(phase, nproc, child_args, timeout=DDP_TIMEOUT):
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=str(Path(__file__).resolve().parent),
                             start_new_session=True)
-    try:
-        rc = proc.wait(timeout=timeout)
-    except subprocess.TimeoutExpired:
+
+    def wait(kill=False):
         rc = None
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-    if rc is None:
-        raise AssertionError(f"{phase}: the ranks did not end within "
-                             f"{timeout} s (killed)")
-    if rc:
-        raise AssertionError(f"{phase}: torch.distributed.run exited {rc}")
-    return time.perf_counter() - t0
+        try:
+            if not kill:
+                rc = proc.wait(timeout=max(
+                    1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        if kill:
+            return None
+        if rc is None:
+            raise AssertionError(f"{phase}: the ranks did not end within "
+                                 f"{timeout} s (killed)")
+        if rc:
+            raise AssertionError(f"{phase}: torch.distributed.run exited "
+                                 f"{rc}")
+        return time.perf_counter() - t0
+
+    return wait
+
+
+def launch_ranks(phase, nproc, child_args, timeout=DDP_TIMEOUT):
+    """``start_ranks`` waited for: the wall seconds."""
+    return start_ranks(phase, nproc, child_args, timeout)()
 
 
 def rank_results(out, world):
@@ -5063,8 +5101,9 @@ def standin_tokenizers():
 
 def ddp_child(argv):
     """One rank, started by launch_ranks: ``train OUT [--nccl-group]
-    [--profile] -- <train CLI argv>`` or ``stage1 OUT INDEX EMBED_DIR``.
-    Writes OUT/rank{r}.json."""
+    [--profile] -- <train CLI argv>``, ``stage1 OUT INDEX EMBED_DIR``,
+    ``serve OUT LAYERS D,F,M SAMPLERS``, ``serve-flux OUT`` or
+    ``serve-cog OUT``. Writes OUT/rank{r}.json."""
     torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
                           % torch.cuda.device_count())
     mode, out = argv[0], Path(argv[1])
@@ -5074,6 +5113,14 @@ def ddp_child(argv):
         result = ddp_child_train(argv[2:split], argv[split + 1:])
     elif mode == "stage1":
         result = ddp_child_stage1(*argv[2:])
+    elif mode == "serve":
+        layers, shape, samplers = argv[2:5]
+        result = serve_child(out, layers, tuple(map(int, shape.split(","))),
+                             samplers.split(","))
+    elif mode == "serve-flux":
+        result = serve_flux_child(out)
+    elif mode == "serve-cog":
+        result = serve_cog_child(out)
     else:
         raise ValueError(f"unknown --ddp-child mode {mode}")
     (out / f"rank{result['rank']}.json").write_text(json.dumps(result))
@@ -5451,11 +5498,13 @@ def ddp_compare(phase, ranks, ref, ckpt):
         f"cosine min {min(upd.values()):.6f}")
 
 
-def ddp_train(phase, out, world, flags, argv, timeout=DDP_TIMEOUT):
-    """The training CLI's main on ``world`` ranks through the launcher:
-    the ranks' results."""
-    wall = launch_ranks(phase, world, ["train", out, *flags, "--", *argv],
-                        timeout)
+def ddp_train(phase, out, world, flags, argv, timeout=DDP_TIMEOUT,
+              wait=None):
+    """The training CLI's main on ``world`` ranks through the launcher
+    (already started when ``wait``, start_ranks' waiter, is given): the
+    ranks' results."""
+    wall = (wait or start_ranks(phase, world, [
+        "train", out, *flags, "--", *argv], timeout))()
     ranks = rank_results(out, world)
     for r in ranks:
         if not all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]):
@@ -5471,7 +5520,7 @@ def ddp_train(phase, out, world, flags, argv, timeout=DDP_TIMEOUT):
 
 def ddp_stage2(stage1, stage2):
     """Stage 2 of the cli phase (the training YAML as written, 2B width,
-    its shards, 2 epochs of 4 steps) on more than one rank: at world 1
+    its shards, 2 epochs of CLI_EPOCH_STEPS steps) on more than one rank: at world 1
     under the launcher with an NCCL group of one (bit for bit the cli
     phase's run), at two ranks on the one card over gloo against the
     world-1 run on the concatenated batches, resumed at two ranks, and at
@@ -5480,7 +5529,7 @@ def ddp_stage2(stage1, stage2):
     opts = ["--cfg-path", str(TRAIN_CONFIG), "--options",
             "model.mllama_pretrained_model_name_or_path=Qwen/Qwen2-VL-2B-Instruct",
             f"datasets.llava_instruct_mllama_embed_2.build_info.storage={storage}",
-            "run.max_epoch=2", "run.iters_per_epoch=4"]
+            "run.max_epoch=2", f"run.iters_per_epoch={CLI_EPOCH_STEPS}"]
     # world 1, an NCCL group of one: bit for bit the cli phase's run
     w1 = ddp_train("ddp world-1", DDP_DIR / "w1", 1, ["--nccl-group"],
                    opts + [f"run.output_dir={DDP_DIR / 'w1'}", "--job-id",
@@ -5505,8 +5554,9 @@ def ddp_stage2(stage1, stage2):
     # two ranks on the one card (gloo), no --job-id: rank 0's id for both;
     # the last step profiled
     out = DDP_DIR / "gloo"
+    n = CLI_EPOCH_STEPS
     ranks = ddp_train("ddp gloo", out, DDP_WORLD, [
-        "--dump", out / "batches", "--profile-step", 8],
+        "--dump", out / "batches", "--profile-step", 2 * n],
         opts + [f"run.output_dir={out}"])
     ref = ddp_reference(opts + [f"run.output_dir={DDP_DIR / 'ref'}"],
                         out / "batches", DDP_WORLD)
@@ -5529,7 +5579,7 @@ def ddp_stage2(stage1, stage2):
                              f"{missing}")
     for r in ranks:
         p = r["profile"]
-        say("ddp gloo", f"rank {r['rank']} profiled step 8: "
+        say("ddp gloo", f"rank {r['rank']} profiled step {2 * n}: "
             f"{p['wall_ms']:.1f} "
             f"ms, of which the gradient all-reduce "
             + (f"{p['allreduce_ms']:.1f} ms ({p['share']:.0%}; events "
@@ -5544,12 +5594,12 @@ def ddp_stage2(stage1, stage2):
         "resumed"])
     again = ranks[0]
     for r in resumed:
-        if r["steps"] != again["steps"][4:] or r["lrs"] != again["lrs"][4:] \
+        if r["steps"] != again["steps"][n:] or r["lrs"] != again["lrs"][n:] \
                 or max(abs(x - y) / abs(y) for x, y in zip(
-                    r["losses"], again["losses"][4:])) > DDP_LOSS_TOL:
+                    r["losses"], again["losses"][n:])) > DDP_LOSS_TOL:
             raise AssertionError(f"ddp resume rank {r['rank']}: steps "
                                  f"{r['steps']} losses {r['losses']} vs "
-                                 f"{again['losses'][4:]}")
+                                 f"{again['losses'][n:]}")
     ca = torch.load(job / "checkpoint_1.pth", weights_only=True)["model"]
     cb = torch.load(res / "resumed" / "checkpoint_1.pth",
                     weights_only=True)["model"]
@@ -5661,7 +5711,9 @@ def phase_ddp_clip(storage):
 # ---------------------------------------------------------------------------
 
 SHARD_DIR = DDP_DIR / "shard"
-SHARD_STEPS = 4
+# 4 until the serve-shard phase took its share of the time limit (a
+# `shard lvlm m2` step ~4.5 s at 24 layers on a shared card)
+SHARD_STEPS = 2
 # the rank's parameters against its updates replayed in another process on
 # the same card (the same code on the same inputs: a few f32 ulps at most)
 REPLAY_TOL = 1e-6
@@ -5687,6 +5739,16 @@ CLIP_SHARD_STEPS = 2
 # this depth
 # (widths as written) to keep the script inside its time limit
 SHARD_F2M2_LAYERS = 4
+# `shard lvlm m2` keeps the decoder's 24 layers: cut to 8 (to make room
+# for the serve-shard phase) its last step's gradient norm ratio read
+# 1.0059 on one leaf, outside GRAD_NORM_RATIO (NVIDIA H100 80GB HBM3,
+# 700 W; 12 layers passed, 16 failed again)
+SHARD_M2_LAYERS = 24
+# `shard clip m2`'s T5 stacks, cut from the ddp clip step's 12 + 12 to
+# make room for the serve-shard phase (15-24 s a step at 12 + 12, 2 steps;
+# its checks held with margin there: leaf cosine >= 0.99993, norm ratios
+# within 2e-3 of 1)
+SHARD_CLIP_T5_LAYERS = 6
 # the kernels a sharded step must launch, and the int32 mode's
 SHARD_KERNELS = TRAIN_KERNELS + ("s8_matmul_i32", "s8_matmul_bwd_i32")
 I32_OF = {"s8_matmul": "s8_matmul_i32", "s8_matmul_bwd": "s8_matmul_bwd_i32"}
@@ -5837,20 +5899,36 @@ def shard_compare(phase, ranks, steps, ref, shape, want_bytes, kinds):
                                    for k, ms, n in p["top_ops"]["host"]))
 
 
-def shard_run(phase, out, shape, opts, towers, kinds, steps):
-    """The training CLI on the (data, fsdp, model) mesh ``shape`` through
-    the launcher (one card: gloo), each rank's batches saved, then the
-    world-1 run on the (data, fsdp) readers' batches concatenated, and the
-    comparison."""
+def shard_argv(shape, opts, steps):
     d, f, m = shape
-    world = d * f * m
-    argv = opts + [f"run.mesh.data={d}", f"run.mesh.fsdp={f}",
+    return opts + [f"run.mesh.data={d}", f"run.mesh.fsdp={f}",
                    f"run.mesh.model={m}", "run.max_epoch=1",
                    f"run.iters_per_epoch={steps}"]
-    ranks = ddp_train(phase, out, world, [
-        "--dump", out / "batches", "--grads", out / "rank0_grads.pt",
-        "--profile-step", steps],
-        argv + [f"run.output_dir={out}", "--job-id", "shard"])
+
+
+def shard_flags(out, steps):
+    return ["--dump", out / "batches", "--grads", out / "rank0_grads.pt",
+            "--profile-step", steps]
+
+
+def shard_start(phase, out, shape, opts, steps):
+    """The ranks of ``shard_run``, started: their waiter."""
+    return start_ranks(phase, int(np.prod(shape)), [
+        "train", out, *shard_flags(out, steps), "--",
+        *shard_argv(shape, opts, steps), f"run.output_dir={out}",
+        "--job-id", "shard"])
+
+
+def shard_run(phase, out, shape, opts, towers, kinds, steps, wait):
+    """The training CLI on the (data, fsdp, model) mesh ``shape`` through
+    the launcher (one card: gloo; ``wait``: shard_start's), each rank's
+    batches saved, then the world-1 run on the (data, fsdp) readers'
+    batches concatenated, and the comparison."""
+    d, f, m = shape
+    world = d * f * m
+    argv = shard_argv(shape, opts, steps)
+    ranks = ddp_train(phase, out, world, shard_flags(out, steps), argv,
+                      wait=wait)
     for r in ranks:
         r["ckpt"] = out / "shard" / "checkpoint_0.pth"
     torch.cuda.empty_cache()
@@ -5864,16 +5942,16 @@ def shard_run(phase, out, shape, opts, towers, kinds, steps):
     return ranks
 
 
-def phase_shard(clip_storage):
+def phase_shard(clip_storage, after_ranks=None):
     """run.mesh's fsdp and model axes through ``python -m
     torch.distributed.run`` and the training CLI, ranks sharing the one
     card over gloo: ``shard lvlm m2`` (train-w8a8's operating point: w8a8
-    flan-t5-xxl decoder at full width and depth, packed rows, 4 steps) at
-    {data 1, fsdp 1, model 2}, ``shard lvlm f2m2`` the same at {1, 2, 2}
-    (the global batch over fsdp; the decoder cut to SHARD_F2M2_LAYERS
-    layers), ``shard clip m2`` ThinkDiff-CLIP's YAML at {1, 1, 2} on
-    clip-train's shards (T5 cut to CLIP_DDP_T5_LAYERS + CLIP_DDP_T5_LAYERS,
-    as the ddp clip step), 2 steps; each against the world-1 run on the
+    flan-t5-xxl decoder at full width, SHARD_M2_LAYERS layers, packed
+    rows, SHARD_STEPS steps) at {data 1, fsdp 1, model 2}, ``shard lvlm f2m2`` the
+    same at {1, 2, 2} (the global batch over fsdp; the decoder cut to
+    SHARD_F2M2_LAYERS layers), ``shard clip m2`` ThinkDiff-CLIP's YAML at
+    {1, 1, 2} on clip-train's shards (T5 cut to SHARD_CLIP_T5_LAYERS +
+    SHARD_CLIP_T5_LAYERS), 2 steps; each against the world-1 run on the
     same batches."""
     import shutil
 
@@ -5881,7 +5959,7 @@ def phase_shard(clip_storage):
     from thinkdiff_torch.models.vit import ViTConfig, VisionTransformer
 
     shutil.rmtree(SHARD_DIR, ignore_errors=True)
-    out = {}
+    out, waits = {}, {}
     try:
         t0 = time.perf_counter()
         storage = shard_embed_shards(SHARD_DIR / "embed",
@@ -5889,41 +5967,754 @@ def phase_shard(clip_storage):
         opts = ["--cfg-path", str(TRAIN_CONFIG), "--options",
                 f"datasets.llava_instruct_mllama_embed_2.build_info.storage="
                 f"{storage}", *SHARD_OPTS]
-        for name, shape, layers in (("m2", (1, 1, 2), 24),
+        runs = []
+        for name, shape, layers in (("m2", (1, 1, 2), SHARD_M2_LAYERS),
                                     ("f2m2", (1, 2, 2), SHARD_F2M2_LAYERS)):
             lvlm = {"t5": T5ForConditionalGeneration(T5Config.flan_t5_xxl(
                 fused_proj=True, quant_int8="w8a8",
                 num_decoder_layers=layers), device="meta")}
             say(f"shard lvlm {name}", f"flan-t5-xxl decoder {layers} of 24 "
                 "layers, w8a8 fused, widths as written")
-            out[name] = shard_run(
-                f"shard lvlm {name}", SHARD_DIR / name, shape,
-                opts + [f"model.t5_config.num_decoder_layers={layers}"],
-                lvlm, SHARD_KERNELS[:6], SHARD_STEPS)
-            say(f"shard lvlm {name}", f"{time.perf_counter() - t0:.1f} s "
-                "into the phase")
+            runs.append((name, f"shard lvlm {name}", SHARD_DIR / name, shape,
+                         opts + [f"model.t5_config.num_decoder_layers="
+                                 f"{layers}"], lvlm, SHARD_KERNELS[:6],
+                         SHARD_STEPS))
         clip = {"vision": VisionTransformer(ViTConfig(dtype=torch.bfloat16),
                                             device="meta"),
                 "t5": T5ForConditionalGeneration(T5Config.flan_t5_xxl(
-                    num_layers=CLIP_DDP_T5_LAYERS,
-                    num_decoder_layers=CLIP_DDP_T5_LAYERS), device="meta",
+                    num_layers=SHARD_CLIP_T5_LAYERS,
+                    num_decoder_layers=SHARD_CLIP_T5_LAYERS), device="meta",
                     encoder=True)}
         say("shard clip m2", f"flan-t5-xxl encoder and decoder "
-            f"{CLIP_DDP_T5_LAYERS} + {CLIP_DDP_T5_LAYERS} layers (of 24 + "
+            f"{SHARD_CLIP_T5_LAYERS} + {SHARD_CLIP_T5_LAYERS} layers (of 24 + "
             "24; ~10 s a step at full depth, most of it the f32 partial "
             "sums through the host), ViT-g and widths as written")
         copts = ["--cfg-path", str(CLIP_TRAIN_CONFIG), "--options",
                  f"datasets.cc_sbu.build_info.storage={clip_storage}",
-                 f"model.t5_config.num_layers={CLIP_DDP_T5_LAYERS}",
+                 f"model.t5_config.num_layers={SHARD_CLIP_T5_LAYERS}",
                  "model.t5_config.num_decoder_layers="
-                 f"{CLIP_DDP_T5_LAYERS}"]
-        out["clip_m2"] = shard_run("shard clip m2", SHARD_DIR / "clip",
-                                   (1, 1, 2), copts, clip, CLIP_TRAIN_KERNELS,
-                                   CLIP_SHARD_STEPS)
+                 f"{SHARD_CLIP_T5_LAYERS}"]
+        runs.append(("clip_m2", "shard clip m2", SHARD_DIR / "clip",
+                     (1, 1, 2), copts, clip, CLIP_TRAIN_KERNELS,
+                     CLIP_SHARD_STEPS))
+        # the three rank groups run at once (their ranks wait on the host's
+        # gloo most of the time), then the world-1 references one after
+        # another here; ``after_ranks`` is called between the two
+        for run in runs:
+            waits[run[0]] = shard_start(run[1], run[2], run[3], run[4],
+                                        run[7])
+        for run in runs:
+            waits[run[0]]()
+            waits[run[0]] = lambda kill=False, w=time.perf_counter() - t0: w
+        say("shard", f"the ranks of the three runs ended "
+            f"{time.perf_counter() - t0:.1f} s into the phase")
+        if after_ranks is not None:
+            after_ranks()
+        for name, *args in runs:
+            out[name] = shard_run(*args, waits.pop(name))
+            say(args[0], f"{time.perf_counter() - t0:.1f} s into the phase")
         say("shard", f"phase {time.perf_counter() - t0:.1f} s")
     finally:
+        for wait in waits.values():
+            wait(kill=True)
         shutil.rmtree(SHARD_DIR, ignore_errors=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The serving engines on a mesh: EmbedEngine, FluxSampler, CogVideoXSampler
+# ---------------------------------------------------------------------------
+
+SERVE_DIR = DDP_DIR / "serve"
+SERVE_REQUESTS = 16
+SERVE_TOKENS = 32
+SERVE_IMAGE = 224          # 16 x 16 patches: 64 image tokens a request
+SERVE_SLOTS = 16           # one round: refills are the CPU tests' (time)
+SERVE_KW = dict(max_tokens=SERVE_TOKENS, min_tokens=1, kv_page_size=64,
+                prefill_chunk=256, eos_lag=1, max_num_seqs=SERVE_SLOTS,
+                top_k_prefilter=64)
+SERVE_SAMPLERS = {"greedy": dict(temperature=0.0, top_p=1.0,
+                                 sampler="exact"),
+                  "exact": dict(temperature=0.6, top_p=0.9, sampler="exact"),
+                  "gumbel": dict(temperature=0.6, top_p=1.0,
+                                 sampler="gumbel")}
+# `serve-shard qwen7b f2m2`: four ranks share the card over gloo and every
+# decode step gathers each layer's fsdp blocks through the host (~1 s a
+# step at 4 layers), so the LM is cut to this depth and the run to this
+# many tokens (one chunk of decode steps), as `shard lvlm f2m2` cuts its
+# decoder
+SERVE_F2M2_LAYERS = 4
+SERVE_F2M2_TOKENS = 8
+# the world-1 model teacher-forced over its OWN served results reads
+# cosine 0.97156 (prompt) / 0.9729-0.9761 (decode) at 7B (NVIDIA H100
+# 80GB HBM3, 700 W; random weights at std 0.02 grow the 3584-wide
+# residual stream through 28 layers, where the 2B's read 0.993): the 0.98
+# of teacher_forcing_check is out of reach of world 1 itself here. The
+# sharded results are held to world 1's own agreement less this margin
+# (measured 0.0037 at the prompt, up to 0.009 at decode: the vision
+# tower's row-parallel fc2 sums its partials in f32, where world 1
+# rounds its product to bf16), and to SERVE_TF_FLOOR absolutely (a wrong
+# position, head or page decorrelates a token to ~0)
+SERVE_TF_MARGIN = 0.015
+SERVE_TF_FLOOR = 0.95
+SERVE_KERNELS = ("flash_attention_fwd", "s8_matmul", "rmsnorm",
+                 "paged_attention", "fused_lm_sample")
+# FLUX.1-dev at full width, cut to 2 double + 4 single blocks, batch 2 at
+# 512^2, 2 Euler steps; CogVideoX-5b at full width cut to 4 blocks on a
+# 2 x 30 x 44 latent grid, 2 DDIM steps
+SERVE_FLUX_BLOCKS = (2, 4)
+SERVE_FLUX_SIZE = 512
+SERVE_COG_BLOCKS = 4
+SERVE_COG_LATENT = (1, 2, 30, 44, 16)
+
+
+def serve_qwen_cfg(layers):
+    """Qwen2-VL-7B at full width: w8a8 LM (fused projections) of ``layers``
+    layers, weight-only int8 vision tower."""
+    from thinkdiff_torch.models.qwen2_vl import Qwen2VLConfig
+
+    return Qwen2VLConfig.qwen2_vl_7b(quant_int8="w8a8", fused_proj=True,
+                                     vision_quant=True, num_layers=layers)
+
+
+def serve_engine(layers, mesh=None):
+    """The 7B engine from its seeded draw (``init_draw``, bit for bit
+    ``init_params`` quantized and fused): whole, or this rank's blocks on
+    ``mesh``, drawn and cut block by block."""
+    from thinkdiff_torch.engines.embed_engine import EmbedEngine
+    from thinkdiff_torch.engines.standin_tokenizer import StandInTokenizer
+    from thinkdiff_torch.models.qwen2_vl import init_draw
+
+    cfg = serve_qwen_cfg(layers)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    draw = init_draw(cfg, gen)
+    tok = StandInTokenizer()
+    eos = [tok.eos_token_id, tok.convert_tokens_to_ids("<|im_end|>")]
+    return EmbedEngine(cfg, {"vision": draw, "lm": draw}, tok, eos_ids=eos,
+                       mesh=mesh, **SERVE_KW)
+
+
+def serve_requests():
+    from PIL import Image
+
+    rs = np.random.RandomState(SEED + 18)
+    images = [Image.fromarray(rs.randint(0, 256, (SERVE_IMAGE, SERVE_IMAGE, 3),
+                                         np.uint8))
+              for _ in range(SERVE_REQUESTS)]
+    prompts = [f"describe picture {i} in one short sentence"
+               for i in range(SERVE_REQUESTS)]
+    return images, prompts
+
+
+def serve_prepare(engine):
+    """The requests' host and vision work, once for every sampler's run
+    (``prepare_requests``): (samples, prepared, its launches, seconds)."""
+    from thinkdiff_torch import kernels
+
+    images, prompts = serve_requests()
+    samples = {"images": images, "answers": prompts}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    prepared = engine.prepare_requests(samples)
+    torch.cuda.synchronize()
+    return (samples, prepared, kernels.launch_counts(),
+            time.perf_counter() - t0)
+
+
+def serve_run(engine, name, tokens, prep):
+    """One paged ``generate_many`` over ``prep``'s requests (serve_prepare)
+    with sampler ``name`` and ``tokens`` new tokens (one chunk of decode
+    steps at most), the launch counters set to 0 just before and read just
+    after, the preparation's launches added: (result, record)."""
+    from collections import Counter
+
+    from thinkdiff_torch import kernels
+
+    samples, prepared, prep_launches, _ = prep
+    for k, v in SERVE_SAMPLERS[name].items():
+        setattr(engine, k, v)
+    engine._lm_pack = None
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.generate_many(samples, max_new_tokens=tokens, seed=SEED,
+                               slots=SERVE_SLOTS, paged=True,
+                               chunk=min(tokens, CHUNK), preprepared=prepared)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(Counter(kernels.launch_counts()) + Counter(prep_launches))
+    launches = {k: launches.get(k, 0) for k in kernels.LAUNCHES}
+    st = engine.last_phase_stats
+    steps = st["chunks"] * min(tokens, CHUNK)
+    return res, {"wall_s": wall, "launches": launches,
+                 "kv_bytes": engine.last_kv_bytes,
+                 "ms_per_step": 1e3 * (st["decode_dispatch"]
+                                       + st["decode_sync"]) / steps}
+
+
+def serve_tokens(layers):
+    return SERVE_TOKENS if int(layers) == 28 else SERVE_F2M2_TOKENS
+
+
+def serve_child(out, layers, shape, samplers):
+    """One rank of `serve-shard qwen7b`: the engine on the mesh ``shape``,
+    then each sampler's run; writes rank{r}.json and rank{r}.pt (tokens
+    and hidden states of every request)."""
+    from thinkdiff_torch.core import distributed as td
+    from thinkdiff_torch.parallel.mesh import Mesh
+
+    run_cfg = {}
+    td.init_distributed_mode(run_cfg, "cuda")
+    t0 = time.perf_counter()
+    engine = serve_engine(int(layers), Mesh(*shape))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = sum(t.numel() * t.element_size() for m in (engine.vision, engine.lm)
+               for t in [*m.parameters(), *m.buffers()])
+    record = {"rank": run_cfg["rank"], "backend": torch.distributed
+              .get_backend(), "held": held, "build_s": build_s, "runs": {}}
+    saved = {}
+    prep = serve_prepare(engine)
+    record["prepare_s"] = prep[3]
+    for name in samplers:
+        torch.cuda.reset_peak_memory_stats()
+        res, rec = serve_run(engine, name, serve_tokens(layers), prep)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        record["runs"][name] = rec
+        saved[name] = _saved(res)
+    torch.save(saved, out / f"rank{record['rank']}.pt")
+    return record
+
+
+def serve_teacher_check(phase, engine, saved, images):
+    """The world-1 model teacher-forced over each of the requests of a
+    result: {min, prompt, decode} cosines, the least over the requests
+    (teacher_forcing_check, not gated here)."""
+    import contextlib
+    import io
+
+    out = {"prompt_token_ids": saved["prompt_ids"],
+           "output_token_ids": saved["tokens"],
+           "prompt_hidden_states": saved["prompt_hidden"],
+           "hidden_states": saved["hidden"]}
+    with contextlib.redirect_stdout(io.StringIO()):  # one line a request
+        got = [teacher_forcing_check(phase, engine, out, images, i, -1.0)
+               for i in range(len(images))]
+    return {k: min(g[k] for g in got) for k in got[0]}
+
+
+def _saved(res):
+    return {"tokens": res.output_token_ids, "prompt_ids": res.prompt_token_ids,
+            "hidden": res.hidden_states,
+            "prompt_hidden": res.prompt_hidden_states}
+
+
+def serve_qwen_start(name, shape, layers, samplers):
+    """The ranks of `serve-shard qwen7b <name>`, started: their waiter."""
+    out = SERVE_DIR / name
+    out.mkdir(parents=True, exist_ok=True)
+    return start_ranks(f"serve-shard qwen7b {name}", int(np.prod(shape)),
+                       ["serve", out, layers, ",".join(map(str, shape)),
+                        ",".join(samplers)])
+
+
+def serve_qwen(name, shape, layers, samplers, wait):
+    """`serve-shard qwen7b <name>`: the ranks, then the world-1 engine on
+    the same requests and samplers in this process, and the checks (a)
+    every rank the same tokens and bit-identical hidden states, (b) each
+    of rank 0's requests teacher-forced through the world-1 model, (c)
+    weight and KV bytes a rank the rules' share, (d) launches as world
+    1's (#2 split between its bf16 and int32 modes)."""
+    from thinkdiff_torch.models.qwen2_vl import Qwen2VisionTower, Qwen2VLModel
+
+    phase = f"serve-shard qwen7b {name}"
+    out = SERVE_DIR / name
+    world = int(np.prod(shape))
+    wall = wait()
+    ranks = rank_results(out, world)
+    for r in ranks:
+        say(phase, f"rank {r['rank']}: built in {r['build_s']:.1f} s, "
+            f"requests prepared (vision) in {r['prepare_s']:.1f} s; "
+            + "; ".join(
+            f"{s} {x['wall_s']:.2f} s, {x['ms_per_step']:.2f} ms a decode "
+            f"step, peak {x['peak_gib']:.2f} GiB"
+            for s, x in r["runs"].items()))
+    saved = [torch.load(out / f"rank{r}.pt") for r in range(world)]
+    for r in range(1, world):
+        for s in samplers:
+            a, b = saved[0][s], saved[r][s]
+            same = a["tokens"] == b["tokens"] and all(
+                torch.equal(x, y) for x, y in zip(
+                    a["hidden"] + a["prompt_hidden"],
+                    b["hidden"] + b["prompt_hidden"]))
+            if not same:
+                raise AssertionError(f"{phase}: rank {r}'s {s} result is not "
+                                     "rank 0's")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = serve_engine(layers)
+    prep = serve_prepare(engine)
+    ref = {s: serve_run(engine, s, serve_tokens(layers), prep)
+           for s in samplers}
+    say(phase, "world 1: " + "; ".join(
+        f"{s} {x[1]['wall_s']:.2f} s, {x[1]['ms_per_step']:.2f} ms a "
+        f"decode step" for s, x in ref.items()))
+    images, _ = serve_requests()
+    cos, own = {}, {}
+    for s in samplers:
+        cos[s] = serve_teacher_check(phase, engine, saved[0][s], images)
+        own[s] = serve_teacher_check(phase, engine, _saved(ref[s][0]), images)
+        say(phase, f"{s}: the world-1 model teacher-forced over rank 0's "
+            f"{SERVE_REQUESTS} requests, cosine min {cos[s]['min']:.5f} "
+            f"(prompt {cos[s]['prompt']:.5f}, decode {cos[s]['decode']:.5f});"
+            f" over world 1's own results {own[s]['min']:.5f} (prompt "
+            f"{own[s]['prompt']:.5f}, decode {own[s]['decode']:.5f})")
+    ref_s = time.perf_counter() - t0
+    cfg = serve_qwen_cfg(layers)
+    want_held = expected_frozen_bytes(
+        {"vision": Qwen2VisionTower(cfg.vision, device="meta"),
+         "lm": Qwen2VLModel(cfg, device="meta")}, shape)
+    held = [r["held"] for r in ranks]
+    kv = {s: [r["runs"][s]["kv_bytes"] for r in ranks] for s in samplers}
+    bad = [s for s in samplers
+           if any(b * shape[2] != ref[s][1]["kv_bytes"] for b in kv[s])]
+    if any(h != want_held for h in held) or bad:
+        raise AssertionError(f"{phase}: weight bytes a rank {held} (the "
+                             f"rules: {want_held}); KV bytes {kv} against "
+                             f"world 1's / {shape[2]}")
+    for r in ranks:
+        for s in samplers:
+            got, want = r["runs"][s]["launches"], ref[s][1]["launches"]
+            g = {k: got[k] + (got["s8_matmul_i32"] if k == "s8_matmul"
+                              else 0) for k in SERVE_KERNELS}
+            w = {k: want[k] for k in SERVE_KERNELS}
+            if s != "gumbel":
+                g.pop("fused_lm_sample"), w.pop("fused_lm_sample")
+            if g != w or (shape[2] > 1 and not got["s8_matmul_i32"]) or \
+                    any(v == 0 for v in g.values()):
+                raise AssertionError(f"{phase} rank {r['rank']} {s}: "
+                                     f"launches {g} (int32 mode "
+                                     f"{got['s8_matmul_i32']}) vs world-1 "
+                                     f"{w}")
+    if any(cos[s]["min"] < max(SERVE_TF_FLOOR,
+                               own[s]["min"] - SERVE_TF_MARGIN)
+           for s in samplers):
+        raise AssertionError(f"{phase}: teacher forcing {cos}, world 1's "
+                             f"own results {own}")
+    agree = {s: sum(int(a == b) for x, y in zip(saved[0][s]["tokens"],
+                                                 ref[s][0].output_token_ids)
+                    for a, b in zip(x, y)) for s in samplers}
+    first = {s: sum(int(x[0] == y[0]) for x, y in zip(
+        saved[0][s]["tokens"], ref[s][0].output_token_ids)) for s in samplers}
+    # the same prefill path on both sides: the rank's prompt states against
+    # world 1's served ones
+    prompt_cos = min(float(torch.nn.functional.cosine_similarity(
+        a.float(), b.float(), dim=-1).min()) for a, b in zip(
+        saved[0][samplers[0]]["prompt_hidden"],
+        ref[samplers[0]][0].prompt_hidden_states))
+    say(phase, f"mesh {dict(zip(('data', 'fsdp', 'model'), shape))}, "
+        f"{world} ranks ({ranks[0]['backend']}, one card), Qwen2-VL-7B "
+        f"{layers} LM layers w8a8 + int8 vision, {SERVE_REQUESTS} requests "
+        f"of a {SERVE_IMAGE}^2 image over {SERVE_SLOTS} slots, "
+        f"{serve_tokens(layers)} tokens, paged, chunked prefill, eos_lag 1: (a) "
+        f"every rank the same tokens and bit-identical hidden states; (b) "
+        f"the world-1 model teacher-forced over rank 0's {SERVE_REQUESTS} "
+        f"requests: cosine min "
+        + str({s: round(c["min"], 5) for s, c in cos.items()})
+        + f" (world 1's own results less {SERVE_TF_MARGIN}, and at least "
+        f"{SERVE_TF_FLOOR}); (c) weights "
+        f"{held[0] / 2 ** 30:.3f} GiB a rank = the rules' share, KV "
+        f"{kv[samplers[0]][0] / 2 ** 20:.1f} MiB a rank = world 1's / "
+        f"{shape[2]}; (d) launches a rank as world 1's "
+        + str({s: ranks[0]['runs'][s]['launches'] for s in samplers[:1]})
+        + f"; rank 0's served prompt states against world 1's (the same "
+        f"prefill path) cosine min {prompt_cos:.5f}; first tokens agreeing "
+        f"with world 1's {first} of {SERVE_REQUESTS}, tokens agreeing with "
+        f"world 1's stream (counts, not gates: random weights make "
+        f"near-ties) {agree} of "
+        f"{SERVE_REQUESTS * serve_tokens(layers)}; ranks {wall:.1f} s (build "
+        f"{ranks[0]['build_s']:.1f} s), world-1 reference {ref_s:.1f} s")
+    del engine
+    torch.cuda.empty_cache()
+    return ranks
+
+
+def serve_flux_build():
+    from thinkdiff_torch.models.flux import FluxConfig, FluxTransformer
+    from thinkdiff_torch.models.flux_vae import VAEConfig, VAEDecoder
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    cfg = FluxConfig.flux_dev(num_double_layers=SERVE_FLUX_BLOCKS[0],
+                              num_single_layers=SERVE_FLUX_BLOCKS[1])
+    transformer = FluxTransformer(cfg, device="cuda")
+    init_random_(transformer, gen)
+    vae_cfg = VAEConfig.flux()
+    vae = VAEDecoder(vae_cfg, device="cuda")
+    init_random_(vae, gen)
+    return cfg, transformer, vae_cfg, vae
+
+
+def serve_flux_inputs(cfg):
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    txt = (torch.randn((2, 512, cfg.joint_attention_dim), generator=g,
+                       device="cuda") * 0.5).bfloat16()
+    pooled = torch.randn((2, cfg.pooled_projection_dim), generator=g,
+                         device="cuda").bfloat16()
+    return txt, pooled
+
+
+def serve_flux_row(sampler, cfg, latents, txt, pooled, steps):
+    """The first step's velocity and the decoded images of ``latents``'
+    rows (the sampler's own split on a mesh)."""
+    from thinkdiff_torch.engines.flux_sampler import flux_sigmas
+    from thinkdiff_torch.models.flux import make_img_ids, unpack_latents
+    from thinkdiff_torch.parallel import collectives as col
+
+    lat = SERVE_FLUX_SIZE // 8
+    img_ids = torch.from_numpy(make_img_ids(lat, lat)).cuda()
+    txt_ids = torch.zeros((txt.shape[1], 3), device="cuda")
+    sig = flux_sigmas(steps, latents.shape[1])
+    b = col.reader_rows(latents).shape[0]
+    with torch.no_grad():
+        v = sampler.transformer(
+            col.reader_rows(latents).to(cfg.dtype), col.reader_rows(txt),
+            col.reader_rows(pooled),
+            torch.full((b,), float(sig[0]), device="cuda"), img_ids, txt_ids,
+            torch.full((b,), 3.5, device="cuda"))
+    x = sampler.denoise(latents, txt, pooled, img_ids, txt_ids, sig, 3.5)
+    images = sampler.decode(unpack_latents(x, lat, lat))
+    return v.float(), x, images
+
+
+def serve_flux_child(out):
+    from thinkdiff_torch.core import distributed as td
+    from thinkdiff_torch.engines.flux_sampler import FluxSampler
+    from thinkdiff_torch.parallel.mesh import Mesh
+
+    run_cfg = {}
+    td.init_distributed_mode(run_cfg, "cuda")
+    cfg, tr, vae_cfg, vae = serve_flux_build()
+    sampler = FluxSampler(cfg, tr, vae_cfg, vae, mesh=Mesh(1, 2, 1))
+    torch.cuda.empty_cache()
+    txt, pooled = serve_flux_inputs(cfg)
+    seq = (SERVE_FLUX_SIZE // 16) ** 2
+    latents = sampler.noise(2, seq, SEED)
+    from thinkdiff_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    v, x, images = serve_flux_row(sampler, cfg, latents, txt, pooled, 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    held = sum(t.numel() * t.element_size()
+               for m in (tr, vae) for t in [*m.parameters(), *m.buffers()])
+    r = run_cfg["rank"]
+    torch.save({"v": v.cpu(), "x": x.cpu(), "images": images.cpu()},
+               out / f"rank{r}.pt")
+    return {"rank": r, "wall_s": wall, "held": held, "launches": launches,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def serve_flux(wait):
+    """`serve-shard flux f2`: at fsdp 2 every product runs on the gathered
+    whole weight, so each rank's velocity, latents and decoded image are
+    bit for bit world 1's run on that rank's row of the batch (same
+    latents, same shapes)."""
+    from thinkdiff_torch.engines.flux_sampler import FluxSampler
+
+    phase = "serve-shard flux f2"
+    out = SERVE_DIR / "flux"
+    wall = wait()
+    ranks = rank_results(out, 2)
+    got = [torch.load(out / f"rank{r}.pt") for r in range(2)]
+    cfg, tr, vae_cfg, vae = serve_flux_build()
+    w1 = FluxSampler(cfg, tr, vae_cfg, vae)
+    txt, pooled = serve_flux_inputs(cfg)
+    latents = w1.noise(2, (SERVE_FLUX_SIZE // 16) ** 2, SEED)
+    whole = sum(t.numel() * t.element_size()
+                for m in (tr, vae) for t in [*m.parameters(), *m.buffers()])
+    for r in range(2):
+        v, x, images = serve_flux_row(w1, cfg, latents[r:r + 1],
+                                      txt[r:r + 1], pooled[r:r + 1], 2)
+        same = {"velocity": torch.equal(got[r]["v"], v.cpu()),
+                "latents": torch.equal(got[r]["x"][r:r + 1], x.cpu()),
+                "image": torch.equal(got[r]["images"][r:r + 1],
+                                     images.cpu())}
+        if not all(same.values()) or not torch.isfinite(images).all():
+            raise AssertionError(f"{phase}: rank {r} against world 1 on its "
+                                 f"row, bit for bit: {same}")
+    if not torch.equal(got[0]["images"], got[1]["images"]):
+        raise AssertionError(f"{phase}: the ranks' gathered images differ")
+    for x in ranks:
+        if not (x["launches"]["flash_attention_fwd"]
+                and x["launches"]["rmsnorm"]):
+            raise AssertionError(f"{phase}: rank {x['rank']} launches "
+                                 f"{x['launches']}")
+    say(phase, f"FLUX.1-dev {SERVE_FLUX_BLOCKS[0]} + {SERVE_FLUX_BLOCKS[1]} "
+        f"blocks at full width + VAE, batch 2 at {SERVE_FLUX_SIZE}^2, 2 Euler "
+        f"steps, mesh fsdp 2 (2 ranks, one card): each rank's velocity, "
+        f"latents and decoded image bit for bit world 1's on its row; "
+        f"weights a rank {ranks[0]['held'] / 2 ** 30:.2f} GiB of "
+        f"{whole / 2 ** 30:.2f}; ranks {wall:.1f} s, "
+        + "; ".join(f"rank {x['rank']} sample {x['wall_s']:.2f} s, peak "
+                    f"{x['peak_gib']:.2f} GiB" for x in ranks))
+    del w1, tr, vae
+    torch.cuda.empty_cache()
+    return ranks
+
+
+def serve_cog_build():
+    from thinkdiff_torch.models.cogvideox import (
+        CogVideoXConfig, CogVideoXTransformer)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    cfg = CogVideoXConfig.cogvideox_5b(num_layers=SERVE_COG_BLOCKS)
+    transformer = CogVideoXTransformer(cfg, device="cuda")
+    init_random_(transformer, gen)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    cond = (torch.randn((1, cfg.max_text_len, cfg.text_dim), generator=g,
+                        device="cuda") * 0.5).bfloat16()
+    latents = torch.randn(SERVE_COG_LATENT, generator=g, device="cuda")
+    return cfg, transformer, cond, latents
+
+
+def serve_cog_child(out):
+    from thinkdiff_torch.core import distributed as td
+    from thinkdiff_torch.models.cogvideox import CogVideoXSampler
+    from thinkdiff_torch.parallel.mesh import Mesh
+
+    run_cfg = {}
+    td.init_distributed_mode(run_cfg, "cuda")
+    cfg, tr, cond, latents = serve_cog_build()
+    sampler = CogVideoXSampler(cfg, tr, mesh=Mesh(1, 1, 2))
+    torch.cuda.empty_cache()
+    calls = {"n": 0, "ratio": 0.0, "fro": 0.0}
+
+    def checked(q, k, v, *a):
+        from thinkdiff_torch.ops.flash_attention import flash_attention
+
+        o = flash_attention(q, k, v, *a)
+        ref = mha_heads(q, k, v, *a).float()
+        err = o.float() - ref
+        calls["n"] += 1
+        calls["heads"] = q.shape[1]
+        calls["ratio"] = max(calls["ratio"], float(err.abs().max())
+                             / flux_flash_limit(ref))
+        calls["fro"] = max(calls["fro"], float(err.norm() / ref.norm()))
+        return o
+
+    vel = cogvideo_forward(sampler, cond, latents.bfloat16(), 999, checked)
+    from thinkdiff_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lat = sampler.denoise(latents, cond, num_steps=2)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    r = run_cfg["rank"]
+    torch.save({"v": vel.cpu(), "lat": lat.cpu()}, out / f"rank{r}.pt")
+    return {"rank": r, "calls": calls, "wall_s": time.perf_counter() - t0,
+            "launches": launches,
+            "held": sum(t.numel() * t.element_size()
+                        for t in [*tr.parameters(), *tr.buffers()]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def serve_cog(wait):
+    """`serve-shard cogvideo m2`: the blocks on their local 24 heads, every
+    flash call held against its plain version (mha_heads) at
+    FLUX_FLASH_REL * max|ref|, the limit of the kernel rows at CogVideoX's
+    shorter joint length (T1576; cogvideo_velocity_check's second limit,
+    COG_FLASH_FRO of ||ref||, was set at T17776, where the output is an
+    average over 17,776 keys: here, at T886, the bf16 rounding of the
+    output alone is ~1.1e-3 of it, and a sound call read 1.7e-3; the
+    ratio is printed), the velocity and 2 DDIM steps' latents against
+    world 1's at COG_VEL_COS_MIN."""
+    from thinkdiff_torch.models.cogvideox import CogVideoXSampler
+    from thinkdiff_torch.ops.flash_attention import flash_attention
+
+    phase = "serve-shard cogvideo m2"
+    out = SERVE_DIR / "cog"
+    wall = wait()
+    ranks = rank_results(out, 2)
+    got = [torch.load(out / f"rank{r}.pt") for r in range(2)]
+    cfg, tr, cond, latents = serve_cog_build()
+    w1 = CogVideoXSampler(cfg, tr)
+    vel = cogvideo_forward(w1, cond, latents.bfloat16(), 999,
+                           flash_attention).cpu()
+    lat = w1.denoise(latents, cond, num_steps=2).cpu()
+    cos = {}
+    for r in range(2):
+        c = ranks[r]["calls"]
+        if c["n"] != cfg.num_layers or c["heads"] != cfg.num_heads // 2 \
+                or c["ratio"] > 1.0:
+            raise AssertionError(f"{phase}: rank {r}'s flash calls {c}")
+        cos[r] = (cosine(got[r]["v"], vel), cosine(got[r]["lat"], lat))
+        if not ranks[r]["launches"]["flash_attention_fwd"]:
+            raise AssertionError(f"{phase}: rank {r} launched no flash "
+                                 f"forward: {ranks[r]['launches']}")
+        if min(cos[r]) < COG_VEL_COS_MIN:
+            raise AssertionError(f"{phase}: rank {r} against world 1: "
+                                 f"cosines (velocity, latents) {cos[r]}")
+    say(phase, f"CogVideoX-5b {SERVE_COG_BLOCKS} blocks at full width, "
+        f"latents {SERVE_COG_LATENT[1:4]}, mesh model 2 (2 ranks, one card): "
+        f"{ranks[0]['calls']['n']} flash calls a rank at "
+        f"{ranks[0]['calls']['heads']} local heads, the worst at "
+        f"{max(x['calls']['ratio'] for x in ranks):.3g} of its limit "
+        f"(||err|| / ||ref|| {max(x['calls']['fro'] for x in ranks):.3g}); "
+        f"(velocity, 2-step latents) cosine against world 1 {cos} (>= "
+        f"{COG_VEL_COS_MIN}); weights a rank "
+        f"{ranks[0]['held'] / 2 ** 30:.2f} GiB; ranks {wall:.1f} s, "
+        + "; ".join(f"rank {x['rank']} 2 steps {x['wall_s']:.2f} s, peak "
+                    f"{x['peak_gib']:.2f} GiB" for x in ranks))
+    del w1, tr
+    torch.cuda.empty_cache()
+    return ranks
+
+
+def serve_launches(serve, kname):
+    """{run: [each rank's launches of ``kname``]} of phase_serve_shard's
+    result (a qwen7b run once a sampler)."""
+    out = {}
+    for run, ranks in serve.items():
+        if "runs" in ranks[0]:
+            for s in ranks[0]["runs"]:
+                out[f"{run} {s}"] = [r["runs"][s]["launches"][kname]
+                                     for r in ranks]
+        else:
+            out[run] = [r["launches"][kname] for r in ranks]
+    return out
+
+
+SERVE_RUNS = {"m2": ("m2", (1, 1, 2), 28, ("greedy", "exact", "gumbel")),
+              "f2m2": ("f2m2", (1, 2, 2), SERVE_F2M2_LAYERS,
+                       ("greedy", "gumbel"))}
+
+
+def serve_shard_start():
+    """Starts every rank group of the serve-shard phase at once (their
+    ranks wait on the host's gloo most of the time): {run: waiter}, for
+    ``phase_serve_shard``."""
+    import shutil
+
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    for name in ("flux", "cog"):
+        (SERVE_DIR / name).mkdir(parents=True, exist_ok=True)
+    waits = {"t0": time.perf_counter()}
+    waits["flux"] = start_ranks("serve-shard flux f2", 2,
+                                ["serve-flux", SERVE_DIR / "flux"])
+    waits["cog"] = start_ranks("serve-shard cogvideo m2", 2,
+                               ["serve-cog", SERVE_DIR / "cog"])
+    for name, run in SERVE_RUNS.items():
+        waits[name] = serve_qwen_start(*run)
+    return waits
+
+
+def phase_serve_shard(waits=None):
+    """The three engines' ``mesh=`` through ``torch.distributed.run``,
+    ranks sharing the one card over gloo (started by ``serve_shard_start``,
+    here when ``waits`` is not given), each against world 1 in this
+    process, one after another: `serve-shard qwen7b m2` (full depth;
+    greedy, exact, gumbel), `serve-shard flux f2`, `serve-shard cogvideo
+    m2`, `serve-shard qwen7b f2m2` (SERVE_F2M2_LAYERS layers; greedy,
+    gumbel). Returns {run: ranks}."""
+    import shutil
+
+    waits = dict(waits or serve_shard_start())
+    t0 = waits.pop("t0")
+    out = {}
+    try:
+        out["qwen7b_m2"] = serve_qwen(*SERVE_RUNS["m2"], waits.pop("m2"))
+        say("serve-shard", f"{time.perf_counter() - t0:.1f} s since the ranks "
+            "started")
+        out["flux_f2"] = serve_flux(waits.pop("flux"))
+        out["cogvideo_m2"] = serve_cog(waits.pop("cog"))
+        out["qwen7b_f2m2"] = serve_qwen(*SERVE_RUNS["f2m2"],
+                                        waits.pop("f2m2"))
+        say("serve-shard", f"phase {time.perf_counter() - t0:.1f} s since the "
+            "ranks started")
+    finally:
+        for wait in waits.values():
+            wait(kill=True)
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    return out
+
+
+def kernels_fused_sample_shard(results):
+    """#8's vocabulary-shard mode at the served shards: the 7B's untied
+    lm_head at model 2 (col0 0 and 76032, B16) and the 2B's tied table at
+    model 2 (B64): each shard's keys against its plain version, and the
+    two shards' keys reduced with MAX against the unsharded kernel's ids
+    on the same seed, with and without noise."""
+    from thinkdiff_torch.ops.fused_sample import (
+        fused_lm_sample, fused_lm_sample_reference, gumbel_noise, keys_to_ids,
+        pack_lm_head, pack_tied_embedding)
+
+    eos = [151643, 151645]
+    seed = torch.tensor([2024, -77], dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    d, v = 3584, 152064
+    q = torch.randint(-127, 128, (d, v), dtype=torch.int8, device="cuda",
+                      generator=g)
+    scale = torch.rand(v, device="cuda", generator=g) / 2048 + 1e-4
+    iscale = torch.rand(d, device="cuda", generator=g) + 0.5
+
+    def untied(lo, hi):
+        return pack_lm_head(q[:, lo:hi], scale[lo:hi], input_scale=iscale,
+                            eos_ids=[e - lo for e in eos if lo <= e < hi])
+
+    table = randn((151936, 1536), 14, torch.float32) * 0.02
+
+    def tied(lo, hi):
+        return pack_tied_embedding(table[lo:hi], [e - lo for e in eos
+                                                  if lo <= e < hi])
+
+    for label, make, vocab, b in (("7B untied", untied, v, 16),
+                                  ("2B tied", tied, 151936, 64)):
+        full = make(0, vocab)
+        x = randn((b, full["qt"].shape[1]), 15)
+        blocked = (torch.arange(b, device="cuda") % 4 == 0).float()
+        halves = [(lo, make(lo, lo + vocab // 2))
+                  for lo in (0, vocab // 2)]
+        for temp, nz in ((0.0, False), (0.6, True)):
+            want = fused_lm_sample(x, full, blocked, seed, temperature=temp,
+                                   noise=nz)
+            keys = []
+            for lo, pack in halves:
+                vp = pack["qt"].shape[0]
+                noise = gumbel_noise(seed, b, vp, lo) if nz else None
+
+                def run(pack=pack, lo=lo, temp=temp, nz=nz):
+                    return fused_lm_sample(x, pack, blocked, seed,
+                                           temperature=temp, noise=nz,
+                                           col0=lo, keys=True)
+
+                results.append(check(
+                    "fused_lm_sample", f"B{b} D{x.shape[1]} {label} vocabulary"
+                    f" shard col0 {lo} of 2 (V {vocab // 2}, Vp {vp}), keys, "
+                    f"noise {'on, T 0.6' if nz else 'off'}", run,
+                    lambda pack=pack, lo=lo, temp=temp, noise=noise:
+                    fused_lm_sample_reference(x, pack, blocked,
+                                              temperature=temp, noise=noise,
+                                              col0=lo, keys=True),
+                    lambda e, ref: e == 0, "keys identical",
+                    sample_work(pack, x, blocked)))
+                keys.append(run())
+                del noise
+            got = keys_to_ids(torch.stack(keys).amax(0))
+            if not torch.equal(got, want):
+                raise AssertionError(f"fused_lm_sample {label} shards: the "
+                                     "reduced keys are not the unsharded ids")
+            say("kernels", f"fused_lm_sample {label} B{b}, noise "
+                f"{'on' if nz else 'off'}: the two vocabulary shards' keys "
+                f"reduced with MAX = the unsharded kernel's ids ({b} rows)")
+        del full, halves
+    del q, table
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -6550,34 +7341,54 @@ def kernels_lora(results):
         library=lambda: F.rms_norm(x, (4096,), scale, 1e-6)))
 
 
+def lap(phase: str, clock: list) -> None:
+    """Prints ``[timing] <phase> <seconds>``: the seconds since the last
+    lap (``clock`` holds its time), and starts the next."""
+    now = time.perf_counter()
+    print(f"[timing] {phase} {now - clock[0]:.1f}", flush=True)
+    clock[0] = now
+
+
 def main() -> int:
     name, _ = phase_device()
     t_start = time.perf_counter()
+    clock = [t_start]
     phase_build()
+    lap("build", clock)
     results = phase_kernels()
+    lap("kernels", clock)
     launches, train = phase_train_w8a8()
     torch.cuda.empty_cache()
+    lap("train-w8a8", clock)
     calib, calib_rates = phase_calibrate()
     torch.cuda.empty_cache()
+    lap("calibrate", clock)
     yaml_step_ms = phase_train_yaml()
     torch.cuda.empty_cache()
+    lap("train-yaml", clock)
     ops = phase_ops()
     for k in OP_KERNELS:
         launches[k] = ops[k]
+    lap("ops", clock)
     base_cfg, cfg, params = load_weights()
     phase_dense_slice(base_cfg, cfg, params)
+    lap("dense slice", clock)
     phase_dense_int8(base_cfg, params)
+    lap("dense-int8", clock)
     served, paged_engine, rates = phase_paged_slice(base_cfg, cfg, params)
     launches["paged_attention"] = served["paged_attention"]
     phase_profile(paged_engine)
     del paged_engine
     torch.cuda.empty_cache()
+    lap("paged slice", clock)
     launches["fused_lm_sample"] = phase_gumbel_slice(
         base_cfg, cfg, params)["fused_lm_sample"]
     torch.cuda.empty_cache()
+    lap("gumbel slice", clock)
     cli1, cli2, ddp = phase_cli(base_cfg, cfg, params, yaml_step_ms)
     del params
     torch.cuda.empty_cache()
+    lap("cli (with native and ddp)", clock)
     lvlm, lvlm_rates, lvlm_model = phase_lvlm_text()
     launches["int8_matmul"] = lvlm["int8_matmul"]
     embeds, embed_launches = lvlm_flux_embeds(lvlm_model)
@@ -6587,33 +7398,56 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
+    lap("lvlm-text", clock)
     flux, flux_rates, pipe = phase_lvlm_flux(embeds, embed_launches)
+    lap("lvlm-flux", clock)
     clip_flux, clip_flux_rates, clip_model = phase_clip_flux(pipe)
+    lap("clip-flux", clock)
     clis, clis_rates = phase_lvlm_flux_clis(pipe, clip_model)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
+    lap("lvlm-flux-clis", clock)
     clip_video, video_rates = phase_clip_video(clip_model)
     del clip_model
     gc.collect()
     torch.cuda.empty_cache()
+    lap("clip-video", clock)
+    serve_waits = {}
     try:
         clip_train, clip_train_rates = phase_clip_train()
         gc.collect()
         torch.cuda.empty_cache()
+        lap("clip-train", clock)
         ddp_clip = phase_ddp_clip(clip_train_rates["storage"])
         gc.collect()
         torch.cuda.empty_cache()
-        shard = phase_shard(clip_train_rates["storage"])
+        lap("ddp clip", clock)
+        # the serve-shard ranks start when the shard phase's ranks have
+        # ended, beside its world-1 references (this process, the card)
+        shard = phase_shard(clip_train_rates["storage"], after_ranks=lambda:
+                            serve_waits.update(serve_shard_start()))
+        lap("shard", clock)
+    except BaseException:
+        for name, wait in serve_waits.items():
+            if name != "t0":
+                wait(kill=True)
+        raise
     finally:
         import shutil
 
         shutil.rmtree(CLIP_DIR, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    serve = phase_serve_shard(serve_waits)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve-shard", clock)
     cobsat, cobsat_rates = phase_cobsat()
     torch.cuda.empty_cache()
+    lap("cobsat", clock)
     lora, lora_rates = phase_lora()
+    lap("lora", clock)
     nat = cli1["native"]
     gloo, first = ddp["train"]["gloo"], ddp["stage1"]
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; "
@@ -6657,7 +7491,14 @@ def main() -> int:
         f"changed; cobsat {cobsat_rates['imgs_per_s']:.1f} imgs/s (CLI "
         f"{cobsat_rates['cli_imgs_per_s']:.1f}); lora "
         f"{lora_rates['step_ms']:.1f} ms a step, peak "
-        f"{lora_rates['peak_gib']:.2f} GiB")
+        f"{lora_rates['peak_gib']:.2f} GiB; serve-shard (ranks sharing one "
+        f"card over gloo) qwen7b m2 "
+        + ", ".join(f"{s} {x['ms_per_step']:.1f}" for s, x in
+                    serve["qwen7b_m2"][0]["runs"].items())
+        + " ms a decode step a rank, f2m2 "
+        + ", ".join(f"{s} {x['ms_per_step']:.1f}" for s, x in
+                    serve["qwen7b_f2m2"][0]["runs"].items())
+        + " ms")
     for kname in SHARD_ONLY_KERNELS:
         launches[kname] = shard["m2"][0]["launches"][kname]
     report = []
@@ -6693,6 +7534,7 @@ def main() -> int:
             "cobsat_launches": cobsat[kname], "lora_launches": lora[kname],
             "shard_launches": {k: [r["launches"][kname] for r in ranks]
                                for k, ranks in shard.items()},
+            "serve_shard_launches": serve_launches(serve, kname),
             "timed_shape": main_row["shape"],
             "shapes": [{k: v for k, v in r.items() if k != "main"}
                        for r in rows],

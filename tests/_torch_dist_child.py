@@ -206,10 +206,123 @@ def run_seeded_build(inp, rank):
             "held": held}
 
 
+def _result(res):
+    """A GenerationResult's tokens and hidden states as numpy (f32)."""
+    return {"tokens": res.output_token_ids,
+            "prompt_ids": res.prompt_token_ids,
+            "hidden": [h.float().numpy() for h in res.hidden_states],
+            "prompt_hidden": [h.float().numpy()
+                              for h in res.prompt_hidden_states]}
+
+
+def run_engine(inp, rank):
+    """The embedding engine on ``inp["mesh"]`` for each of ``inp["cases"]``
+    (a tiny Qwen2-VL config, its JAX-layout tree, engine keywords and one
+    call: generate or generate_many over the global requests): the whole
+    result every rank returns, and the bytes of the weights and of a KV
+    cache the rank holds."""
+    from PIL import Image
+
+    from thinkdiff_torch.engines import embed_engine as te
+    from thinkdiff_torch.engines.standin_tokenizer import StandInTokenizer
+    from thinkdiff_torch.models import qwen2_vl as tq
+    from thinkdiff_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(*inp["mesh"])
+    out = {}
+    for name, case in inp["cases"].items():
+        vis = case["cfg"].get("vision")
+        cfg = tq.Qwen2VLConfig.tiny(**{
+            **case["cfg"], "vision": tq.Qwen2VLVisionConfig(**vis)})
+        eng = te.EmbedEngine(
+            cfg, case["params"], StandInTokenizer(
+                inp["specials"], word_lo=1, word_hi=201),
+            device="cpu", mesh=mesh, **case["engine"])
+        samples = {"answers": case["prompts"]}
+        if case.get("images") is not None:
+            samples["images"] = [Image.fromarray(a) for a in case["images"]]
+        for attr, value in case.get("set", {}).items():
+            setattr(eng, attr, value)
+        res = getattr(eng, case["call"])(samples, **case["call_kw"])
+        out[name] = _result(res)
+        out[name]["held"] = sum(
+            t.numel() * t.element_size() for m in (eng.vision, eng.lm)
+            for t in [*m.parameters(), *m.buffers()])
+        out[name]["kv"] = tuple(eng._new_caches(1, 8)[0][0].shape)
+    return out
+
+
+def run_qwen_seeded(inp, rank):
+    """The embedding engine on ``inp["mesh"]`` built from ``init_draw``'s
+    seeded draw (each rank drawing every leaf, keeping its blocks) and from
+    the JAX-layout tree ``inp["tree"]`` (block by block): both towers
+    gathered back (``params_of``), and the bytes the rank holds."""
+    from thinkdiff_torch.engines import embed_engine as te
+    from thinkdiff_torch.models import qwen2_vl as tq
+    from thinkdiff_torch.models.bridge import params_of
+    from thinkdiff_torch.parallel.mesh import Mesh
+
+    cfg = tq.Qwen2VLConfig.tiny(**{
+        **inp["cfg"], "vision": tq.Qwen2VLVisionConfig(**inp["cfg"]["vision"])})
+    mesh = Mesh(*inp["mesh"])
+    draw = tq.init_draw(cfg, torch.Generator().manual_seed(inp["seed"]))
+    out = {}
+    for name, params in (("seeded", {"vision": draw, "lm": draw}),
+                         ("tree", inp["tree"])):
+        eng = te.EmbedEngine(cfg, params, device="cpu", mesh=mesh)
+        out[name] = {"vision": params_of(eng.vision), "lm": params_of(eng.lm),
+                     "held": sum(t.numel() * t.element_size()
+                                 for m in (eng.vision, eng.lm)
+                                 for t in [*m.parameters(), *m.buffers()])}
+    return out
+
+
+def _sampler_module(kind, case, device="cpu"):
+    from thinkdiff_torch.models.bridge import load_params
+
+    if kind == "flux":
+        from thinkdiff_torch.models.flux import FluxConfig, FluxTransformer
+
+        cfg = FluxConfig.tiny(**case["cfg"])
+        return cfg, load_params(FluxTransformer(cfg, device=device),
+                                case["params"])
+    from thinkdiff_torch.models.cogvideox import (
+        CogVideoXConfig, CogVideoXTransformer)
+
+    cfg = CogVideoXConfig.tiny(**case["cfg"])
+    return cfg, load_params(CogVideoXTransformer(cfg, device=device),
+                            case["params"])
+
+
+def run_sampler(inp, rank):
+    """FluxSampler or CogVideoXSampler on ``inp["mesh"]`` over the whole
+    model (cut by the sampler): ``denoise`` on the given latents, and each
+    leaf's block shape."""
+    from thinkdiff_torch.engines.flux_sampler import FluxSampler
+    from thinkdiff_torch.models.cogvideox import CogVideoXSampler
+    from thinkdiff_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(*inp["mesh"])
+    cfg, module = _sampler_module(inp["kind"], inp)
+    a = {k: torch.from_numpy(v) for k, v in inp["args"].items()}
+    if inp["kind"] == "flux":
+        sampler = FluxSampler(cfg, module, device="cpu", mesh=mesh)
+        lat = sampler.denoise(a["latents"], a["txt"], a["pooled"],
+                              a["img_ids"], a["txt_ids"], inp["sigmas"],
+                              inp["guidance"])
+    else:
+        sampler = CogVideoXSampler(cfg, module, device="cpu", mesh=mesh)
+        lat = sampler.denoise(a["latents"], a["text"], inp["steps"])
+    blocks = {k: tuple(t.shape) for k, t in
+              [*module.named_parameters(), *module.named_buffers()]}
+    return {"latents": lat.numpy(), "blocks": blocks}
+
+
 MODES = {"trainer": run_trainer, "eval": run_eval,
          "save_result": run_save_result, "precompute": run_precompute,
          "sharded_trainer": run_sharded_trainer, "qdense": run_qdense,
-         "seeded_build": run_seeded_build}
+         "seeded_build": run_seeded_build, "engine": run_engine,
+         "sampler": run_sampler, "qwen_seeded": run_qwen_seeded}
 
 
 def main():

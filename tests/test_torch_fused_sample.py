@@ -352,3 +352,68 @@ def test_argmax_key_noise_rows_match_torch_argmax():
     for r in range(16):
         keys = [tfs.argmax_key(float(v), c) for c, v in enumerate(per[r])]
         assert tfs.key_column(max(keys)) == int(torch.argmax(per[r]))
+
+
+def _shard_packs(q, scale, eos, shards):
+    """Each vocabulary shard's pack (its own padding, its EOS columns made
+    local) with its first global column."""
+    v = q.shape[1]
+    out = []
+    for s in range(shards):
+        lo, hi = s * v // shards, (s + 1) * v // shards
+        pack = tfs.pack_lm_head(
+            torch.from_numpy(q[:, lo:hi]), torch.from_numpy(scale[lo:hi]),
+            eos_ids=[e - lo for e in eos if lo <= e < hi])
+        out.append((lo, pack))
+    return out
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("noise", [False, True])
+def test_shard_keys_reduce_to_the_unsharded_ids(shards, noise):
+    """The plain version's vocabulary-shard mode: each shard's int64 argmax
+    keys (col0 = its first global column, its own -1e30 padding, its EOS
+    columns), reduced with MAX, give the unsharded call's ids, with and
+    without noise. Row 0's best value is tied across a shard boundary
+    (two identical columns): the lower global column must win."""
+    rs = np.random.RandomState(7)
+    b, d, v = 12, 64, 600
+    w = rs.randn(d, v).astype(np.float32) * 0.05
+    x = rs.randn(b, d).astype(np.float32)
+    edge = v // shards
+    w[:, edge - 1] = w[:, edge] = np.sign(x[0]) * 0.3
+    q, scale = _quantize(w)
+    eos = [3, edge + 5, v - 1]
+    blocked = (np.arange(b) % 3 == 0).astype(np.float32)
+    seed2 = torch.tensor([123, 456], dtype=torch.int32)
+    kw = dict(temperature=0.6, noise=noise)
+    full = tfs.pack_lm_head(torch.from_numpy(q), torch.from_numpy(scale),
+                            eos_ids=eos)
+    xt, bt = torch.from_numpy(x), torch.from_numpy(blocked)
+    want = tfs.fused_lm_sample(xt, full, bt, seed2, **kw)
+    if not noise:
+        assert int(want[0]) == edge - 1
+    keys = torch.stack([
+        tfs.fused_lm_sample(xt, pack, bt, seed2, col0=lo, keys=True, **kw)
+        for lo, pack in _shard_packs(q, scale, eos, shards)])
+    got = tfs.keys_to_ids(keys.amax(dim=0))
+    assert torch.equal(got, want)
+    # a blocked row's EOS columns (-1e30 in their shards) never win
+    assert not ((bt > 0) & torch.isin(got, torch.tensor(eos))).any()
+
+
+def test_shard_keys_order_as_the_kernel_keys():
+    """``argmax_keys`` is ``argmax_key`` with the top bit flipped, so int64
+    order is the unsigned keys' order (negative, zero and positive values;
+    -0.0 as +0.0)."""
+    vals = np.array([-3.5, -0.0, 0.0, 1e-30, 2.0, 2.0, -1e30], np.float32)
+    cols = np.array([9, 4, 7, 1, 5, 3, 0])
+    got = tfs.argmax_keys(torch.from_numpy(vals), torch.from_numpy(cols))
+    for i in range(len(vals)):
+        want = tfs.argmax_key(vals[i], int(cols[i])) ^ (1 << 63)
+        want = want - (1 << 64) if want >= (1 << 63) else want
+        assert int(got[i]) == want
+        assert int(tfs.keys_to_ids(got[i:i + 1])[0]) == cols[i]
+    order = sorted(range(len(vals)),
+                   key=lambda i: tfs.argmax_key(vals[i], int(cols[i])))
+    assert order == sorted(range(len(vals)), key=lambda i: int(got[i]))

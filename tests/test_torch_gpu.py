@@ -1519,3 +1519,51 @@ def test_s8_int32_mode_every_split_gives_the_same_sums(cuda, monkeypatch,
     torch.cuda.synchronize()
     for out in outs:
         assert torch.equal(out, ref)
+
+
+# the vocabulary shards of the served lm_heads: 7B (D 3584, V 152064, untied)
+# at model 2 and 4, 2B (D 1536, V 151936, tied) at model 2
+SHARD_SAMPLE_CASES = {"7b_m2": (16, 3584, 152064, 2),
+                      "7b_m4": (16, 3584, 152064, 4),
+                      "2b_tied_m2": (64, 1536, 151936, 2)}
+
+
+@pytest.mark.parametrize("case", sorted(SHARD_SAMPLE_CASES))
+def test_fused_sample_shard_keys(cuda, case):
+    """The kernel's vocabulary-shard mode at the served shard shapes: each
+    shard's keys equal its plain version's, and their MAX over the shards
+    is the unsharded kernel's ids on the same seed, with and without
+    noise; col0 = 0 with ids out is the unsharded call."""
+    from thinkdiff_torch.ops.fused_sample import (
+        fused_lm_sample, fused_lm_sample_reference, gumbel_noise,
+        keys_to_ids, pack_lm_head)
+
+    b, d, v, shards = SHARD_SAMPLE_CASES[case]
+    w = _randn((d, v), 80, cuda, torch.float32) * 0.05
+    qw = quantize_weight(w)
+    del w
+    eos = [3, v // shards + 7, v - 1]
+    x = _randn((b, d), 81, cuda)
+    blocked = (torch.arange(b, device=cuda) % 3 == 0).float()
+    seed = torch.tensor([77, 11], dtype=torch.int32, device=cuda)
+    full = pack_lm_head(qw["q"], qw["scale"], eos_ids=eos)
+    for noise in (False, True):
+        want = fused_lm_sample(x, full, blocked, seed, temperature=0.6,
+                               noise=noise)
+        keys = []
+        for s in range(shards):
+            lo, hi = s * v // shards, (s + 1) * v // shards
+            pack = pack_lm_head(qw["q"][:, lo:hi], qw["scale"][lo:hi],
+                                eos_ids=[e - lo for e in eos if lo <= e < hi])
+            got = fused_lm_sample(x, pack, blocked, seed, temperature=0.6,
+                                  noise=noise, col0=lo, keys=True)
+            g = (gumbel_noise(seed, b, pack["qt"].shape[0], lo) if noise
+                 else None)
+            plain = fused_lm_sample_reference(x, pack, blocked,
+                                              temperature=0.6, noise=g,
+                                              col0=lo, keys=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), (case, noise, s)
+            keys.append(got)
+        assert torch.equal(keys_to_ids(torch.stack(keys).amax(0)), want), (
+            case, noise)

@@ -313,3 +313,228 @@ def test_sharded_qdense_is_the_whole_layer(tmp_path, shape):
                         np.testing.assert_allclose(
                             got, want, rtol=0,
                             atol=1e-6 * np.abs(want).max(), err_msg=name)
+
+
+# -- the serving models: Qwen2-VL, FLUX with its VAE, CogVideoX ---------------
+
+# JAX's tiny configs of tests/test_engine_sharding.py
+QWEN_TINY = dict(hidden_size=128, intermediate_size=256, num_heads=4,
+                 num_kv_heads=2, mrope_section=(4, 6, 6), vocab_size=512)
+QWEN_TINY_VISION = dict(depth=2, embed_dim=32, hidden_size=128, num_heads=4,
+                        patch_size=4, spatial_merge_size=2,
+                        temporal_patch_size=2)
+QWEN_VARIANTS = {  # (quant, fused, tied)
+    "f32": (False, False, False), "f32_fused": (False, True, False),
+    "int8": (True, True, False), "w8a8": ("w8a8", True, False),
+    "w8a8_unfused": ("w8a8", False, False), "f32_tied": (False, False, True),
+    "w8a8_tied": ("w8a8", True, True)}
+
+
+def qwen_towers(variant, size="tiny"):
+    """{"vision", "lm"} of a Qwen2-VL variant on ``meta``: the tiny config
+    of JAX's engine test, or the shipped 2B / 7B shapes."""
+    from thinkdiff_torch.models import qwen2_vl as tq
+
+    quant, fused, tied = QWEN_VARIANTS[variant]
+    if size == "tiny":
+        cfg = tq.Qwen2VLConfig.tiny(
+            **QWEN_TINY, quant_int8=quant, fused_proj=fused,
+            tie_word_embeddings=tied, vision=tq.Qwen2VLVisionConfig(
+                **QWEN_TINY_VISION, quant_int8=quant))
+    else:
+        make = {"2b": tq.Qwen2VLConfig.qwen2_vl_2b,
+                "7b": tq.Qwen2VLConfig.qwen2_vl_7b}[size]
+        cfg = make(quant_int8=quant, fused_proj=fused, vision_quant=quant)
+    return {"vision": tq.Qwen2VisionTower(cfg.vision, device="meta"),
+            "lm": tq.Qwen2VLModel(cfg, device="meta")}
+
+
+def flux_towers(size="tiny"):
+    from thinkdiff_torch.models import flux as tf
+    from thinkdiff_torch.models import flux_vae as tv
+
+    if size == "tiny":
+        cfg = tf.FluxConfig.tiny(hidden_size=128, num_heads=4,
+                                 axes_dims_rope=(8, 12, 12))
+        vcfg = tv.VAEConfig.tiny()
+    else:
+        cfg, vcfg = tf.FluxConfig.flux_dev(), tv.VAEConfig.flux()
+    return {"transformer": tf.FluxTransformer(cfg, device="meta"),
+            "vae": tv.VAEDecoder(vcfg, device="meta")}
+
+
+def cog_towers(size="tiny"):
+    from thinkdiff_torch.models import cogvideox as tc
+
+    cfg = (tc.CogVideoXConfig.tiny(hidden_size=128, num_heads=4)
+           if size == "tiny" else tc.CogVideoXConfig.cogvideox_5b())
+    return {"transformer": tc.CogVideoXTransformer(cfg, device="meta")}
+
+
+def _towers_placed(towers, shape):
+    """The towers' placements, each leaf's spec held against JAX's rules on
+    shape structs of the same names (``_check_tree``)."""
+    from thinkdiff_torch.models.bridge import unflatten
+
+    mesh = tmesh.Mesh(*shape)
+    structs, pls = {}, {}
+    for name, module in towers.items():
+        structs.update(_meta_struct(module, name))
+        pls.update(_port_specs(module, mesh, name))
+    _check_tree(unflatten(structs), pls, shape)
+    return pls, structs
+
+
+SERVING = ([("qwen", v, "tiny") for v in QWEN_VARIANTS]
+           + [("qwen", v, s) for s in ("2b", "7b")
+              for v in ("f32", "w8a8", "int8")]
+           + [("flux", None, s) for s in ("tiny", "dev")]
+           + [("cog", None, s) for s in ("tiny", "5b")])
+
+
+def _serving_towers(model, variant, size):
+    if model == "qwen":
+        return qwen_towers(variant, size)
+    return (flux_towers if model == "flux" else cog_towers)(size)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=str)
+@pytest.mark.parametrize("model,variant,size", SERVING,
+                         ids=["-".join(str(x) for x in c if x)
+                              for c in SERVING])
+def test_serving_placement_is_jax_s(shape, model, variant, size):
+    """Every leaf of the serving models (Qwen2-VL's vision tower and LM in
+    float, weight-only int8 and w8a8, fused and unfused, tied and untied;
+    FLUX with its VAE; CogVideoX), at JAX's tiny shapes and on ``meta`` at
+    the shipped 2B / 7B / FLUX.1-dev / CogVideoX-5b shapes: its spec is
+    JAX's ``spec_for_param`` + ``_valid_spec``, and its block is the shape
+    of JAX's shard."""
+    _towers_placed(_serving_towers(model, variant, size), shape)
+
+
+def _blocks_round_trip(full, pl, mesh):
+    """Every rank's block of ``full``; their fsdp and model blocks joined
+    and un-arranged again (what ``tree_of`` gathers) must be ``full``."""
+    blocks = {r: tsh.local_block(full, pl, mesh, mesh.coords(r))
+              for r in range(mesh.size)}
+    fd, md = pl.dim_of("fsdp"), pl.dim_of("model")
+    for d in range(mesh.data):
+        def at(f, m):
+            return blocks[(d * mesh.fsdp + f) * mesh.model + m]
+        rows = []
+        for f in range(mesh.fsdp):
+            parts = [at(f, m) for m in range(mesh.model)]
+            rows.append(torch.cat(parts, md) if md is not None else parts[0])
+        x = torch.cat(rows, fd) if fd is not None else rows[0]
+        if pl.parts_dim is not None:
+            x = tsh.unarrange_parts(x, pl.parts_dim, pl.widths, mesh.model)
+        assert torch.equal(x, full)
+    return blocks
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 2), (1, 2, 2), (2, 1, 2)], ids=str)
+@pytest.mark.parametrize("variant", ["f32", "w8a8", "f32_tied"])
+def test_qwen2_vl_blocks_are_jax_shards(shape, variant):
+    """The tiny Qwen2-VL's leaves on a mesh: each rank's block has the
+    shape and bytes of JAX's addressable shard on the device at its
+    coordinate, equals it where the leaf keeps JAX's contiguous block, and
+    the blocks gather back (``tree_of``'s way) into the whole leaf."""
+    pls, structs = _towers_placed(qwen_towers(variant), shape)
+    jm, mesh = _jax_mesh(shape), tmesh.Mesh(*shape)
+    devices = list(jm.devices.flat)
+    rs = np.random.RandomState(0)
+    for path, st in structs.items():
+        full = (rs.randint(-127, 128, st.shape).astype(np.int8)
+                if st.dtype == np.int8 else
+                rs.randn(*st.shape).astype(np.float32))
+        spec = jsh._valid_spec(jsh.spec_for_param(
+            [jax.tree_util.DictKey(k) for k in path.split("/")], full),
+            full.shape, jm)
+        placed = jax.device_put(full, jax.sharding.NamedSharding(jm, spec))
+        by_dev = {s.device: np.asarray(s.data)
+                  for s in placed.addressable_shards}
+        blocks = _blocks_round_trip(torch.from_numpy(full), pls[path], mesh)
+        for rank, dev in enumerate(devices):
+            assert tuple(blocks[rank].shape) == by_dev[dev].shape, path
+            if pls[path].parts_dim is None:
+                np.testing.assert_array_equal(blocks[rank].numpy(),
+                                              by_dev[dev], err_msg=path)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("quant", [False, "w8a8"])
+def test_qwen2_7b_fused_qkv_gives_whole_heads(m, quant):
+    """Qwen2-VL-7B's fused GQA ``qkv`` (q | k | v = 3584 | 512 | 512
+    columns) at ``model`` m: rank r holds exactly query heads [r H/m,
+    (r+1) H/m) and kv heads [r Hkv/m, (r+1) Hkv/m) of 128 columns each,
+    in q | k | v order (kernel and scale alike; the bias is replicated,
+    and the layer takes the same columns of it); ``gate_up``
+    (18944 | 18944) whole gate/up pairs: gate columns [r I/m, (r+1) I/m)
+    then the same up columns."""
+    towers = qwen_towers("w8a8" if quant else "f32_fused", "7b")
+    mesh = tmesh.Mesh(1, 1, m)
+    pls = {f"lm/{k.replace('.', '/')}": pl for k, pl in
+           tsh.placements(towers["lm"], mesh).items()}
+    hd, h, hkv, i = 128, 28, 4, 18944
+    attn = "lm/decoder/layer_0/self_attn/qkv"
+    kernel = "kernel_q" if quant else "kernel"
+    assert pls[f"{attn}/bias"].spec == ()
+    for leaf in (kernel,) + (("kernel_scale",) if quant else ()):
+        pl = pls[f"{attn}/{leaf}"]
+        assert pl.widths == (h * hd, hkv * hd, hkv * hd), leaf
+        ids = torch.arange(pl.shape[-1]).expand(*pl.shape[:-1], -1)
+        for r in range(m):
+            got = tsh.local_block(ids, pl, mesh, mesh.coords(r))
+            q = torch.arange(r * h // m * hd, (r + 1) * h // m * hd)
+            k = h * hd + torch.arange(r * hkv // m * hd,
+                                      (r + 1) * hkv // m * hd)
+            want = torch.cat([q, k, k + hkv * hd])
+            assert torch.equal(got.reshape(-1, got.shape[-1])[0], want), (
+                leaf, r)
+    pl = pls[f"lm/decoder/layer_0/gate_up/{kernel}"]
+    assert pl.widths == (i, i)
+    ids = torch.arange(2 * i)[None].expand(pl.shape[0], -1)
+    for r in range(m):
+        got = tsh.local_block(ids, pl, mesh, mesh.coords(r))[0]
+        gate = torch.arange(r * i // m, (r + 1) * i // m)
+        assert torch.equal(got, torch.cat([gate, gate + i])), r
+    down = pls[f"lm/decoder/layer_0/down_proj/{kernel}"]
+    assert down.spec == ("model", None)
+
+
+def _rank_fraction(pls, names=None):
+    mesh_pls = {k: v for k, v in pls.items()
+                if names is None or names(k, v)}
+    mesh = tmesh.Mesh(1, 2, 2)
+    whole = sum(int(np.prod(p.shape)) for p in mesh_pls.values())
+    local = sum(int(np.prod(p.local_shape(mesh))) for p in mesh_pls.values())
+    return local / whole
+
+
+@pytest.mark.parametrize("variant", ["f32", "w8a8"])
+def test_qwen2_vl_params_not_silently_replicated(variant):
+    """JAX's guard on the port: on (1, 2, 2), every LM leaf of 64 KiB or
+    more with two dimensions is split, and a rank holds < 0.40 of the LM's
+    elements (the same for the w8a8 twin)."""
+    towers = qwen_towers(variant)
+    pls = {k: pl for k, pl in tsh.placements(
+        towers["lm"], tmesh.Mesh(1, 2, 2)).items()}
+    for name, pl in pls.items():
+        t = dict([*towers["lm"].named_parameters(),
+                  *towers["lm"].named_buffers()])[name]
+        if t.numel() * 4 >= 64 * 1024 and t.dim() >= 2:
+            assert any(pl.spec), name
+    frac = _rank_fraction(pls)
+    assert frac < 0.40, frac
+
+
+def test_flux_params_not_silently_replicated():
+    """JAX's FLUX guard on the port: on (1, 2, 2) every matrix leaf of the
+    tiny FLUX transformer is split, and a rank holds < 0.55 of their
+    elements."""
+    towers = flux_towers()
+    pls = tsh.placements(towers["transformer"], tmesh.Mesh(1, 2, 2))
+    mats = {k for k, pl in pls.items() if len(pl.shape) >= 2}
+    for name in mats:
+        assert any(pls[name].spec), name
+    assert _rank_fraction(pls, lambda k, _: k in mats) < 0.55

@@ -63,6 +63,12 @@
 //    s8_quant.cuh).
 // The noise is a counter-based hash of (seed, row, global column), so the
 // draw depends on neither the tiling nor the padding.
+// Vocabulary-shard mode (a tensor-parallel lm_head, one shard a rank):
+// col0, the global column of the pack's first column, enters the hash and
+// the argmax key, and with keys_out the last CTA writes each row's key
+// (top bit flipped: int64 order is the keys' order) where it would write
+// the id; the MAX of the shards' keys over the model group is exactly the
+// unsharded launch's id. col0 = 0 with ids out is the unsharded launch.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -100,6 +106,7 @@ struct SampleParams {
   unsigned long long* keys; // (B,) 0 at launch, left at 0
   long long* ids;           // (B,) out
   int B, row0;              // rows; the first row's index in the noise key
+  int col0, keys_out;       // the shard's first global column; keys, not ids
   int blocks;               // Vp / 64
   int tiles;                // batch tiles of N: 1, or 2 (B > 128)
   int steps;                // D slices of FS_BK
@@ -150,7 +157,7 @@ __device__ __forceinline__ void sample_epilogue(
     const int (&acc)[N / 2], float (&bv)[N / 4], int (&bc)[N / 4], int c0,
     const float (&sc)[2], const float (&pb)[2], const float (&eb)[2],
     const float* sxs, const float* blks, int bofs, int cl, int row0,
-    float inv_temp, uint32_t s0, uint32_t s1) {
+    int col0, float inv_temp, uint32_t s0, uint32_t s1) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const int b = bofs + 8 * j + cl;  // batch column of values e = 0, 1
@@ -165,7 +172,8 @@ __device__ __forceinline__ void sample_epilogue(
                                       e ? sxb.y : sxb.x), sc[r]);
         v = __fadd_rn(__fadd_rn(__fmul_rn(v, inv_temp), pb[r]),
                       __fmul_rn(e ? blb.y : blb.x, eb[r]));
-        if constexpr (NOISE) v = __fadd_rn(v, gumbel(s0, s1, row0 + b + e, c));
+        if constexpr (NOISE)
+          v = __fadd_rn(v, gumbel(s0, s1, row0 + b + e, col0 + c));
         if (v > bv[2 * j + e]) {
           bv[2 * j + e] = v;
           bc[2 * j + e] = c;
@@ -312,10 +320,10 @@ fused_sample_kernel(const __grid_constant__ CUtensorMap tm_w,
       mbar_arrive(&e[(t - 1) % S]);
       if (p.noise)
         sample_epilogue<N, true>(acc, bv, bc, c0, sc, pb, eb, sxs, blks, bofs,
-                                 cl, p.row0, p.inv_temp, s0, s1);
+                                 cl, p.row0, p.col0, p.inv_temp, s0, s1);
       else
         sample_epilogue<N, false>(acc, bv, bc, c0, sc, pb, eb, sxs, blks, bofs,
-                                  cl, p.row0, p.inv_temp, s0, s1);
+                                  cl, p.row0, p.col0, p.inv_temp, s0, s1);
     }
 
     // the CTA's best key a batch column: lanes of one lane % 4 share their
@@ -324,7 +332,8 @@ fused_sample_kernel(const __grid_constant__ CUtensorMap tm_w,
     for (int i = 0; i < N / 4; ++i) {
       const int b = bofs + 8 * (i / 2) + cl + (i % 2);
       unsigned long long key =
-          bc[i] != 0x7fffffff && b < p.B ? argmax_key(bv[i], bc[i]) : 0ull;
+          bc[i] != 0x7fffffff && b < p.B ? argmax_key(bv[i], p.col0 + bc[i])
+                                         : 0ull;
 #pragma unroll
       for (int o = 4; o < 32; o <<= 1) {
         const unsigned long long other = shfl_xor_u64(key, o);
@@ -337,11 +346,14 @@ fused_sample_kernel(const __grid_constant__ CUtensorMap tm_w,
       if (keys_s[i] != 0ull) atomicMax(&p.keys[i], keys_s[i]);
   }
 
-  // the last CTA turns the keys into ids and leaves them at 0
+  // the last CTA turns the keys into ids (or writes the keys) and leaves
+  // them at 0
   if (quant_exit(q, &flags[3])) {
     for (int i = threadIdx.x; i < p.B; i += FS_THREADS) {
       const unsigned long long key = atomicExch(&p.keys[i], 0ull);
-      p.ids[i] = (long long)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull));
+      p.ids[i] = p.keys_out
+          ? (long long)(key ^ 0x8000000000000000ull)
+          : (long long)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull));
     }
   }
 }
@@ -363,10 +375,13 @@ int sample_launch(const CUtensorMap& tw, const CUtensorMap& tx,
 // x (B, D) bf16 (x_f32 = 0) or f32, unquantized; inv_input (D,) f32; wt
 // (Vp, D) int8 row-major (the K-contiguous storage of the (D, Vp) lm_head);
 // scale, pad_bias, eos_bias (Vp,) f32; blocked (B,) f32; seed (2,) int32 on
-// the device; ids (B,) int64 out. The workspace, kept per device and stream
+// the device; ids (B,) int64 out: token ids (global columns: col0 + the
+// pack's column), or with keys_out the rows' argmax keys with the top bit
+// flipped. The workspace, kept per device and stream
 // (ops/fused_sample.py): xq (B, D) int8, sx (B,) f32, cnt 3 int32 counters
 // and keys (B,) uint64, all at 0 (and left so). 1 <= B <= 256, D % 16 == 0,
-// Vp % 128 == 0, Vp <= 2^20, row0 + B <= 4096 (the noise key's row). The
+// Vp % 128 == 0, col0 + Vp <= 2^20, row0 + B <= 4096 (the noise key's
+// row and column). The
 // plan (n in {8, 16, 32, 64, 128}, tiles in {1, 2}, stages a ring, ctas)
 // is sample_plan's. Launches one kernel on `stream`; returns a
 // CUDA error code (or 1000 + a refused tensor map's CUresult).
@@ -374,11 +389,13 @@ extern "C" int thinkdiff_fused_sample(
     const void* x, const void* inv_input, const void* wt, const void* scale,
     const void* pad_bias, const void* eos_bias, const void* blocked,
     const void* seed, void* xq, void* sx, void* cnt, void* keys, void* ids,
-    int B, int D, int Vp, int row0, float inv_temp, int noise, int x_f32,
+    int B, int D, int Vp, int row0, int col0, int keys_out, float inv_temp,
+    int noise, int x_f32,
     int n, int tiles, int stages, int ctas, void* stream) {
   const int blocks = Vp / FS_ROWS;
   if (B <= 0 || B > 256 || D <= 0 || D % 16 != 0 || Vp <= 0 || Vp % 128 != 0 ||
-      Vp > (1 << 20) || row0 < 0 || row0 + B > 4096 || stages < 2 ||
+      col0 < 0 || col0 + Vp > (1 << 20) || row0 < 0 || row0 + B > 4096 ||
+      stages < 2 ||
       stages > FS_MAX_STAGES || ctas < 1 ||
       ctas > blocks || tiles < 1 || tiles > 2 ||
       B > tiles * n || (tiles == 2 && n != 128) ||
@@ -394,6 +411,8 @@ extern "C" int thinkdiff_fused_sample(
   p.ids = static_cast<long long*>(ids);
   p.B = B;
   p.row0 = row0;
+  p.col0 = col0;
+  p.keys_out = keys_out;
   p.blocks = blocks;
   p.tiles = tiles;
   p.steps = (D + FS_BK - 1) / FS_BK;

@@ -19,6 +19,24 @@ finished takes the next one at a chunk boundary), and the paged scheduler
 (the KV pool in pages with the paged decode kernel, prefill-ahead waves,
 pipelined EOS accounting). The entry points run on the CUDA card unless the
 caller passes ``device="cpu"``; without a card they raise.
+
+On a mesh (``mesh=``, the counterpart of JAX's argument: one process a
+device, over ``torch.distributed``, parallel/mesh.py's layout) every rank
+gets the same call with the global requests, and data coordinate d serves
+its block of them (requests [d n / D, (d + 1) n / D)); the ``fsdp`` and
+``model`` peers of a coordinate serve the same requests in lockstep, each
+holding its share of the weights (JAX's rules, parallel/sharding.py) and of
+the KV caches and pages (its Hkv/M kv heads). A peer's scheduler decides
+from the tokens alone, and every sampled token is one value on every peer:
+greedy ids are the global argmax over the ranks' vocabulary columns
+(``vocab_split_argmax``); the exact sampler gathers the logits over
+``model`` in the model dtype and samples the whole vector with the same
+generator on every peer; the Gumbel sampler runs the fused kernel on the
+rank's vocabulary shard and reduces the rows' argmax keys with one MAX
+over the group. The ``GenerationResult`` is gathered over ``data`` as host
+objects, so every rank returns the whole result in request order, as
+JAX's single program does. A data coordinate's streams are those of the
+unsharded engine on its block with the same seed.
 """
 
 from __future__ import annotations
@@ -33,14 +51,16 @@ import torch
 
 from thinkdiff_torch import registry, resolve_device
 from thinkdiff_torch.core.config import model_default_config_path
-from thinkdiff_torch.models.bridge import load_params
+from thinkdiff_torch.models.bridge import fill_, load_params, tree_draw
 from thinkdiff_torch.models.qwen2_vl import (
     Qwen2VLConfig, Qwen2VLModel, Qwen2VisionTower, get_mrope_position_ids,
     vision_cos_sin, vision_rot_pos_emb,
 )
+from thinkdiff_torch.ops.chunked_ce import vocab_split_argmax
 from thinkdiff_torch.ops.fused_sample import (
-    fused_lm_sample, pack_lm_head, pack_tied_embedding)
+    fused_lm_sample, keys_to_ids, pack_lm_head, pack_tied_embedding)
 from thinkdiff_torch.ops.paged_attention import commit_pages
+from thinkdiff_torch.parallel import collectives as col
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -264,11 +284,19 @@ class EmbedEngine:
                  preadmit_wave: int = 0,
                  eos_lag: int = 0,
                  sampler: str = "exact",
+                 mesh=None,
                  device="cuda"):
         """``params``: the JAX-layout tree {"vision": ..., "lm": ...} (numpy
         or torch leaves; fp, quantized and fused layouts as ``cfg`` says),
         loaded into the port's modules on ``device``: the CUDA card unless
-        the caller asks for the CPU.
+        the caller asks for the CPU. Either entry may instead be a draw of
+        ``parallel.sharding.build_sharded`` (e.g. ``qwen2_vl.init_draw``'s
+        seeded one), which fills the module one submodule at a time.
+
+        ``mesh`` (parallel/mesh.py, its size the world's): made the run's
+        mesh (``set_mesh``, which refuses another size), the vision tower
+        and the LM built block by block with this rank's blocks only, and
+        the requests split over ``data`` (the module docstring).
 
         Serving knobs, as in the JAX engine: ``prefill_chunk`` (a power of
         two >= 64) prefills prompts in fixed chunks against the cache;
@@ -310,20 +338,45 @@ class EmbedEngine:
         self.lazy_tokens = True
         self.stop_len_fn: Optional[Callable[[int, int], bool]] = None
         self.stop_fn: Optional[Callable[[int, List[int]], bool]] = None
-        self.vision = load_params(
-            Qwen2VisionTower(cfg.vision, self.device), params["vision"]).eval()
-        self.lm = load_params(Qwen2VLModel(cfg, self.device), params["lm"]).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            from thinkdiff_torch.parallel.mesh import set_mesh
+
+            set_mesh(mesh)
+        self.vision = self._build(Qwen2VisionTower, cfg.vision,
+                                  params["vision"])
+        self.lm = self._build(Qwen2VLModel, cfg, params["lm"])
         self._img_bank = None
         self._lm_pack = None
         self._lm_pack_key = None
+        self._lm_pack_col0 = None
         self._eos_cache = None
         # seconds per phase of the last generate(), device work included
         self.last_phase_times: Dict[str, float] = {}
         # wall-time breakdown of the last generate_many() (JAX's key names)
         self.last_phase_stats: Dict[str, float] = {}
+        # bytes of the KV caches or pages the last generate_many() held
+        self.last_kv_bytes = 0
         self.num_system_tokens = self._count_system_tokens()
 
     # -- construction -------------------------------------------------------
+    def _build(self, cls, cfg, params):
+        """``cls(cfg)`` with ``params`` (a tree or a draw): on a sharded
+        mesh built on ``meta`` and materialized block by block, this rank
+        keeping its blocks (no rank holds the whole tower), else whole."""
+        draw = params if callable(params) else None
+        if self.mesh is not None and self.mesh.sharded:
+            from thinkdiff_torch.core.distributed import get_rank
+            from thinkdiff_torch.parallel.sharding import build_sharded
+
+            return build_sharded(
+                cls(cfg, device="meta"), self.mesh,
+                self.mesh.coords(get_rank()), self.device,
+                draw or tree_draw(params)).eval()
+        if draw is not None:
+            return fill_(cls(cfg, self.device), draw).eval()
+        return load_params(cls(cfg, self.device), params).eval()
+
     @classmethod
     def from_config(cls, model_cfg: Dict[str, Any], device="cuda") -> "EmbedEngine":
         """Build from a model config section (the precompute YAML's
@@ -417,14 +470,36 @@ class EmbedEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _eos_mask(self) -> torch.Tensor:
-        """(V,) bool: the EOS token columns, made once per EOS set."""
+    def _eos_mask(self, local: bool = False) -> torch.Tensor:
+        """(V,) bool: the EOS token columns, made once per EOS set; with
+        ``local`` the rank's vocabulary columns of it."""
         key = tuple(self.eos_ids)
         if self._eos_cache is None or self._eos_cache[0] != key:
             eos = np.zeros(self.cfg.vocab_size, bool)
             eos[list(key)] = True
             self._eos_cache = (key, self._tensor(eos, torch.bool))
-        return self._eos_cache[1]
+        mask = self._eos_cache[1]
+        if local:
+            n = mask.shape[0] // col.model_size()
+            mask = mask.narrow(0, col.model_index() * n, n)
+        return mask
+
+    def _split_greedy(self) -> bool:
+        """Greedy sampling over the ranks' vocabulary columns: the logits
+        stay local and the argmax is the group's."""
+        return self.temperature == 0.0 and self.lm.vocab_split()
+
+    def _logits(self, hidden) -> torch.Tensor:
+        """The logits the samplers read: the rank's vocabulary columns for
+        split greedy sampling, else every column (gathered over ``model``
+        in the model dtype on a vocabulary-split mesh)."""
+        return self.lm.logits(hidden, local=self._split_greedy())
+
+    def _pick(self, generator, logits) -> torch.Tensor:
+        if self._split_greedy():
+            return vocab_split_argmax(logits)
+        return sample_logits(generator, logits, self.temperature, self.top_p,
+                             self.top_k_prefilter)
 
     def _seed2(self, generator: torch.Generator) -> torch.Tensor:
         """A (2,) int32 device seed for the fused sampler's noise, drawn
@@ -434,7 +509,8 @@ class EmbedEngine:
 
     def _new_caches(self, rows: int, size: int) -> List[Tuple[torch.Tensor,
                                                                torch.Tensor]]:
-        shape = (rows, self.cfg.num_kv_heads, size, self.cfg.head_dim)
+        """Dense (k, v) caches of every layer for the rank's kv heads."""
+        shape = (rows, self.lm.local_kv_heads(), size, self.cfg.head_dim)
         return [(torch.zeros(shape, dtype=self.cfg.dtype, device=self.device),
                  torch.zeros(shape, dtype=self.cfg.dtype, device=self.device))
                 for _ in range(self.cfg.num_layers)]
@@ -547,7 +623,10 @@ class EmbedEngine:
         (resize, vision tower, prompts, M-RoPE), without touching serving
         state, so it can run in a worker thread while another batch
         decodes. Pass the result to ``generate_many(..., preprepared=...)``;
-        greedy streams are those of the synchronous path."""
+        greedy streams are those of the synchronous path. On a mesh it
+        prepares the rank's data block, and runs the sharded vision tower's
+        collectives: it must not overlap a decode on the same groups."""
+        samples = self._data_block(samples)
         images_per_sample = samples.get("images", [])
         if raw is None:
             raw = bool(samples.get("raw_prompts"))
@@ -580,29 +659,54 @@ class EmbedEngine:
     # -- samplers -----------------------------------------------------------
     def _sample_first(self, logits, generator):
         if (not self.ignore_eos) and self.min_tokens > 1 and self.eos_ids:
-            logits = logits.float().masked_fill(self._eos_mask()[None],
-                                                float("-inf"))
-        return sample_logits(generator, logits, self.temperature, self.top_p,
-                             self.top_k_prefilter)
+            logits = logits.float().masked_fill(
+                self._eos_mask(self._split_greedy())[None], float("-inf"))
+        return self._pick(generator, logits)
 
     def _fused_sampler_pack(self):
         """The fused sampler's lm_head pack, or None when the exact sampler
         serves (sampler 'exact', or a language model that is not w8a8).
-        Built once per EOS set: the pack bakes the EOS columns in."""
+        Built once per EOS set: the pack bakes the EOS columns in. On a
+        vocabulary-split mesh it is the pack of the rank's columns (its
+        ``fsdp`` block gathered, its EOS columns made local), whose first
+        global column ``_lm_pack_col0`` holds."""
         if self.sampler != "gumbel" or self.cfg.quant_int8 != "w8a8":
             return None
         eos = tuple(self.eos_ids) if not self.ignore_eos else ()
         if self._lm_pack is not None and self._lm_pack_key == eos:
             return self._lm_pack
+        split = self.lm.vocab_split()
         head = getattr(self.lm, "lm_head", None)
         with torch.inference_mode():
             if head is not None:
-                pack = pack_lm_head(head.kernel_q, head.kernel_scale,
-                                    input_scale=head.input_scale, eos_ids=eos)
+                head = head.fsdp_gathered()
+                vocab = head.kernel_q.shape[1]
             else:
-                pack = pack_tied_embedding(self.lm.embed_tokens.embedding, eos)
+                table = self.lm.embed_tokens._table()[0]
+                vocab = table.shape[0]
+            col0 = col.model_index() * vocab if split else None
+            lo = col0 or 0
+            local_eos = [e - lo for e in eos if lo <= e < lo + vocab]
+            if head is not None:
+                pack = pack_lm_head(head.kernel_q, head.kernel_scale,
+                                    input_scale=head.input_scale,
+                                    eos_ids=local_eos)
+            else:
+                pack = pack_tied_embedding(table, local_eos)
         self._lm_pack, self._lm_pack_key = pack, eos
+        self._lm_pack_col0 = col0
         return pack
+
+    def _fused_sample(self, h, pack, blocked, generator) -> torch.Tensor:
+        """The fused sampler's tokens: on a vocabulary shard, the rows'
+        argmax keys reduced with one MAX over the model group."""
+        seed2 = self._seed2(generator)
+        kw = dict(temperature=self.temperature, noise=self.temperature > 0)
+        if self._lm_pack_col0 is None:
+            return fused_lm_sample(h, pack, blocked, seed2, **kw)
+        keys = fused_lm_sample(h, pack, blocked, seed2,
+                               col0=self._lm_pack_col0, keys=True, **kw)
+        return keys_to_ids(col.model_all_reduce(keys, "max"))
 
     def _first_tokens(self, last_hidden, generator):
         """First tokens from the last prompt hidden states (the chunked
@@ -615,12 +719,10 @@ class EmbedEngine:
             block = float((not self.ignore_eos) and self.min_tokens > 1)
             blocked = torch.full((b,), block, dtype=torch.float32,
                                  device=self.device)
-            return fused_lm_sample(
-                last_hidden.to(self.cfg.dtype), pack, blocked,
-                self._seed2(generator), temperature=self.temperature,
-                noise=self.temperature > 0)
+            return self._fused_sample(last_hidden.to(self.cfg.dtype), pack,
+                                      blocked, generator)
         return self._sample_first(
-            self.lm.logits(last_hidden.to(self.cfg.dtype)), generator)
+            self._logits(last_hidden.to(self.cfg.dtype)), generator)
 
     # -- prefill ------------------------------------------------------------
     def _prefill(self, prepared, max_tokens, generator, cache_size=None):
@@ -650,7 +752,7 @@ class EmbedEngine:
             compute_logits=False)
         last_hidden = hidden[torch.arange(m, device=self.device),
                              self._tensor(last_idx)]
-        first = self._sample_first(self.lm.logits(last_hidden), generator)
+        first = self._sample_first(self._logits(last_hidden), generator)
         start_pos = np.asarray(
             [prompt_lens[i] + prepared[i]["delta"] for i in range(m)])
         return (first, hidden.to(torch.bfloat16), caches, prompt_lens,
@@ -734,16 +836,14 @@ class EmbedEngine:
             blk = (torch.zeros(h.shape[0], dtype=torch.float32,
                                device=self.device) if blocked is None
                    else blocked.float())
-            nxt = fused_lm_sample(h, pack, blk, self._seed2(generator),
-                                  temperature=self.temperature,
-                                  noise=self.temperature > 0)
+            nxt = self._fused_sample(h, pack, blk, generator)
         else:
-            logits = self.lm.logits(h)
+            logits = self._logits(h)
             if blocked is not None:
-                logits = torch.where(blocked[:, None] & self._eos_mask()[None],
+                eos = self._eos_mask(self._split_greedy())
+                logits = torch.where(blocked[:, None] & eos[None],
                                      float("-inf"), logits.float())
-            nxt = sample_logits(generator, logits, self.temperature,
-                                self.top_p, self.top_k_prefilter)
+            nxt = self._pick(generator, logits)
         return nxt, h.to(torch.bfloat16)
 
     def _chunk_decode(self, caches, tokens, cache_len, pos, gen_count, steps,
@@ -781,12 +881,51 @@ class EmbedEngine:
         return self.tokenizer.decode([t for t in toks if t not in self.eos_ids],
                                      skip_special_tokens=True)
 
+    # -- the data axis ------------------------------------------------------
+    def _data_split(self) -> bool:
+        return self.mesh is not None and self.mesh.data > 1
+
+    def _data_block(self, samples: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's data coordinate's block of the requests (every
+        request without a data axis)."""
+        if not self._data_split():
+            return samples
+        from thinkdiff_torch.parallel.mesh import DATA_AXIS, axis_index
+
+        texts = (samples.get("raw_prompts") or samples.get("answers")
+                 or samples.get("prompts"))
+        n, d = len(texts), self.mesh.data
+        if n < d:
+            raise ValueError(f"{n} requests over {d} data coordinates: each "
+                             f"serves a block of at least one")
+        lo = axis_index(DATA_AXIS) * n // d
+        hi = (axis_index(DATA_AXIS) + 1) * n // d
+        return {k: (v[lo:hi] if isinstance(v, (list, tuple)) and len(v) == n
+                    else v) for k, v in samples.items()}
+
+    def _over_data(self, fn, samples, **kw) -> GenerationResult:
+        """``fn`` on this rank's block of ``samples``, the blocks' results
+        gathered over ``data`` and joined in request order."""
+        if not self._data_split():
+            return fn(samples, **kw)
+        parts = col.data_gather_objects(fn(self._data_block(samples), **kw))
+        return GenerationResult(*[
+            [x for part in parts for x in getattr(part, f.name)]
+            for f in dataclasses.fields(GenerationResult)])
+
     def generate(self, samples: Dict[str, Any],
                  max_new_tokens: Optional[int] = None,
                  seed: int = 0) -> GenerationResult:
         """samples: {"images": [PIL or [PIL, ...]], "answers": [str]} — or
         "prompts" / "raw_prompts". Static batch: one prefill, a decode loop
-        to max_tokens, outputs cut after the first EOS."""
+        to max_tokens, outputs cut after the first EOS. On a mesh the whole
+        result on every rank (the module docstring)."""
+        return self._over_data(self._generate, samples,
+                               max_new_tokens=max_new_tokens, seed=seed)
+
+    def _generate(self, samples: Dict[str, Any],
+                  max_new_tokens: Optional[int] = None,
+                  seed: int = 0) -> GenerationResult:
         images_per_sample = samples.get("images", [])
         raw = bool(samples.get("raw_prompts"))
         texts = (samples.get("raw_prompts") or samples.get("answers")
@@ -848,13 +987,28 @@ class EmbedEngine:
                 rows.append(int(table_np[si, k]) if k < npg else 0)
         return np.asarray(rows, np.int64)
 
-    @torch.inference_mode()
     def generate_many(self, samples: Dict[str, Any],
                       max_new_tokens: Optional[int] = None, seed: int = 0,
                       slots: Optional[int] = None, chunk: int = 32,
                       paged: Optional[bool] = None, refill_batch: int = 0,
                       preprepared: Optional[Dict[str, Any]] = None
                       ) -> GenerationResult:
+        """The continuous-batching scheduler (``_generate_many``); on a
+        mesh the whole result on every rank (the module docstring), each
+        data coordinate scheduling its block (``preprepared`` is then
+        ``prepare_requests``' of the same samples: the rank's block)."""
+        return self._over_data(
+            self._generate_many, samples, max_new_tokens=max_new_tokens,
+            seed=seed, slots=slots, chunk=chunk, paged=paged,
+            refill_batch=refill_batch, preprepared=preprepared)
+
+    @torch.inference_mode()
+    def _generate_many(self, samples: Dict[str, Any],
+                       max_new_tokens: Optional[int] = None, seed: int = 0,
+                       slots: Optional[int] = None, chunk: int = 32,
+                       paged: Optional[bool] = None, refill_batch: int = 0,
+                       preprepared: Optional[Dict[str, Any]] = None
+                       ) -> GenerationResult:
         """Continuous batching over any number of requests (the scheduler
         role vLLM plays for the reference): ``slots`` decode lanes; a slot
         whose request finished takes the next queued one at a ``chunk``-step
@@ -876,8 +1030,8 @@ class EmbedEngine:
             paged = slots > 32
         slots = min(slots, n)
         if not paged and (n <= slots or max_tokens <= chunk or self.ignore_eos):
-            return self.generate(samples, max_new_tokens=max_new_tokens,
-                                 seed=seed)
+            return self._generate(samples, max_new_tokens=max_new_tokens,
+                                  seed=seed)
         # length-determined serving (no EOS scan, no value-reading stop
         # hook): tokens stay lazy device->host copies until the end, and
         # preadmitted first tokens are gathered on the device
@@ -920,7 +1074,7 @@ class EmbedEngine:
             if not (page <= 64 and 64 % page == 0):
                 raise ValueError("kv_page_size must divide the 64-token "
                                  "minimum prompt bucket")
-            hd, hkv = self.cfg.head_dim, self.cfg.num_kv_heads
+            hd, hkv = self.cfg.head_dim, self.lm.local_kv_heads()
             # pages a request can ever hold: its own prompt + max_tokens,
             # + chunk * (1 + lag) for the garbage a finished slot writes
             # until its finish is accounted
@@ -1245,6 +1399,9 @@ class EmbedEngine:
         # this includes the host's own step time), decode_sync (waiting for
         # token copies), account (host bookkeeping), refill_prefill (refill
         # and prefill-ahead groups), decode_loop_total, final_resolve
+        # the rank's KV pages (paged) or dense caches, k and v
+        self.last_kv_bytes = sum(t.numel() * t.element_size()
+                                 for pair in (pools or caches) for t in pair)
         self.last_phase_stats = {
             "n_requests": n, "slots": slots, "chunks": n_chunks,
             "prepare_total": round(t_prepare, 3),

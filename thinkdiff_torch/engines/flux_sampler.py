@@ -17,9 +17,20 @@ the steps (``denoise``).
 
 The sampler is built on its device (``device="cuda"`` by default; it raises
 without a card, and runs the kernels' plain versions on the CPU only when
-asked with ``device="cpu"``). JAX's ``mesh`` argument is dropped: JAX
-shards the 12B model only because it does not fit one 16 GB TPU v5e; on
-an 80 GB card it fits whole.
+asked with ``device="cpu"``).
+
+``mesh`` (JAX's argument; one process a device over ``torch.distributed``,
+parallel/mesh.py): the transformer and the VAE hold this rank's blocks of
+JAX's placements, cut from whole modules (``shard_params``) or built block
+by block (``build_sharded``), and the batch splits over the (data, fsdp)
+readers (``collectives.reader_rows``); the fixed step count keeps the
+peers in lockstep, and the latents and images come back whole on every
+rank. JAX's rules leave FLUX's projections (``img_q``, ``txt_k``, ``q``,
+``mlp``, the modulations) at ``(fsdp, None)``: over ``model`` only the
+single blocks' ``proj_out`` and the final ``proj_out`` split (their
+rows), so the axis that cuts FLUX's memory is ``fsdp``, as in JAX. At
+``fsdp`` alone every product runs on the gathered whole weight: a rank's
+rows are bit for bit the unsharded sampler's on those rows.
 """
 
 from __future__ import annotations
@@ -36,6 +47,8 @@ from thinkdiff_torch.models.bridge import load_params
 from thinkdiff_torch.models.flux import (
     FluxConfig, FluxTransformer, make_img_ids, unpack_latents)
 from thinkdiff_torch.models.flux_vae import VAEConfig, VAEDecoder
+from thinkdiff_torch.parallel import collectives as col
+from thinkdiff_torch.parallel.sharding import place_on_mesh
 
 
 def calculate_shift(image_seq_len: int, base_seq_len: int = 256,
@@ -61,13 +74,18 @@ def flux_sigmas(num_steps: int, image_seq_len: int,
 class FluxSampler:
     def __init__(self, cfg: FluxConfig, transformer: FluxTransformer,
                  vae_cfg: Optional[VAEConfig] = None,
-                 vae: Optional[VAEDecoder] = None, device="cuda"):
+                 vae: Optional[VAEDecoder] = None, device="cuda",
+                 mesh=None):
         """``transformer`` / ``vae``: the modules holding their weights, on
         ``device`` (JAX passes the parameter trees; ``bridge.load_params``
-        loads such a tree into a module)."""
+        loads such a tree into a module). ``mesh``: the module docstring."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.vae_cfg = vae_cfg
+        self.mesh = mesh
+        if mesh is not None:
+            transformer = place_on_mesh(transformer, mesh)
+            vae = place_on_mesh(vae, mesh)
         self.transformer = transformer
         self.vae = vae
 
@@ -108,11 +126,12 @@ class FluxSampler:
         """len(sigmas) - 1 Euler steps from ``latents`` (B, S_img, C), f32
         on the sampler's device: the counterpart of JAX's jitted
         ``denoise(params, latents, txt, pooled, img_ids, txt_ids, sigmas)``.
-        Returns the final latents (f32)."""
+        Returns the final latents (f32); on a mesh each reader runs its
+        rows and every rank gets the whole batch."""
         dev, dtype = self.device, self.cfg.dtype
-        x = torch.as_tensor(latents, device=dev).float()
-        txt = torch.as_tensor(txt, device=dev)
-        pooled = torch.as_tensor(pooled, device=dev)
+        x = col.reader_rows(torch.as_tensor(latents, device=dev).float())
+        txt = col.reader_rows(torch.as_tensor(txt, device=dev))
+        pooled = col.reader_rows(torch.as_tensor(pooled, device=dev))
         img_ids = torch.as_tensor(img_ids, device=dev)
         txt_ids = torch.as_tensor(txt_ids, device=dev)
         sig = np.asarray(sigmas, np.float32)
@@ -125,15 +144,16 @@ class FluxSampler:
                                  txt_ids, g)
             # sigma_{i+1} - sigma_i in f32, as JAX takes it
             x = x + float(sig[i + 1] - sig[i]) * v.float()
-        return x
+        return col.gather_reader_rows(x)
 
     @torch.no_grad()
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """(B, h, w, C) spatial latents -> (B, 8h, 8w, 3) images in [0, 1],
-        in the VAE's dtype."""
-        z = latents / self.vae_cfg.scaling_factor + self.vae_cfg.shift_factor
+        in the VAE's dtype (on a mesh: each reader's rows, gathered)."""
+        z = col.reader_rows(latents) / self.vae_cfg.scaling_factor \
+            + self.vae_cfg.shift_factor
         img = self.vae(z)
-        return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
+        return col.gather_reader_rows(torch.clamp(img * 0.5 + 0.5, 0.0, 1.0))
 
     # -- public API ---------------------------------------------------------
     def noise(self, batch: int, seq_len: int, seed: int) -> torch.Tensor:

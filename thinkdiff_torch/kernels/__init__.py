@@ -41,7 +41,7 @@ _SIGNATURES = {
     "thinkdiff_flash_bwd_dq": [_P] * 11 + [_LP, _LP, _F, _P],
     "thinkdiff_flash_bwd_dkv": [_P] * 12 + [_LP, _LP, _F, _P],
     "thinkdiff_paged_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
-    "thinkdiff_fused_sample": [_P] * 13 + [_I] * 4 + [_F] + [_I] * 6 + [_P],
+    "thinkdiff_fused_sample": [_P] * 13 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
     "thinkdiff_int8_gemv": [_P] * 6 + [_I] * 9 + [_P],
     "thinkdiff_int8_wide_fwd": [_P] * 4 + [_I] * 6 + [_P],
     "thinkdiff_int8_wide_bwd": [_P] * 4 + [_I] * 6 + [_P],

@@ -28,7 +28,7 @@ from thinkdiff_torch.core.config import model_default_config_path
 from thinkdiff_torch.core.optim import tree_map
 from thinkdiff_torch.models.bridge import (
     fill_, load_params, local_hf_dir, local_hf_state_dict, to_numpy,
-    to_tensor, unflatten)
+    to_tensor, tree_draw, unflatten)
 from thinkdiff_torch.models.convert import convert_t5
 from thinkdiff_torch.models.projector import (
     build_vision_projector, convert_projector_torch, export_projector_torch)
@@ -84,19 +84,6 @@ def init_frozen_t5_(t5: T5ForConditionalGeneration,
     one layer at a time, so the full-precision tower never exists
     whole."""
     fill_(t5, t5_init_draw(generator))
-
-
-def tree_draw(tree: Dict[str, Any]):
-    """A ``build_sharded`` draw that reads a JAX-layout tree."""
-    from thinkdiff_torch.models.bridge import flatten
-
-    flat = {k.replace("/", "."): v for k, v in flatten(tree).items()}
-
-    def draw(name, _, own):
-        pre = f"{name}." if name else ""
-        return {k: to_tensor(flat[pre + k]) for k in own}
-
-    return draw
 
 
 def build_frozen(make, draw, device):

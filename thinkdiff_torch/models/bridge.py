@@ -126,6 +126,18 @@ def fill_(module: nn.Module, draw) -> nn.Module:
     return module
 
 
+def tree_draw(tree: Dict[str, Any]):
+    """A ``fill_`` / ``parallel.sharding.build_sharded`` draw that reads a
+    JAX-layout tree: the full leaves of one submodule at a time."""
+    flat = {k.replace("/", "."): v for k, v in flatten(tree).items()}
+
+    def draw(name, _, own):
+        pre = f"{name}." if name else ""
+        return {k: to_tensor(flat[pre + k]) for k in own}
+
+    return draw
+
+
 def tree_of(module: nn.Module,
             leaf_fn: Callable[[str, torch.Tensor], Any]) -> Dict[str, Any]:
     """The module's parameters and buffers as a JAX-layout tree, each leaf

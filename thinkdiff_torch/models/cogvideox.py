@@ -44,6 +44,7 @@ from thinkdiff_torch.models.flux import (
 from thinkdiff_torch.models.qdense import QDense
 from thinkdiff_torch.models.qwen2_vl import LayerNorm
 from thinkdiff_torch.ops.flash_attention import flash_attention
+from thinkdiff_torch.parallel import collectives as col
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +137,8 @@ class CogVideoXBlock(nn.Module):
             self.add_module(f"norm{i}_mod", _dense(cfg, te, 6 * d, device))
         for p in ("to_q", "to_k", "to_v", "to_out"):
             self.add_module(p, _dense(cfg, d, d, device))
+        for p in ("to_q", "to_k", "to_v"):
+            getattr(self, p).tp_unit = hd  # a column share keeps whole heads
         self.norm_q = LayerNorm(hd, 1e-6, cfg.dtype, device)
         self.norm_k = LayerNorm(hd, 1e-6, cfg.dtype, device)
         self.ff1 = _dense(cfg, d, int(d * cfg.mlp_ratio), device)
@@ -151,12 +154,18 @@ class CogVideoXBlock(nn.Module):
                            modulate(ln(vid), vs, vc)], dim=1), vg, tg)
 
     def forward(self, txt, vid, temb, cos, sin):
+        """On a sharded mesh: the rank's heads where ``to_q/k/v`` split
+        into whole heads (``norm_q`` / ``norm_k`` act on the head dim, so
+        they stay local), ``to_out`` and ``ff2`` taking their rows."""
         cfg = self.cfg
-        h, hd = cfg.num_heads, cfg.head_dim
+        local = col.model_size() > 1 and all(
+            getattr(self, p).tp_local for p in ("to_q", "to_k", "to_v"))
+        h = cfg.num_heads // (col.model_size() if local else 1)
+        hd = cfg.head_dim
         st = txt.shape[1]
         x, vg1, tg1 = self._modulated(1, txt, vid, temb)
         b, s, _ = x.shape
-        q, k, v = (getattr(self, p)(x).reshape(b, s, h, hd)
+        q, k, v = (getattr(self, p)(x, keep_local=True).reshape(b, s, h, hd)
                    for p in ("to_q", "to_k", "to_v"))
         # qk-norm over the head dim BEFORE rope; rope on the video rows only
         # (the text rows are position-free)
@@ -169,7 +178,9 @@ class CogVideoXBlock(nn.Module):
         vid = vid + vg1[:, None] * attn[:, st:]
 
         y, vg2, tg2 = self._modulated(2, txt, vid, temb)
-        y = self.ff2(F.gelu(self.ff1(y), approximate="tanh"))
+        mlp_local = self.ff1.tp_local and self.ff2.tp_role == "row"
+        y = self.ff2(F.gelu(self.ff1(y, keep_local=mlp_local),
+                            approximate="tanh"))
         txt = txt + tg2[:, None] * y[:, :st]
         vid = vid + vg2[:, None] * y[:, st:]
         return txt, vid
@@ -244,19 +255,30 @@ class CogVideoXSampler:
 
     The trajectory is carried in f32; the guided velocity is formed in f32
     from the model's two outputs (their difference in the model dtype, as
-    JAX promotes it), and the DDIM coefficients are f32 scalars. JAX's
-    ``mesh`` argument is dropped: the 5.3 B model fits one 80 GB card
-    whole. The sampler runs on its device (``device="cuda"`` by default,
-    raising without a card; ``device="cpu"`` runs the kernels' plain
-    versions)."""
+    JAX promotes it), and the DDIM coefficients are f32 scalars. The
+    sampler runs on its device (``device="cuda"`` by default, raising
+    without a card; ``device="cpu"`` runs the kernels' plain versions).
+
+    ``mesh`` (JAX's argument; one process a device over
+    ``torch.distributed``, parallel/mesh.py): the transformer holds this
+    rank's blocks of JAX's placements (cut from a whole module, or built
+    block by block), the blocks run on their local heads (``to_q/k/v`` and
+    ``ff1`` column-parallel, ``to_out`` and ``ff2`` row-parallel, summed
+    over ``model``), the batch splits over the (data, fsdp) readers and
+    the latents come back whole on every rank."""
 
     def __init__(self, cfg: CogVideoXConfig, transformer: CogVideoXTransformer,
-                 num_train_steps: int = 1000, device="cuda"):
+                 num_train_steps: int = 1000, device="cuda", mesh=None):
         """``transformer``: the module holding its weights, on ``device``
         (JAX passes the parameter tree; ``bridge.load_params`` loads such a
-        tree into a module)."""
+        tree into a module). ``mesh``: the class docstring."""
+        from thinkdiff_torch.parallel.sharding import place_on_mesh
+
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            transformer = place_on_mesh(transformer, mesh)
         self.transformer = transformer
         self.alphas_bar = np.cumprod(1.0 - cosine_betas(num_train_steps))
         self.num_train_steps = num_train_steps
@@ -287,8 +309,8 @@ class CogVideoXSampler:
         ``text_embeds`` (B, S, text_dim): JAX's ``sample`` loop after its
         noise draw. Returns the final latents (f32)."""
         dev = self.device
-        lat = torch.as_tensor(latents, device=dev).float()
-        cond = torch.as_tensor(text_embeds, device=dev)
+        lat = col.reader_rows(torch.as_tensor(latents, device=dev).float())
+        cond = col.reader_rows(torch.as_tensor(text_embeds, device=dev))
         null = torch.zeros_like(cond)
         b = lat.shape[0]
         one = np.float32(1.0)
@@ -304,7 +326,7 @@ class CogVideoXSampler:
             eps = sa * v + s1a * lat
             lat = (float(np.sqrt(a_prev)) * x0
                    + float(np.sqrt(one - a_prev)) * eps)
-        return lat
+        return col.gather_reader_rows(lat)
 
     def noise(self, batch: int, frames: int, height: int, width: int,
               seed: int) -> torch.Tensor:

@@ -14,6 +14,12 @@ convolutions take without a copy, and each conv kernel is kept as the JAX
 (kh, kw, in, out) parameter over (out, kh, kw, in) memory, so that its
 (out, in, kh, kw) view is channels_last too. Group norms compute in f32
 and cast back, as flax's ``GroupNorm`` does at dtype bf16.
+
+On a mesh (JAX's rules, parallel/sharding.py) the conv kernels, whose
+first dimension is kh (1 or 3), stay whole on every rank (a kernel the
+rules do split is gathered where it runs); the mid block's attention
+projections take their ``fsdp`` blocks (and ``to_out`` its ``model``
+rows), gathered or summed by the QDense.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from torch import nn
 
 from thinkdiff_torch.models.qdense import QDense
 from thinkdiff_torch.models.qwen2_vl import _param
+from thinkdiff_torch.parallel import collectives as col
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +73,10 @@ class Conv(nn.Module):
         self.pad = k // 2
 
     def forward(self, x):
-        return F.conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias,
+        # a kernel the rules split over fsdp (kh divisible by it) is
+        # gathered; otherwise it is the channels-last view as stored
+        kernel = col.leaf_gathered(self, "kernel")
+        return F.conv2d(x, kernel.permute(3, 2, 0, 1), self.bias,
                         padding=self.pad)
 
 

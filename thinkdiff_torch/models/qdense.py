@@ -72,8 +72,10 @@ def _int8_kernel_storage(in_dim: int, features: int, device) -> torch.Tensor:
 
 class QDense(nn.Module):
     # the width of the columns a column-parallel share must keep whole (an
-    # attention projection's head size; set by the model)
+    # attention projection's head size; set by the model), and a fused
+    # layer's part widths where they are not equal (set by the model)
     tp_unit = 1
+    tp_widths = None
     # no placement: the unsharded layer
     tp_role = None
     tp_local = False
@@ -128,10 +130,12 @@ class QDense(nn.Module):
                         "row" if spec[0] == MODEL_AXIS else None)
         self.fsdp_dim = (spec.index(FSDP_AXIS) if FSDP_AXIS in spec[:2]
                          else None)
-        self.tp_parts = kpl.parts if kpl.parts_dim is not None else 1
+        # a fused leaf's share is self-contained only where it is arranged
+        # by part (whole heads of every part)
+        self.tp_parts = kpl.widths
         self.tp_local = self.tp_role == "col" and (
-            self.tp_parts > 1 or self.features % (mesh.model * self.tp_unit)
-            == 0)
+            bool(self.tp_parts) or not kpl.fused and self.features % (
+                mesh.model * self.tp_unit) == 0)
         self.sync_train_layout()
 
     def _leaf(self, name: str) -> torch.Tensor:
@@ -182,7 +186,7 @@ class QDense(nn.Module):
         g.placement = {
             k: Placement(pl.shape, tuple(None if a == FSDP_AXIS else a
                                          for a in pl.spec),
-                         pl.parts_dim, pl.parts)
+                         pl.parts_dim, pl.widths, pl.fused)
             for k, pl in self.placement.items()}
         g.fsdp_dim = None
         if self.train_layout:
@@ -218,14 +222,14 @@ class QDense(nn.Module):
             if role == "col" and cols is not None:
                 b = b.narrow(0, *cols)
             elif role == "col":
-                if self.tp_parts > 1:
+                if self.tp_parts:
                     b = arrange_parts(b, 0, self.tp_parts, m)
                 b = b.narrow(0, col.model_index() * y.shape[-1], y.shape[-1])
             y = y + b
         if role == "col" and cols is None and not (keep_local
                                                    and self.tp_local):
             y = col.gather_from_model(y, -1)
-            if self.tp_parts > 1:
+            if self.tp_parts:
                 y = unarrange_parts(y, y.dim() - 1, self.tp_parts, m)
         return y
 

@@ -10,6 +10,21 @@ Attention: the vision tower and the one-shot prefill run the flash kernel
 (ops/flash_attention); decode steps and prefill chunks attend over a dense
 KV cache (ops/decode_attention), and paged decode steps over the page pool
 (ops/paged_attention kernel); both caches are updated in place.
+
+On a sharded mesh (parallel/sharding.py, JAX's rules) the layers hold their
+rank's blocks. Where the q/k/v projections split over ``model`` in whole
+heads (the fused ``qkv`` arranged by part: q | k | v of widths H hd,
+Hkv hd, Hkv hd), an attention runs the rank's H/M query and Hkv/M kv
+heads, so its KV cache holds those kv heads only; the decoder's
+``o_proj`` takes the local heads as its rows (a SUM over the group), the
+vision block gathers its heads before ``proj``, which the rules leave
+whole. The MLPs keep their column shares (``gate_up`` in whole gate/up
+pairs, ``fc1``) for the row-parallel ``down_proj`` / ``fc2``. The
+vocabulary-split embedding gives zeros for ids outside the rank's rows,
+summed over the group in f32 (exact: one term is nonzero), the looked-up
+rows' ``fsdp`` blocks gathered first; ``logits(..., local=True)`` leaves the
+rank's vocabulary columns (the tied ``attend`` and the column-parallel
+``lm_head`` alike) for the samplers.
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ from thinkdiff_torch.ops.flash_attention import flash_attention
 from thinkdiff_torch.ops.norms import layernorm, rmsnorm
 from thinkdiff_torch.ops.paged_attention import paged_attention, paged_update_kv
 from thinkdiff_torch.ops.rope import apply_rope, mrope_cos_sin
+from thinkdiff_torch.parallel import collectives as col
 
 NEG_INF = -1e30
 
@@ -242,6 +258,7 @@ class VisionBlock(nn.Module):
         qd = lambda i, o: QDense(i, o, cfg.dtype, cfg.quant_int8, True, device)
         self.norm1 = LayerNorm(d, 1e-6, cfg.dtype, device)
         self.qkv = qd(d, 3 * d)
+        self.qkv.tp_unit = cfg.head_dim  # a column share keeps whole heads
         self.proj = qd(d, d)
         self.norm2 = LayerNorm(d, 1e-6, cfg.dtype, device)
         self.fc1 = qd(d, int(d * cfg.mlp_ratio))
@@ -249,11 +266,15 @@ class VisionBlock(nn.Module):
 
     def forward(self, x, cos, sin, attn_bias=None):
         """x: (B, S, d); cos/sin: (S, hd/2) shared across the batch;
-        attn_bias optional (S, S)."""
+        attn_bias optional (S, S). On a sharded mesh: the rank's heads
+        where ``qkv`` splits into whole heads, gathered before ``proj``."""
         cfg = self.cfg
         b, seq, d = x.shape
-        h, hd = cfg.num_heads, cfg.head_dim
-        qkv = self.qkv(self.norm1(x)).reshape(b, seq, 3, h, hd)
+        local = self.qkv.tp_local and col.model_size() > 1
+        h = cfg.num_heads // (col.model_size() if local else 1)
+        hd = cfg.head_dim
+        qkv = self.qkv(self.norm1(x), keep_local=True).reshape(
+            b, seq, 3, h, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, S, H, hd)
         # rope before the head transpose, on (B, S, H, hd)
         q, k = apply_rope(q, k, cos[:, None], sin[:, None])
@@ -261,9 +282,12 @@ class VisionBlock(nn.Module):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_bias[None, None] if attn_bias is not None else None,
             None, False, hd ** -0.5)
-        out = out.transpose(1, 2).reshape(b, seq, d)
+        out = out.transpose(1, 2).reshape(b, seq, h * hd)
+        if local:
+            out = col.gather_from_model(out, -1)
         x = x + self.proj(out)
-        y = self.fc1(self.norm2(x))
+        mlp_local = self.fc1.tp_local and self.fc2.tp_role == "row"
+        y = self.fc1(self.norm2(x), keep_local=mlp_local)
         y = y * torch.sigmoid(1.702 * y)  # quick_gelu
         return x + self.fc2(y)
 
@@ -319,11 +343,28 @@ class Qwen2Attention(nn.Module):
         self.q_sz, self.kv_sz = cfg.num_heads * hd, cfg.num_kv_heads * hd
         if cfg.fused_proj:
             self.qkv = qd(D, self.q_sz + 2 * self.kv_sz, True)
+            self.qkv.tp_widths = (self.q_sz, self.kv_sz, self.kv_sz)
         else:
             self.q_proj = qd(D, self.q_sz, True)
             self.k_proj = qd(D, self.kv_sz, True)
             self.v_proj = qd(D, self.kv_sz, True)
+        for m in self._projections():
+            m.tp_unit = hd  # a column share keeps whole heads
         self.o_proj = qd(self.q_sz, D, False)
+
+    def _projections(self):
+        return ((self.qkv,) if self.cfg.fused_proj
+                else (self.q_proj, self.k_proj, self.v_proj))
+
+    def local_heads(self) -> Tuple[int, int]:
+        """(query heads, kv heads) this rank runs: H/M and Hkv/M where the
+        projections split over ``model`` in whole heads, else all."""
+        cfg = self.cfg
+        if col.model_size() > 1 and all(m.tp_local
+                                        for m in self._projections()):
+            m = col.model_size()
+            return cfg.num_heads // m, cfg.num_kv_heads // m
+        return cfg.num_heads, cfg.num_kv_heads
 
     def forward(self, x, cos, sin, mask=None, cache: Optional[Cache] = None,
                 cache_len=None, attn_window: Optional[int] = None,
@@ -343,14 +384,15 @@ class Qwen2Attention(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
+        nh, nkv = self.local_heads()
         if cfg.fused_proj:
-            q, k, v = self.qkv(x).split(
-                [self.q_sz, self.kv_sz, self.kv_sz], dim=-1)
+            q, k, v = self.qkv(x, keep_local=True).split(
+                [nh * hd, nkv * hd, nkv * hd], dim=-1)
         else:
-            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        q = q.reshape(b, t, cfg.num_heads, hd).transpose(1, 2)
-        k = k.reshape(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
-        v = v.reshape(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
+            q, k, v = (m(x, keep_local=True) for m in self._projections())
+        q = q.reshape(b, t, nh, hd).transpose(1, 2)
+        k = k.reshape(b, t, nkv, hd).transpose(1, 2)
+        v = v.reshape(b, t, nkv, hd).transpose(1, 2)
         q, k = apply_rope(q, k, cos[:, None], sin[:, None])
 
         if page_table is not None:
@@ -374,7 +416,8 @@ class Qwen2Attention(nn.Module):
                 k_cache = k_cache[:, :, :attn_window]
                 v_cache = v_cache[:, :, :attn_window]
             out = decode_attention(q, k_cache, v_cache, cache_len + t)
-        out = out.transpose(1, 2).reshape(b, t, cfg.num_heads * hd)
+        # local heads are o_proj's rows of this rank (a SUM over the group)
+        out = out.transpose(1, 2).reshape(b, t, nh * hd)
         return self.o_proj(out), cache
 
 
@@ -389,6 +432,7 @@ class Qwen2Block(nn.Module):
         self.post_attn_norm = RMSNorm(D, cfg.rms_norm_eps, cfg.dtype, device)
         if cfg.fused_proj:
             self.gate_up = qd(D, 2 * I)
+            self.gate_up.tp_widths = (I, I)
         else:
             self.gate_proj = qd(D, I)
             self.up_proj = qd(D, I)
@@ -400,10 +444,15 @@ class Qwen2Block(nn.Module):
                                   cache_len, attn_window, page_table)
         x = x + h
         y = self.post_attn_norm(x)
+        # on a mesh: the rank's whole gate/up pairs, down_proj's rows
         if self.cfg.fused_proj:
-            gate, up = self.gate_up(y).chunk(2, dim=-1)
+            local = self.gate_up.tp_local and self.down_proj.tp_role == "row"
+            gate, up = self.gate_up(y, keep_local=local).chunk(2, dim=-1)
         else:
-            gate, up = self.gate_proj(y), self.up_proj(y)
+            local = (self.gate_proj.tp_local and self.up_proj.tp_local
+                     and self.down_proj.tp_role == "row")
+            gate = self.gate_proj(y, keep_local=local)
+            up = self.up_proj(y, keep_local=local)
         return x + self.down_proj(F.silu(gate) * up), cache
 
 
@@ -441,11 +490,50 @@ class Embed(nn.Module):
         super().__init__()
         self.embedding = _param((num, dim), dtype, device)
 
-    def forward(self, ids):
-        return F.embedding(ids, self.embedding)
+    def _table(self):
+        """(the table with its ``fsdp`` block gathered, whether its rows
+        are this rank's vocabulary shard)."""
+        pl = getattr(self, "placement", {}).get("embedding")
+        if pl is None:
+            return self.embedding, False
+        table = col.fsdp_gather(self.embedding, pl.dim_of(col.FSDP_AXIS))
+        return table, pl.dim_of(col.MODEL_AXIS) is not None
 
-    def attend(self, x):
-        return torch.matmul(x.to(self.embedding.dtype), self.embedding.t())
+    def vocab_local(self) -> bool:
+        pl = getattr(self, "placement", {}).get("embedding")
+        return pl is not None and pl.dim_of(col.MODEL_AXIS) is not None
+
+    def forward(self, ids):
+        """The rows of ``ids``. On a mesh: looked up in the rank's block
+        (zeros for ids outside its vocabulary rows), the ``fsdp`` blocks of
+        the looked-up rows gathered (not the table's: the fsdp peers serve
+        the same requests, so they look up the same ids), then summed over
+        the model group in f32 (exact: one term is nonzero)."""
+        pl = getattr(self, "placement", {}).get("embedding")
+        if pl is None:
+            return F.embedding(ids, self.embedding)
+        table = self.embedding
+        split = pl.dim_of(col.MODEL_AXIS) is not None
+        local = ids.long()
+        if split:
+            rows = table.shape[0]
+            local = local - col.model_index() * rows
+            own = (local >= 0) & (local < rows)
+            local = local.clamp(0, rows - 1)
+        out = col.fsdp_gather(F.embedding(local, table).contiguous(),
+                              None if pl.dim_of(col.FSDP_AXIS) is None
+                              else -1)
+        if not split:
+            return out
+        out = out.float() * own[..., None]
+        return col.model_all_reduce(out).to(table.dtype)
+
+    def attend(self, x, local: bool = False):
+        """x @ table^T: the rank's vocabulary columns with ``local`` on a
+        vocabulary-split table, else every column."""
+        table, split = self._table()
+        y = torch.matmul(x.to(table.dtype), table.t())
+        return y if (local or not split) else col.gather_from_model(y, -1)
 
 
 class Qwen2VLModel(nn.Module):
@@ -464,10 +552,25 @@ class Qwen2VLModel(nn.Module):
     def embed(self, input_ids):
         return self.embed_tokens(input_ids)
 
-    def logits(self, hidden):
+    def vocab_split(self) -> bool:
+        """Whether ``logits(..., local=True)`` gives this rank's vocabulary
+        shard (columns [m V/M, (m+1) V/M)) rather than every column."""
+        if col.model_size() == 1:
+            return False
         if self.cfg.tie_word_embeddings:
-            return self.embed_tokens.attend(hidden)
-        return self.lm_head(hidden)
+            return self.embed_tokens.vocab_local()
+        return self.lm_head.tp_local
+
+    def local_kv_heads(self) -> int:
+        """The kv heads a layer's cache holds on this rank."""
+        return self.decoder.layers[0].self_attn.local_heads()[1]
+
+    def logits(self, hidden, local: bool = False):
+        """(..., V) logits; with ``local`` on a vocabulary-split mesh
+        (``vocab_split``) the rank's (..., V/M) columns."""
+        if self.cfg.tie_word_embeddings:
+            return self.embed_tokens.attend(hidden, local)
+        return self.lm_head(hidden, keep_local=local)
 
     def forward(self, input_ids=None, input_embeds=None, position_ids=None,
                 mask=None, caches=None, cache_len=None, image_embeds=None,
@@ -610,3 +713,45 @@ def init_params(cfg: Qwen2VLConfig, generator: torch.Generator, device=None,
         return torch.full(meta.shape, fill, dtype=meta.dtype, device=device)
 
     return {k: tree_of(m, make) for k, m in shapes.items()}
+
+
+def init_draw(cfg: Qwen2VLConfig, generator: torch.Generator,
+              std: float = 0.02):
+    """``init_params``' seeded draw one submodule at a time, in the layout
+    ``cfg`` builds (quantized as ``quantize_tree`` quantizes, fused as
+    ``fuse_qwen2_params`` fuses): a ``parallel.sharding.build_sharded``
+    draw for the vision tower, then one for the LM, called in that order
+    on one generator. The leaves are bit for bit those of ``init_params``
+    then ``quantize_tree`` and ``fuse_qwen2_params``: a fused layer draws
+    its parts' kernels one after the other, in the unfused layer order,
+    and per-column quantization of their concatenation is that of each."""
+    from thinkdiff_torch.ops.quant import _quantized_node
+
+    dev = generator.device
+
+    def kernel(shape, dtype):
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+        out.normal_(0.0, std, generator=generator)
+        return out.to(dtype)
+
+    def draw(_, module, own):
+        if isinstance(module, QDense):
+            widths = module.tp_widths or (module.features,)
+            w = torch.cat([kernel((module.in_dim, n), module.dtype)
+                           for n in widths], dim=1)
+            out = (_quantized_node(w, module.quant == "w8a8")
+                   if module.quant else {"kernel": w})
+            if "bias" in own:
+                out["bias"] = torch.zeros(module.features, dtype=module.dtype,
+                                          device=dev)
+            return out
+        out = {}
+        for leaf, t in own.items():
+            if leaf == "embedding":
+                out[leaf] = kernel(t.shape, t.dtype)
+            else:
+                out[leaf] = torch.full(t.shape, 0.0 if leaf == "bias" else 1.0,
+                                       dtype=t.dtype, device=dev)
+        return out
+
+    return draw

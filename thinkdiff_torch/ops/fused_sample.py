@@ -18,7 +18,17 @@ of blocks; ``eos_bias`` -1e30 on EOS columns, scaled per row by ``blocked``
 
 The noise is a counter-based hash of (seed, row, vocabulary column), so a
 draw depends on neither the kernel's tiling nor the padding, and
-``gumbel_noise`` reproduces the kernel's draws exactly. The TPU kernel drew
+``gumbel_noise`` reproduces the kernel's draws exactly.
+
+Vocabulary-shard mode (a tensor-parallel lm_head, one shard a rank of the
+model group): ``col0`` is the global vocabulary column of the pack's first
+column; it enters the noise's hash and the argmax key, and with
+``keys=True`` the call returns each row's 64-bit argmax key (the top bit
+flipped, so int64 order is the keys' order) in place of the id. The MAX of
+the shards' keys over the group (``keys_to_ids``) is exactly the
+unsharded call's id: the larger value wins, and of equal values the lower
+global column. ``col0=0`` with ids out is the unsharded call, bit for
+bit. The TPU kernel drew
 from the chip's own generator; the two give different streams of the same
 law. On a CUDA tensor ``fused_lm_sample`` launches the hand-written kernel
 of ``csrc/fused_sample.cu`` (x quantized in the same launch; one launch a
@@ -107,6 +117,24 @@ def key_column(key: int) -> int:
     return _M32 - (key & _M32)
 
 
+_TOP = -(1 << 63)  # the int64 with only the top bit set
+
+
+def argmax_keys(values: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """``argmax_key`` of f32 ``values`` at int64 ``cols`` (same shape), with
+    the top bit flipped: int64 tensors whose signed order is the keys'
+    unsigned order (the kernel's keys output)."""
+    v = torch.where(values == 0, torch.zeros_like(values), values)
+    u = v.float().view(torch.int32).long() & _M32
+    ordered = torch.where(u >= (1 << 31), ~u & _M32, u | (1 << 31))
+    return ((ordered ^ (1 << 31)) << 32) | (_M32 - cols.long())
+
+
+def keys_to_ids(keys: torch.Tensor) -> torch.Tensor:
+    """The vocabulary ids of int64 argmax keys (``argmax_keys``' layout)."""
+    return _M32 - (keys & _M32)
+
+
 def bits_to_gumbel(bits: torch.Tensor) -> torch.Tensor:
     """uint32 random bits (any integer tensor holding values < 2^32) ->
     Gumbel(0, 1) f32: u = (top 24 bits + 0.5) * 2^-24, g = -log(-log(u)),
@@ -135,13 +163,15 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def gumbel_noise(seed2: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+def gumbel_noise(seed2: torch.Tensor, rows: int, cols: int,
+                 col0: int = 0) -> torch.Tensor:
     """The kernel's Gumbel draws as a (rows, cols) f32 tensor on seed2's
-    device: bits = mix32(mix32(((row << 20) | col) ^ seed[0]) ^ seed[1])."""
+    device, for the global columns col0 .. col0 + cols - 1:
+    bits = mix32(mix32(((row << 20) | col) ^ seed[0]) ^ seed[1])."""
     dev = seed2.device
     s = seed2.long() & _M32
     key = ((torch.arange(rows, device=dev)[:, None] << 20)
-           | torch.arange(cols, device=dev)[None, :])
+           | (col0 + torch.arange(cols, device=dev))[None, :])
     return bits_to_gumbel(_mix32(_mix32(key ^ s[0]) ^ s[1]))
 
 
@@ -201,11 +231,14 @@ def _quantize_input(x: torch.Tensor, pack):
 
 
 def fused_lm_sample_reference(x, pack, blocked, *, temperature: float,
-                              noise: Optional[torch.Tensor] = None):
+                              noise: Optional[torch.Tensor] = None,
+                              col0: int = 0, keys: bool = False):
     """The plain version: the exact int32 logits (float64 sums), the same
     f32 arithmetic in the same order as the kernel, then argmax (first
-    occurrence). ``noise`` (B, Vp) f32, e.g. ``gumbel_noise(seed2, B, Vp)``,
-    is added when given; inv_temp is 1/T then (else 1)."""
+    occurrence). ``noise`` (B, Vp) f32, e.g. ``gumbel_noise(seed2, B, Vp,
+    col0)``, is added when given; inv_temp is 1/T then (else 1). With
+    ``keys`` the (B,) int64 argmax keys of the best columns, at global
+    column ``col0`` + the pack's column (``argmax_keys``)."""
     xq, sx = _quantize_input(x, pack)
     qt = pack["qt"]
     acc = (xq.double() @ qt.double().t()).float()             # exact sums
@@ -216,7 +249,10 @@ def fused_lm_sample_reference(x, pack, blocked, *, temperature: float,
            + blocked.float()[:, None] * pack["eos_bias"][None])
     if noise is not None:
         per = per + noise
-    return torch.argmax(per, dim=-1)
+    best = torch.argmax(per, dim=-1)
+    if not keys:
+        return best
+    return argmax_keys(per.gather(1, best[:, None])[:, 0], best + col0)
 
 
 # the kernel's workspace per device, stream and shape: xq (B, D) int8, sx
@@ -240,7 +276,8 @@ def _sample_workspace(device, stream: int, b: int, d: int):
     return got
 
 
-def _fused_lm_sample_cuda(x, pack, blocked, seed2, temperature, noise):
+def _fused_lm_sample_cuda(x, pack, blocked, seed2, temperature, noise,
+                          col0=0, keys=False):
     qt = pack["qt"]
     vp, d = qt.shape
     b = x.shape[0]
@@ -252,9 +289,10 @@ def _fused_lm_sample_cuda(x, pack, blocked, seed2, temperature, noise):
                         "int8 (Vp, D) storage")
     if not x.is_floating_point():
         raise TypeError(f"fused_lm_sample kernel takes float x, not {x.dtype}")
-    if d % 16 or vp % 128 or vp > (1 << 20) or b >= 4096:
+    if d % 16 or vp % 128 or col0 < 0 or col0 + vp > (1 << 20) or b >= 4096:
         raise ValueError(f"fused_lm_sample kernel: D={d} must be a multiple "
-                         f"of 16, Vp={vp} of 128 and <= 2^20, B={b} < 4096")
+                         f"of 16, Vp={vp} of 128, col0={col0} + Vp <= 2^20, "
+                         f"B={b} < 4096")
     if x.dtype not in (torch.bfloat16, torch.float32):
         x = x.float()
     x = x.contiguous()
@@ -280,27 +318,32 @@ def _fused_lm_sample_cuda(x, pack, blocked, seed2, temperature, noise):
             kernels.ptr(pack["pad_bias"]), kernels.ptr(pack["eos_bias"]),
             kernels.ptr(blk[r0:r0 + rows]), kernels.ptr(seed),
             *map(kernels.ptr, ws), kernels.ptr(ids[r0:r0 + rows]), rows, d, vp,
-            r0, float(inv_temp), int(bool(noise)),
-            int(x.dtype == torch.float32), *plan, stream)
+            r0, int(col0), int(bool(keys)), float(inv_temp),
+            int(bool(noise)), int(x.dtype == torch.float32), *plan, stream)
         kernels.check_launch(rc, "fused_lm_sample")
         kernels.count_launch("fused_lm_sample")
     return ids
 
 
 def fused_lm_sample(x, pack, blocked, seed2, *, temperature: float,
-                    noise: bool) -> torch.Tensor:
+                    noise: bool, col0: int = 0,
+                    keys: bool = False) -> torch.Tensor:
     """x (B, D) float hidden states; pack from ``pack_lm_head``; blocked (B,)
     f32 (1.0 = EOS masked for the row); seed2 (2,) int32 on x's device
-    (read only when noise). Returns (B,) int64 token ids.
+    (read only when noise). Returns (B,) int64 token ids; for a vocabulary
+    shard whose first column is global column ``col0``, with ``keys`` the
+    (B,) int64 argmax keys (``keys_to_ids`` of their MAX over the shards
+    is the unsharded id).
 
     The QDense w8a8 lm_head semantics: x / input_scale in f32 -> per-row
     absmax int8 -> s8 x s8 product -> float(acc) * sx * kernel_scale."""
     if x.is_cuda:
         return _fused_lm_sample_cuda(x, pack, blocked, seed2, temperature,
-                                     noise)
+                                     noise, col0, keys)
     if x.device.type == "cpu":
-        g = (gumbel_noise(seed2, x.shape[0], pack["qt"].shape[0])
+        g = (gumbel_noise(seed2, x.shape[0], pack["qt"].shape[0], col0)
              if noise else None)
         return fused_lm_sample_reference(x, pack, blocked,
-                                         temperature=temperature, noise=g)
+                                         temperature=temperature, noise=g,
+                                         col0=col0, keys=keys)
     raise NotImplementedError(f"fused_lm_sample: no kernel for {x.device}")

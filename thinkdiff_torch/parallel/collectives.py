@@ -18,6 +18,12 @@ The three seams of a tensor-parallel tower, as autograd functions:
 runs (ZeRO-style: every rank stores 1/F of it; no gradient, the weights
 are frozen). Reductions of float partials run in f32; an integer sum is
 exact in int32.
+
+What serving adds: ``gather_from_model`` of a vocabulary shard's logits
+(in the model dtype, bit for bit), ``model_all_reduce(keys, "max")`` of
+the fused sampler's int64 argmax keys, and ``data_gather_objects``, the
+data coordinates' host results on every rank. A collective the backend
+does not have raises; none is rebuilt from another.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 
 from thinkdiff_torch.core.distributed import all_gather, all_reduce
 from thinkdiff_torch.parallel.mesh import (  # noqa: F401
-    FSDP_AXIS, MODEL_AXIS, axis_group, axis_index, axis_size)
+    DATA_AXIS, FSDP_AXIS, MODEL_AXIS, axis_group, axis_index, axis_size)
 
 
 def model_group():
@@ -64,6 +70,46 @@ def leaf_gathered(module, name: str) -> torch.Tensor:
     if pl.dim_of(MODEL_AXIS) is not None:
         raise ValueError(f"{name}: split over model, not a gather's")
     return fsdp_gather(t, pl.dim_of(FSDP_AXIS))
+
+
+def data_gather_objects(obj):
+    """[the object of data coordinate d for d in range(D)] on every rank
+    (``[obj]`` for a data axis of 1): picklable host objects, gathered over
+    this rank's ``data`` line."""
+    if axis_size(DATA_AXIS) == 1:
+        return [obj]
+    import torch.distributed as dist
+
+    out = [None] * axis_size(DATA_AXIS)
+    dist.all_gather_object(out, obj, group=axis_group(DATA_AXIS))
+    return out
+
+
+def reader_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a global batch ``x`` split over the (data,
+    fsdp) readers (``sharding.batch_rows``, JAX's batch sharding; the whole
+    batch without a mesh)."""
+    from thinkdiff_torch.core.distributed import get_rank
+    from thinkdiff_torch.parallel.mesh import current_mesh
+    from thinkdiff_torch.parallel.sharding import batch_rows
+
+    readers = axis_size(DATA_AXIS) * axis_size(FSDP_AXIS)
+    if readers == 1:
+        return x
+    if x.shape[0] % readers:
+        raise ValueError(f"a batch of {x.shape[0]} rows over {readers} "
+                         f"(data, fsdp) readers: each takes an equal block")
+    return batch_rows({"x": x}, current_mesh(), get_rank())["x"]
+
+
+def gather_reader_rows(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``reader_rows``: the readers' rows, bit for bit, in
+    batch order on every rank."""
+    x = x.contiguous()
+    for axis in (FSDP_AXIS, DATA_AXIS):
+        if axis_size(axis) > 1:
+            x = all_gather(x, axis_group(axis), 0)
+    return x
 
 
 def model_all_reduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:

@@ -103,8 +103,10 @@ _CURRENT: Dict[str, object] = {"mesh": None, "groups": {}}
 
 def set_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
     """Makes ``mesh`` the run's (None: no mesh) and, over several ranks,
-    its process groups: one a line of each sharded axis, made by every
-    rank in the same order, as ``torch.distributed.new_group`` asks.
+    its process groups: one a line of each axis of more than one rank
+    (``data`` too: the serving engines gather their results over it),
+    made by every rank in the same order, as
+    ``torch.distributed.new_group`` asks.
     Setting the mesh that is current again makes nothing. Raises
     ValueError for a mesh whose size is not the world's, whatever the
     world."""
@@ -120,7 +122,7 @@ def set_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
                          f"{get_world_size()}: each rank holds one device")
     if mesh is not None and mesh.size > 1:
         me = get_rank()
-        for axis in (FSDP_AXIS, MODEL_AXIS):
+        for axis in AXES:
             if mesh.shape[axis] == 1:
                 continue
             lines = sorted({mesh.axis_ranks(r, axis)

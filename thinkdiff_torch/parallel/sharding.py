@@ -14,13 +14,16 @@ GSPMD does: the fsdp dimension is gathered where a layer runs
 share of the product and reduces or gathers over the model group.
 
 One liberty against JAX's placement: a fused projection (``qkv``,
-``kv_fused``, ``wi_fused``) sharded over ``model`` holds JAX's count of
-columns on each rank, but arranged by part (q|k|v, k|v, gate|up), rank m
-holding block m of every part, so its share of the product is whole heads
-and whole gate/up pairs. ``tree_of`` and ``load_params``
-(models/bridge.py) undo and apply that order, so trees cross in JAX's
-layout. Where a part does not split into whole units (heads) the leaf
-keeps JAX's contiguous block and the layer gathers its output.
+``kv_fused``, ``wi_fused``, ``gate_up``) sharded over ``model`` holds
+JAX's count of columns on each rank, but arranged by part (q|k|v, k|v,
+gate|up), rank m holding block m of every part, so its share of the
+product is whole heads and whole gate/up pairs. The parts are given by
+their widths: equal ones by default, a layer's own ``tp_widths`` where
+they differ (Qwen2's GQA ``qkv`` is H hd | Hkv hd | Hkv hd). ``tree_of``
+and ``load_params`` (models/bridge.py) undo and apply that order, so
+trees cross in JAX's layout. Where a part does not split into whole units
+(the layer's ``tp_unit``: its head size) the leaf keeps JAX's contiguous
+block and the layer gathers its output.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 from torch import nn
 
 from thinkdiff_torch.parallel.mesh import (
-    DATA_AXIS, FSDP_AXIS, MODEL_AXIS, Mesh)
+    DATA_AXIS, FSDP_AXIS, MODEL_AXIS, Mesh, set_mesh)
 
 Spec = Tuple[Optional[str], ...]
 
@@ -54,8 +57,9 @@ DEFAULT_RULES: Sequence[Tuple[str, Spec]] = (
     (r".*", ()),
 )
 
-# the parts of a fused projection, in its column order
-FUSED_PARTS = {"qkv": 3, "kv_fused": 2, "wi_fused": 2}
+# the parts of a fused projection, in its column order (equal widths
+# unless the layer gives its own ``tp_widths``)
+FUSED_PARTS = {"qkv": 3, "kv_fused": 2, "wi_fused": 2, "gate_up": 2}
 
 
 def _spec_for_name(name: str, rules) -> Spec:
@@ -117,11 +121,17 @@ def shard_spec_tree(tree: Dict[str, Any], mesh: Optional[Mesh] = None,
 class Placement:
     """Where a leaf of full ``shape`` lives: ``spec`` (after ``valid_spec``)
     and, for a fused leaf whose ``model`` dimension is arranged by part,
-    that dimension and the part count."""
+    that dimension and the parts' widths; ``fused`` marks a fused leaf
+    whether or not it is arranged."""
     shape: Tuple[int, ...]
     spec: Spec
     parts_dim: Optional[int] = None
-    parts: int = 1
+    widths: Tuple[int, ...] = ()
+    fused: bool = False
+
+    @property
+    def parts(self) -> int:
+        return len(self.widths) or 1
 
     def dim_of(self, axis: str) -> Optional[int]:
         return self.spec.index(axis) if axis in self.spec else None
@@ -132,21 +142,30 @@ class Placement:
                      for n, a in zip(self.shape, spec))
 
 
-def arrange_parts(x: torch.Tensor, dim: int, parts: int,
-                  m: int) -> torch.Tensor:
-    """``x`` with dimension ``dim`` reordered from part-major
-    (part, block of m, width) to block-major (block, part, width)."""
-    n = x.shape[dim]
-    shape = x.shape[:dim] + (parts, m, n // parts // m) + x.shape[dim + 1:]
-    return x.reshape(shape).transpose(dim, dim + 1).reshape(x.shape)
+def part_widths(parts, n: int) -> Tuple[int, ...]:
+    """The widths of ``parts`` (a count of equal parts of ``n``, or the
+    widths themselves)."""
+    if isinstance(parts, int):
+        return (n // parts,) * parts
+    return tuple(int(w) for w in parts)
 
 
-def unarrange_parts(x: torch.Tensor, dim: int, parts: int,
-                    m: int) -> torch.Tensor:
+def arrange_parts(x: torch.Tensor, dim: int, parts, m: int) -> torch.Tensor:
+    """``x`` with dimension ``dim`` reordered from part-major (part, block
+    of m, its width / m) to block-major (block, part, width / m); ``parts``
+    is a count of equal parts or their widths."""
+    widths = part_widths(parts, x.shape[dim])
+    pieces = [p.unflatten(dim, (m, w // m))
+              for p, w in zip(x.split(widths, dim), widths)]
+    return torch.cat(pieces, dim + 1).flatten(dim, dim + 1)
+
+
+def unarrange_parts(x: torch.Tensor, dim: int, parts, m: int) -> torch.Tensor:
     """The inverse of ``arrange_parts``."""
-    n = x.shape[dim]
-    shape = x.shape[:dim] + (m, parts, n // parts // m) + x.shape[dim + 1:]
-    return x.reshape(shape).transpose(dim, dim + 1).reshape(x.shape)
+    widths = part_widths(parts, x.shape[dim])
+    blocks = x.unflatten(dim, (m, x.shape[dim] // m))
+    pieces = blocks.split([w // m for w in widths], dim + 1)
+    return torch.cat([p.flatten(dim, dim + 1) for p in pieces], dim)
 
 
 def local_block(full: torch.Tensor, pl: Placement, mesh: Mesh,
@@ -155,7 +174,7 @@ def local_block(full: torch.Tensor, pl: Placement, mesh: Mesh,
     order) gives the device at ``coords``."""
     x = full
     if pl.parts_dim is not None:
-        x = arrange_parts(x, pl.parts_dim, pl.parts, mesh.model)
+        x = arrange_parts(x, pl.parts_dim, pl.widths, mesh.model)
     for dim, axis in enumerate(pl.spec):
         if axis is None:
             continue
@@ -187,17 +206,19 @@ def placements(module: nn.Module, mesh: Mesh,
         owner, leaf = _owner(module, name)
         spec = valid_spec(spec_for_param(name.replace(".", "/"),
                                          len(shape), rules), shape, mesh)
-        parts_dim, parts = None, 1
+        parts_dim, widths = None, ()
         md = spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
         layer = name.rpartition(".")[0].rpartition(".")[2]
-        if md is not None and layer in FUSED_PARTS and leaf in (
-                "kernel", "kernel_q", "kernel_scale", "bias") \
-                and md == len(shape) - 1:
-            p = FUSED_PARTS[layer]
+        fused = layer in FUSED_PARTS and leaf in (
+            "kernel", "kernel_q", "kernel_scale", "bias")
+        if md is not None and fused and md == len(shape) - 1:
+            w = part_widths(getattr(owner, "tp_widths", None)
+                            or FUSED_PARTS[layer], shape[md])
             unit = getattr(owner, "tp_unit", 1)
-            if shape[md] % (p * mesh.model * unit) == 0:
-                parts_dim, parts = md, p
-        out[name] = Placement(shape, spec, parts_dim, parts)
+            if sum(w) == shape[md] and all(
+                    x % (mesh.model * unit) == 0 for x in w):
+                parts_dim, widths = md, w
+        out[name] = Placement(shape, spec, parts_dim, widths, fused)
     return out
 
 
@@ -209,7 +230,13 @@ def _set_leaf(module: nn.Module, dotted: str, value: torch.Tensor) -> None:
         owner._buffers[leaf] = value
 
 
-def _empty_like_leaf(owner: nn.Module, leaf: str, shape, dtype, device):
+def _empty_like_leaf(owner: nn.Module, leaf: str, shape, dtype, device,
+                     like: Optional[torch.Tensor] = None):
+    """Storage for a leaf's block: a whole leaf keeps the strides of
+    ``like`` (the layout its layer reads, e.g. a channels-last conv
+    kernel)."""
+    if like is not None and tuple(like.shape) == tuple(shape):
+        return torch.empty_like(like, dtype=dtype, device=device)
     if leaf == "kernel_q":
         # the transposed storage the s8 kernel reads (models/qdense.py)
         return torch.empty(shape[::-1], dtype=dtype, device=device).t()
@@ -257,7 +284,8 @@ def build_sharded(module: nn.Module, mesh: Mesh, coords: Dict[str, int],
             value = full[leaf]
             block = local_block(value.to(device), pls[pre + leaf], mesh,
                                 coords)
-            dst = _empty_like_leaf(sub, leaf, block.shape, meta.dtype, device)
+            dst = _empty_like_leaf(sub, leaf, block.shape, meta.dtype, device,
+                                   meta)
             dst.copy_(block)
             _set_leaf(module, pre + leaf, dst)
         del full
@@ -269,11 +297,14 @@ def build_sharded(module: nn.Module, mesh: Mesh, coords: Dict[str, int],
 def shard_params(module: nn.Module, mesh: Mesh,
                  coords: Dict[str, int]) -> nn.Module:
     """Keeps this rank's block of every leaf of a whole ``module``, in
-    place (the counterpart of JAX's ``shard_params``, one rank's view)."""
+    place (the counterpart of JAX's ``shard_params``, one rank's view); a
+    leaf the placement leaves whole is kept as it is."""
     full = {k: v.detach() for k, v in _leaves(module).items()}
     # the rules read the leaf shapes before any leaf is cut
     pls = placements(module, mesh)
     for name, t in full.items():
+        if pls[name].parts_dim is None and not any(pls[name].spec):
+            continue
         owner, leaf = _owner(module, name)
         block = local_block(t, pls[name], mesh, coords)
         dst = _empty_like_leaf(owner, leaf, block.shape, t.dtype, t.device)
@@ -281,6 +312,22 @@ def shard_params(module: nn.Module, mesh: Mesh,
         _set_leaf(module, name, dst)
     _annotate(module, pls, mesh)
     return module
+
+
+def place_on_mesh(module, mesh):
+    """``module`` holding this rank's blocks on ``mesh`` (made the run's:
+    ``set_mesh`` refuses a mesh that is not the world's): cut in place
+    from a whole module, or as it is when it was built block by block."""
+    from thinkdiff_torch.core.distributed import get_rank
+
+    set_mesh(mesh)
+    if module is None or not mesh.sharded:
+        return module
+    if getattr(module, "_mesh", None) is not None:
+        if module._mesh != mesh:
+            raise ValueError(f"module built for {module._mesh}, not {mesh}")
+        return module
+    return shard_params(module, mesh, mesh.coords(get_rank()))
 
 
 def gather_leaf(t: torch.Tensor, pl: Placement, mesh: Mesh) -> torch.Tensor:
@@ -296,7 +343,7 @@ def gather_leaf(t: torch.Tensor, pl: Placement, mesh: Mesh) -> torch.Tensor:
     if md is not None:
         x = all_gather(x.contiguous(), axis_group(MODEL_AXIS), md)
     if pl.parts_dim is not None:
-        x = unarrange_parts(x, pl.parts_dim, pl.parts, mesh.model)
+        x = unarrange_parts(x, pl.parts_dim, pl.widths, mesh.model)
     return x
 
 
