@@ -3303,6 +3303,20 @@ def build_lvlm_model():
     return model
 
 
+def lvlm_phase_seconds(spans) -> dict:
+    """Host seconds of ``MllamaT5EmbedDecoderWithEngine.generate``'s spans:
+    the VLM, the projector and the T5 decode (each without a synchronize:
+    the decode's ``tolist`` waits for the projector), and the T5 steps."""
+    sec = {"vlm": 0.0, "projector": 0.0, "t5": 0.0, "t5_steps": 0}
+    keys = {"lvlm.vlm": "vlm", "lvlm.projector": "projector",
+            "lvlm.t5_decode": "t5"}
+    for s in spans:
+        if s.name in keys:
+            sec[keys[s.name]] += (s.end_ns - s.start_ns) / 1e9
+            sec["t5_steps"] += s.attrs.get("steps", 0)
+    return sec
+
+
 def phase_lvlm_text():
     """configs/test_thinkdiff_lvlm_ccsbu_image_text.yaml with the frozen T5
     in weight-only int8: MllamaT5EmbedDecoderWithEngine.generate over
@@ -3311,6 +3325,7 @@ def phase_lvlm_text():
     32 steps per sample), then get_text on LVLM_TEXT_ONLY text-only raw
     prompts."""
     from thinkdiff_torch import kernels
+    from thinkdiff_torch.core import trace
     from thinkdiff_torch.models.aligner_lvlm import lvlm_text_launches
 
     torch.cuda.reset_peak_memory_stats()
@@ -3337,12 +3352,17 @@ def phase_lvlm_text():
     samples = {"images": images, "answers": prompts}
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    trace.clear()
+    trace.enable()
     t0 = time.perf_counter()
     ids, t5_texts, vlm_texts = model.generate(
         samples, embedding_type="both", max_new_tokens=engine.max_tokens,
         t5_max_new_tokens=T5_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    trace.disable()
+    ph = lvlm_phase_seconds(trace.spans())
+    trace.clear()
     launches = kernels.launch_counts()
     res = results[-1]
     embed_lens = [len(p) + len(o) for p, o in zip(res.prompt_token_ids,
@@ -3368,7 +3388,6 @@ def phase_lvlm_text():
                if launches[k] == 0]
     if missing:
         raise AssertionError(f"lvlm-text: kernels not launched: {missing}")
-    ph = model.last_phase_times
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say("lvlm-text", f"generate(embedding_type='both') on {LVLM_REQUESTS} "
         f"requests ({len(res.prompt_token_ids[0])} prompt + "

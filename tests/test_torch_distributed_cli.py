@@ -346,7 +346,9 @@ def test_two_rank_precompute_writes_disjoint_ranges_of_every_sample(
 def test_profile_dir_writes_epoch_0_s_trace(tmp_path):
     """run.profile_dir: epoch 0's iterations under torch.profiler, written
     as a Chrome trace, trace_rank0.json in a world of one; epoch 1 is not
-    traced."""
+    traced. The trace carries the program's spans on its own clock: one
+    train.step an iteration of epoch 0, inside the trace's time range,
+    each holding its forward's matrix products."""
     cfg = _cfg(tmp_path, _shards(tmp_path, 16),
                profile_dir=str(tmp_path / "trace"))
     runner = _in_process(tmp_path, cfg, "--device", "cpu", "--job-id", "p")
@@ -354,3 +356,14 @@ def test_profile_dir_writes_epoch_0_s_trace(tmp_path):
     trace = json.loads((tmp_path / "trace" / "trace_rank0.json").read_text())
     assert any(e.get("name") == "aten::mm" for e in trace["traceEvents"])
     assert runner.state["step"] == 6
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    lo = min(e["ts"] for e in ops)
+    hi = max(e["ts"] + e["dur"] for e in ops)
+    steps = [e for e in events if e.get("cat") == "program_span"
+             and e["name"] == "train.step"]
+    assert [e["args"]["step"] for e in steps] == [0, 1, 2]
+    for s in steps:
+        assert lo <= s["ts"] and s["ts"] + s["dur"] <= hi
+        assert any(e["name"] == "aten::mm" and s["ts"] <= e["ts"]
+                   and e["ts"] + e["dur"] <= s["ts"] + s["dur"] for e in ops)

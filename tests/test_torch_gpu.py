@@ -1567,3 +1567,37 @@ def test_fused_sample_shard_keys(cuda, case):
             keys.append(got)
         assert torch.equal(keys_to_ids(torch.stack(keys).amax(0)), want), (
             case, noise)
+
+
+def test_a_span_holds_the_launch_it_made(cuda, tmp_path):
+    """The port's spans (core/trace.py) are on under a CUDA-only profiler
+    and stamp the clock of its chrome trace: the cudaLaunchKernel of a
+    kernel launched inside a span lies inside that span's interval on the
+    exported trace, within 50 us."""
+    import json
+
+    from thinkdiff_torch.core import trace
+
+    trace.clear()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        torch.cuda.synchronize()
+        with trace.span("gpu.sleep"):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    (sp,) = trace.spans()
+    trace.clear()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    data = json.loads(path.read_text())
+    base = int(data.get("baseTimeNanoseconds", 0))
+    ev = [e for e in data["traceEvents"] if e.get("ph") == "X"]
+    corr = next(e["args"]["correlation"] for e in ev
+                if e.get("cat") == "kernel" and "spin_kernel" in e["name"])
+    launch = next(e for e in ev if e.get("cat") == "cuda_runtime"
+                  and e.get("args", {}).get("correlation") == corr)
+    assert launch["name"] == "cudaLaunchKernel"
+    a, b = (sp.start_ns - base) / 1e3, (sp.end_ns - base) / 1e3
+    assert b - a < 5000, (a, b)
+    assert a - 50 <= launch["ts"] and \
+        launch["ts"] + launch["dur"] <= b + 50, (a, b, launch)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from thinkdiff_torch.core import trace
 from thinkdiff_torch.engines import embed_engine as te
 from thinkdiff_torch.engines.standin_tokenizer import StandInTokenizer
 from thinkdiff_torch.models import aligner_lvlm as ta
@@ -124,13 +125,23 @@ def test_with_engine_generate_matches_jax(engines, embedding_type, quant):
     jmod, tmod = _models(quant, engines)
     want = jmod.generate(_samples(), embedding_type=embedding_type,
                          max_new_tokens=6, t5_max_new_tokens=T5_STEPS)
-    got = tmod.generate(_samples(), embedding_type=embedding_type,
-                        max_new_tokens=6, t5_max_new_tokens=T5_STEPS)
+    trace.clear()
+    trace.enable()
+    try:
+        got = tmod.generate(_samples(), embedding_type=embedding_type,
+                            max_new_tokens=6, t5_max_new_tokens=T5_STEPS)
+    finally:
+        trace.disable()
+    spans = trace.spans()
+    trace.clear()
     assert got[2] == want[2]                     # VLM texts
     assert got[0] == want[0] and len(got[0]) == 2
     assert got[1] == want[1] == ["", ""]         # no local T5 tokenizer
-    times = tmod.last_phase_times
-    assert times["t5_steps"] == 2 * T5_STEPS and times["vlm"] > 0
+    # the phases as spans: the VLM once, the projector and T5 a sample
+    assert [s.name for s in spans] == ["lvlm.vlm"] + [
+        "lvlm.projector", "lvlm.t5_decode"] * 2
+    assert sum(s.attrs.get("steps", 0) for s in spans) == 2 * T5_STEPS
+    assert spans[0].end_ns > spans[0].start_ns
 
 
 def test_with_engine_generate_trims_at_eos(engines):

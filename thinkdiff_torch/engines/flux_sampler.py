@@ -13,7 +13,8 @@ Scheduler: FlowMatchEulerDiscrete with FLUX's dynamic shifting,
 The trajectory is carried in f32 whatever the model's dtype; the model gets
 x cast to its dtype and its velocity is cast back to f32 for the update.
 JAX runs the loop as one jitted ``lax.scan``; here it is a Python loop over
-the steps (``denoise``).
+the steps (``denoise``). Spans (``core/trace.py``): ``flux.step`` around
+each Euler step (attr ``step``), ``flux.decode`` around the VAE.
 
 The sampler is built on its device (``device="cuda"`` by default; it raises
 without a card, and runs the kernels' plain versions on the CPU only when
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 from thinkdiff_torch import resolve_device
+from thinkdiff_torch.core.trace import span
 from thinkdiff_torch.models.bridge import load_params
 from thinkdiff_torch.models.flux import (
     FluxConfig, FluxTransformer, make_img_ids, unpack_latents)
@@ -138,22 +140,25 @@ class FluxSampler:
         b = x.shape[0]
         g = torch.full((b,), guidance, dtype=torch.float32, device=dev)
         for i in range(len(sig) - 1):
-            t = torch.full((b,), float(sig[i]), dtype=torch.float32,
-                           device=dev)
-            v = self.transformer(x.to(dtype), txt, pooled, t, img_ids,
-                                 txt_ids, g)
-            # sigma_{i+1} - sigma_i in f32, as JAX takes it
-            x = x + float(sig[i + 1] - sig[i]) * v.float()
+            with span("flux.step", step=i):
+                t = torch.full((b,), float(sig[i]), dtype=torch.float32,
+                               device=dev)
+                v = self.transformer(x.to(dtype), txt, pooled, t, img_ids,
+                                     txt_ids, g)
+                # sigma_{i+1} - sigma_i in f32, as JAX takes it
+                x = x + float(sig[i + 1] - sig[i]) * v.float()
         return col.gather_reader_rows(x)
 
     @torch.no_grad()
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """(B, h, w, C) spatial latents -> (B, 8h, 8w, 3) images in [0, 1],
         in the VAE's dtype (on a mesh: each reader's rows, gathered)."""
-        z = col.reader_rows(latents) / self.vae_cfg.scaling_factor \
-            + self.vae_cfg.shift_factor
-        img = self.vae(z)
-        return col.gather_reader_rows(torch.clamp(img * 0.5 + 0.5, 0.0, 1.0))
+        with span("flux.decode"):
+            z = col.reader_rows(latents) / self.vae_cfg.scaling_factor \
+                + self.vae_cfg.shift_factor
+            img = self.vae(z)
+            return col.gather_reader_rows(
+                torch.clamp(img * 0.5 + 0.5, 0.0, 1.0))
 
     # -- public API ---------------------------------------------------------
     def noise(self, batch: int, seq_len: int, seed: int) -> torch.Tensor:

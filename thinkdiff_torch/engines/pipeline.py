@@ -22,6 +22,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from thinkdiff_torch.core.trace import span
 from thinkdiff_torch.engines.flux_sampler import FluxSampler
 from thinkdiff_torch.models.clip_text import (
     CLIPTextConfig, CLIPTextEncoder, convert_clip_text)
@@ -188,11 +189,13 @@ class ThinkDiffPipeline:
                  width: int = 1024, num_steps: int = 28,
                  guidance: float = 3.5, seed: int = 0):
         """Images (B, H, W, 3) in [0, 1] conditioned on ``prompt_embeds``,
-        from the sampler's initial noise for ``seed``."""
-        embeds, pooled = self.encode_prompt(prompt, prompt_embeds)
-        return self.sampler.sample(
-            embeds, pooled, height=height, width=width, num_steps=num_steps,
-            guidance=guidance, seed=seed)
+        from the sampler's initial noise for ``seed``: one ``flux.request``
+        span, the root of the request's step and decode spans."""
+        with span("flux.request"):
+            embeds, pooled = self.encode_prompt(prompt, prompt_embeds)
+            return self.sampler.sample(
+                embeds, pooled, height=height, width=width,
+                num_steps=num_steps, guidance=guidance, seed=seed)
 
     def compose_clip_condition(self, image_projections: Sequence[Any],
                                text_embeds=None,

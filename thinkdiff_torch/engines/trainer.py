@@ -4,7 +4,10 @@ One step = loss -> gradient of the trainable tree -> AdamW update, eagerly.
 The trainable parameters are f32 master copies; the model computes in its
 dtype. Unlike the JAX step, which donates its state and returns a new one,
 ``train_step`` updates the state's parameters and moments in place and
-returns the same dicts.
+returns the same dicts. Spans (``core/trace.py``): ``train.prepare_batch``,
+and ``train.step`` around ``train.forward`` (the loss, chunked CE
+included), ``train.backward``, ``train.allreduce`` (several ranks only)
+and ``train.optimizer`` (AdamW and its clip).
 
 Over several ranks (``core.distributed``) each rank holds a replica of the
 state and its own slice of the global batch, and the step computes what
@@ -39,6 +42,7 @@ from thinkdiff_torch.core.distributed import (
     all_reduce_sum, broadcast_tensors, get_world_size)
 from thinkdiff_torch.core.optim import (
     global_norm, make_optimizer, tree_leaves, tree_map)
+from thinkdiff_torch.core.trace import span
 from thinkdiff_torch.parallel.mesh import current_mesh, set_mesh
 
 
@@ -107,11 +111,12 @@ class Trainer:
         """Host numpy -> tensors on the device (pinned, non-blocking copies
         to a card)."""
         out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(np.ascontiguousarray(v))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
+        with span("train.prepare_batch"):
+            for k, v in batch.items():
+                t = torch.as_tensor(np.ascontiguousarray(v))
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out[k] = t
         return out
 
     def _generator(self, rng: Optional[int], step: int):
@@ -127,27 +132,32 @@ class Trainer:
         with the step). Metrics: loss and grad_norm as device scalars, lr
         (the schedule at this step) as a float."""
         params, step = state["params"], state["step"]
-        leaves = [p for _, p in tree_leaves(params)]
-        distributed = get_world_size() > 1
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            loss = self.model.loss_fn(params, self.frozen, batch,
-                                      self._generator(rng, step))
-            if distributed:
-                count = self.model.label_count(batch).float()
-                loss = loss * count      # this rank's sum of token losses
-            grads = torch.autograd.grad(loss, leaves)
-        finally:
+        with span("train.step", step=step):
+            leaves = [p for _, p in tree_leaves(params)]
+            distributed = get_world_size() > 1
             for p in leaves:
-                p.requires_grad_(False)
-        if distributed:
-            grads, loss = _global_mean(grads, loss.detach(), count)
-        grads = _tree_like(params, grads)
-        metrics = {"loss": loss.detach(), "lr": self.schedule(step),
-                   "grad_norm": global_norm(grads)}
-        self.tx.update(grads, state["opt_state"], params)
-        state["step"] = step + 1
+                p.requires_grad_(True)
+            try:
+                with span("train.forward"):
+                    loss = self.model.loss_fn(params, self.frozen, batch,
+                                              self._generator(rng, step))
+                if distributed:
+                    count = self.model.label_count(batch).float()
+                    loss = loss * count  # this rank's sum of token losses
+                with span("train.backward"):
+                    grads = torch.autograd.grad(loss, leaves)
+            finally:
+                for p in leaves:
+                    p.requires_grad_(False)
+            if distributed:
+                with span("train.allreduce"):
+                    grads, loss = _global_mean(grads, loss.detach(), count)
+            grads = _tree_like(params, grads)
+            metrics = {"loss": loss.detach(), "lr": self.schedule(step),
+                       "grad_norm": global_norm(grads)}
+            with span("train.optimizer"):
+                self.tx.update(grads, state["opt_state"], params)
+            state["step"] = step + 1
         return state, metrics
 
     # -- eval ---------------------------------------------------------------

@@ -24,12 +24,12 @@ from __future__ import annotations
 
 import logging
 import math
-import time
 from typing import Any, Dict, List, Optional
 
 import torch
 
 from thinkdiff_torch import registry
+from thinkdiff_torch.core.trace import span
 from thinkdiff_torch.models.aligner_base import AlignerBase
 from thinkdiff_torch.models.bridge import local_hf_dir, to_tensor
 from thinkdiff_torch.models.t5 import (
@@ -239,9 +239,6 @@ class MllamaT5EmbedDecoderWithEngine(MllamaT5EmbedDecoder):
         super().__init__(cfg, seed, device)
         self._engine = engine
         self.t5_tokenizer = None
-        # seconds of the last generate(): VLM, projector, T5 decode (each
-        # ending in a device sync) and the number of T5 decode steps
-        self.last_phase_times: Dict[str, float] = {}
 
     @property
     def engine(self):
@@ -251,10 +248,6 @@ class MllamaT5EmbedDecoderWithEngine(MllamaT5EmbedDecoder):
             self._engine = EmbedEngine.from_config(self.cfg,
                                                    device=self.device)
         return self._engine
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     @staticmethod
     def _vllm_inputs_to_samples(mllama_inputs) -> Dict[str, List[Any]]:
@@ -310,27 +303,25 @@ class MllamaT5EmbedDecoderWithEngine(MllamaT5EmbedDecoder):
         T5 decode. Returns (T5 ids per sample, each cut after its first EOS
         ``t5_eos_token_id`` (default 1), the T5 texts ("" without a local
         tokenizer), the VLM texts): the full per-sample list, where the
-        reference returns only its last sample's decode."""
+        reference returns only its last sample's decode. Spans:
+        ``lvlm.vlm`` (the engine), then ``lvlm.projector`` and
+        ``lvlm.t5_decode`` (attr ``steps``) a sample."""
         if embedding_type not in ("both", "input_embed", "output_embed"):
             raise ValueError(embedding_type)
-        t0 = time.perf_counter()
-        result = self.engine.generate(samples, max_new_tokens=max_new_tokens)
-        times = {"vlm": time.perf_counter() - t0, "projector": 0.0,
-                 "t5": 0.0, "t5_steps": 0}
+        with span("lvlm.vlm"):
+            result = self.engine.generate(samples,
+                                          max_new_tokens=max_new_tokens)
         if self.t5_tokenizer is None:
             self.t5_tokenizer = self.get_t5_tokenizer()
         eos_id = int(self.cfg.get("t5_eos_token_id", 1))
         outputs_list, t5_texts = [], []
         for i in range(len(result.hidden_states)):
             hid = self._hidden(result, i, embedding_type)
-            t0 = time.perf_counter()
-            proj = self.project(self.trainable, hid[None].to(self.device))
-            self._sync()
-            t1 = time.perf_counter()
-            ids = self.greedy_decode(proj, None, t5_max_new_tokens)[0].tolist()
-            times["projector"] += t1 - t0
-            times["t5"] += time.perf_counter() - t1
-            times["t5_steps"] += t5_max_new_tokens
+            with span("lvlm.projector"):
+                proj = self.project(self.trainable, hid[None].to(self.device))
+            with span("lvlm.t5_decode", steps=t5_max_new_tokens):
+                ids = self.greedy_decode(proj, None,
+                                         t5_max_new_tokens)[0].tolist()
             if eos_id in ids:
                 ids = ids[: ids.index(eos_id) + 1]
             outputs_list.append(ids)
@@ -338,7 +329,6 @@ class MllamaT5EmbedDecoderWithEngine(MllamaT5EmbedDecoder):
                 self.t5_tokenizer.decode([t for t in ids if t != eos_id],
                                          skip_special_tokens=True)
                 if self.t5_tokenizer is not None else "")
-        self.last_phase_times = times
         return outputs_list, t5_texts, result.texts
 
     @torch.no_grad()

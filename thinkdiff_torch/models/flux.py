@@ -24,6 +24,13 @@ projections produce: the norm before the head transpose (its rows are the
 same), and the flash kernel reads the joint q/k/v as head-transposed views
 of that memory and writes its output as such a view, so neither side
 copies.
+
+Spans (``core/trace.py``) mark the eager elementwise work of each block:
+``flux.norm_mod`` (each LayerNorm + modulation), ``flux.rope`` (the
+stream concats and RoPE, between the q/k norm and the flash call) and
+``flux.residual`` (each gated residual add, its projection computed
+before the span opens). The rest of a step (the projections, #1, #3,
+GELU / SiLU, the single blocks' concat) is ``flux.step``'s self time.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from thinkdiff_torch.core.trace import span
 from thinkdiff_torch.models.qdense import QDense
 from thinkdiff_torch.ops.flash_attention import flash_attention
 from thinkdiff_torch.ops.norms import layernorm, rmsnorm
@@ -213,26 +221,40 @@ class DoubleBlock(nn.Module):
             self.img_mod(mod).chunk(6, dim=-1)
         t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2 = \
             self.txt_mod(mod).chunk(6, dim=-1)
-        img_n = modulate(_layernorm(img), i_shift1, i_scale1)
-        txt_n = modulate(_layernorm(txt), t_shift1, t_scale1)
+        with span("flux.norm_mod"):
+            img_n = modulate(_layernorm(img), i_shift1, i_scale1)
+        with span("flux.norm_mod"):
+            txt_n = modulate(_layernorm(txt), t_shift1, t_scale1)
         st = txt.shape[1]
         iq, ik, iv = self._qkv(img_n, "img")
         tq, tk, tv = self._qkv(txt_n, "txt")
         # the joint sequence is [txt; img] (diffusers' order)
         cs = (cos[:, None], sin[:, None])
-        q = apply_rope_interleaved(torch.cat([tq, iq], 1), *cs)
-        k = apply_rope_interleaved(torch.cat([tk, ik], 1), *cs)
-        out = _attention(q, k, torch.cat([tv, iv], 1), self.cfg.head_dim)
+        with span("flux.rope"):
+            q = apply_rope_interleaved(torch.cat([tq, iq], 1), *cs)
+            k = apply_rope_interleaved(torch.cat([tk, ik], 1), *cs)
+            v = torch.cat([tv, iv], 1)
+        out = _attention(q, k, v, self.cfg.head_dim)
         txt_attn, img_attn = out[:, :st], out[:, st:]
 
-        img = img + i_gate1[:, None] * self.img_proj(img_attn)
-        txt = txt + t_gate1[:, None] * self.txt_proj(txt_attn)
-        img_m = modulate(_layernorm(img), i_shift2, i_scale2)
+        o = self.img_proj(img_attn)
+        with span("flux.residual"):
+            img = img + i_gate1[:, None] * o
+        o = self.txt_proj(txt_attn)
+        with span("flux.residual"):
+            txt = txt + t_gate1[:, None] * o
+        with span("flux.norm_mod"):
+            img_m = modulate(_layernorm(img), i_shift2, i_scale2)
         img_m = F.gelu(self.img_mlp1(img_m), approximate="tanh")
-        img = img + i_gate2[:, None] * self.img_mlp2(img_m)
-        txt_m = modulate(_layernorm(txt), t_shift2, t_scale2)
+        o = self.img_mlp2(img_m)
+        with span("flux.residual"):
+            img = img + i_gate2[:, None] * o
+        with span("flux.norm_mod"):
+            txt_m = modulate(_layernorm(txt), t_shift2, t_scale2)
         txt_m = F.gelu(self.txt_mlp1(txt_m), approximate="tanh")
-        txt = txt + t_gate2[:, None] * self.txt_mlp2(txt_m)
+        o = self.txt_mlp2(txt_m)
+        with span("flux.residual"):
+            txt = txt + t_gate2[:, None] * o
         return img, txt
 
 
@@ -253,18 +275,21 @@ class SingleBlock(nn.Module):
     def forward(self, x, temb, cos, sin):
         cfg = self.cfg
         shift, scale, gate = self.mod(F.silu(temb)).chunk(3, dim=-1)
-        xn = modulate(_layernorm(x), shift, scale)
+        with span("flux.norm_mod"):
+            xn = modulate(_layernorm(x), shift, scale)
         b, s, _ = x.shape
         h, hd = cfg.num_heads, cfg.head_dim
         q, k = self.qknorm(self.q(xn).reshape(b, s, h, hd),
                            self.k(xn).reshape(b, s, h, hd))
         cs = (cos[:, None], sin[:, None])
-        attn = _attention(apply_rope_interleaved(q, *cs),
-                          apply_rope_interleaved(k, *cs),
-                          self.v(xn).reshape(b, s, h, hd), hd)
+        with span("flux.rope"):
+            q = apply_rope_interleaved(q, *cs)
+            k = apply_rope_interleaved(k, *cs)
+        attn = _attention(q, k, self.v(xn).reshape(b, s, h, hd), hd)
         mlp = F.gelu(self.mlp(xn), approximate="tanh")
         out = self.proj_out(torch.cat([attn, mlp], dim=-1))
-        return x + gate[:, None] * out
+        with span("flux.residual"):
+            return x + gate[:, None] * out
 
 
 class FluxTransformer(nn.Module):

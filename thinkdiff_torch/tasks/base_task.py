@@ -30,6 +30,7 @@ import torch
 from thinkdiff_torch.core.distributed import (
     all_reduce_min, all_reduce_sum, barrier, get_rank, get_world_size,
     is_main_process)
+from thinkdiff_torch.core import trace
 from thinkdiff_torch.core.logging import MetricLogger, SmoothedValue
 from thinkdiff_torch.core.registry import registry
 from thinkdiff_torch.parallel.mesh import (
@@ -130,7 +131,8 @@ class BaseTask:
         averaged metrics as strings). Accumulation happens in the
         optimizer; wandb is logged once an optimizer step. With
         ``profile_dir``, epoch 0's iterations are traced by torch.profiler
-        into ``profile_dir/trace_rank{rank}.json`` (a Chrome trace)."""
+        into ``profile_dir/trace_rank{rank}.json`` (a Chrome trace, the
+        program's spans in it)."""
         prof = None
         if profile_dir and epoch == 0:
             prof = _start_profile(trainer.device)
@@ -238,16 +240,21 @@ def _start_profile(device):
     if torch.device(device).type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
+    trace.clear()  # the spans of the traced iterations alone
     prof.start()
     return prof
 
 
 def _stop_profile(prof, profile_dir: str) -> str:
-    """Ends the trace and writes it as profile_dir/trace_rank{rank}.json."""
+    """Ends the trace and writes it as profile_dir/trace_rank{rank}.json,
+    with the program's spans of the traced iterations (``core/trace.py``)
+    in a process row of their own, on the trace's clock."""
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"trace_rank{get_rank()}.json")
     prof.export_chrome_trace(path)
+    trace.add_to_chrome_trace(path)
+    trace.clear()
     logger.info("training trace of epoch 0 written to %s", path)
     return path
 
